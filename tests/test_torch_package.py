@@ -1,0 +1,108 @@
+"""Package rules of the PyTorch port: it imports neither JAX nor the JAX
+package (nor cv2 or PIL), runs on the card unless the caller asks for the
+CPU, and refuses the serving options it has not ported."""
+
+import ast
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import yolov10_3d_torch
+from yolov10_3d_torch import YOLOv10, build_model
+from yolov10_3d_torch.device import resolve_device
+
+PKG_DIR = Path(yolov10_3d_torch.__file__).resolve().parent
+REPO = PKG_DIR.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yolov10_3d_tpu", "cv2", "PIL")
+SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG_DIR.rglob("*.py")) + ["chip_smoke.py"]
+
+# Blocks the forbidden names (a None entry in sys.modules makes an import
+# raise), imports every module of the port, serves one image on the CPU and
+# checks that none of the names got in.
+_ISOLATED = f"""
+import importlib, pkgutil, sys
+for name in {FORBIDDEN!r}:
+    sys.modules[name] = None
+import numpy as np
+import yolov10_3d_torch
+for mod in pkgutil.walk_packages(yolov10_3d_torch.__path__, "yolov10_3d_torch."):
+    importlib.import_module(mod.name)
+res = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu").predict(
+    np.full((48, 64, 3), 128, np.uint8), imgsz=64)
+assert len(res) == 1 and res[0].boxes.data.shape[1] == 6
+leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
+assert not leaked, leaked
+print("isolated ok")
+"""
+
+
+def test_port_imports_and_serves_without_jax():
+    """In a subprocess: tests/conftest.py has already imported jax here."""
+    out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0 and "isolated ok" in out.stdout, out.stderr[-3000:]
+
+
+@pytest.mark.parametrize("path", SOURCES)
+def test_no_forbidden_import_statement(path):
+    """No import statement of the port or of chip_smoke.py names JAX, the
+    JAX package, cv2 or PIL, at any depth (also inside functions)."""
+    tree = ast.parse((REPO / path).read_text(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        for n in names:
+            assert n.split(".")[0] not in FORBIDDEN, f"{path}:{node.lineno} imports {n}"
+
+
+def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
+    """The default device is the card; without one, every entry point
+    raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        YOLOv10("yolov10n.yaml")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(PKG_DIR / "cfg" / "models" / "v10" / "yolov10n.yaml", device="cuda")
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        resolve_device("meta")
+
+
+@pytest.mark.parametrize("option", ["int8", "spd_serving"])
+def test_unported_serving_options_raise(option):
+    """int8 and spd_serving are not ported: asking for them is an error, not
+    a silent float32 run."""
+    model = YOLOv10("yolov10n.yaml", device="cpu")
+    with pytest.raises(NotImplementedError, match=option):
+        model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, **{option: True})
+
+
+def test_checkpoints_and_unknown_sources_raise():
+    with pytest.raises(NotImplementedError, match="checkpoint"):
+        YOLOv10("yolov10s.ckpt", device="cpu")
+    model = YOLOv10("yolov10n.yaml", device="cpu")
+    with pytest.raises(NotImplementedError, match="unsupported source"):
+        model.predict("bus.jpg")
+    with pytest.raises(KeyError, match="unknown config keys"):
+        model.predict(np.zeros((64, 64, 3), np.uint8), half=True)
+
+
+def test_predict_classes_filter():
+    """``classes`` keeps only the detections of the listed classes."""
+    model = YOLOv10("yolov10n.yaml", device="cpu")
+    img = np.random.default_rng(0).integers(0, 256, (64, 96, 3), dtype=np.uint8)
+    (full,) = model.predict(img, imgsz=64, conf=0.0)
+    keep = int(full.boxes.cls[0])
+    (only,) = model.predict(img, imgsz=64, conf=0.0, classes=[keep])
+    assert len(full) == 50 and 0 < len(only) < len(full)
+    np.testing.assert_array_equal(only.boxes.data, full.boxes.data[full.boxes.cls == keep])

@@ -1,0 +1,154 @@
+"""Configuration: the model YAMLs and the serving defaults the port reads.
+
+The model YAMLs under ``models/v10`` are copies of the JAX package's. The
+machines the port runs on need not have PyYAML, so ``load_yaml`` reads the
+small subset those files use: top-level scalars, one nested mapping
+(``scales``) and block sequences of flow lists (``backbone``/``head``).
+"""
+
+from __future__ import annotations
+
+import re
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+CFG_DIR = Path(__file__).resolve().parent
+
+# The cfg/default.yaml keys the Predictor reads, with the JAX defaults.
+# int8 and spd_serving are serving switches the port has not ported (the
+# Predictor raises on them); spd_serving is a TPU stem layout, on by default
+# in the JAX package, off here.
+DEFAULTS: Dict[str, Any] = {
+    "conf": None,
+    "max_det": 50,
+    "imgsz": [960, 640],
+    "batch": 1,
+    "classes": None,
+    "int8": False,
+    "spd_serving": False,
+}
+
+
+def get_cfg(overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """DEFAULTS < overrides; an unknown key is an error, as in the JAX get_cfg."""
+    overrides = dict(overrides or {})
+    unknown = sorted(set(overrides) - set(DEFAULTS))
+    if unknown:
+        raise KeyError(f"unknown config keys {unknown}; valid keys: {sorted(DEFAULTS)}")
+    return {**DEFAULTS, **overrides}
+
+
+def resolve_model_cfg(name: str) -> Path:
+    """'yolov10s.yaml' / 'yolov10s' / a path -> the YAML file."""
+    p = Path(name)
+    if p.exists():
+        return p
+    cand = CFG_DIR / "models" / "v10" / f"{p.stem}.yaml"
+    if cand.exists():
+        return cand
+    raise FileNotFoundError(f"model config not found: {name}")
+
+
+# ------------------------------------------------------------ YAML subset
+_INT = re.compile(r"[-+]?\d+$")
+_FLOAT = re.compile(r"[-+]?(\d+\.\d*|\.\d+)([eE][-+]?\d+)?$")
+
+
+def _scalar(tok: str) -> Any:
+    tok = tok.strip()
+    if len(tok) >= 2 and tok[0] == tok[-1] and tok[0] in "'\"":
+        return tok[1:-1]
+    if _INT.match(tok):
+        return int(tok)
+    if _FLOAT.match(tok):
+        return float(tok)
+    if tok in ("true", "True", "TRUE"):
+        return True
+    if tok in ("false", "False", "FALSE"):
+        return False
+    if tok in ("null", "Null", "NULL", "~", ""):
+        return None
+    return tok
+
+
+def _flow(text: str, i: int = 0) -> Tuple[Any, int]:
+    """Parse a flow sequence ``[a, [b, c], "d"]`` starting at text[i]."""
+    if text[i] != "[":
+        raise ValueError(f"expected '[' at {text[i:]!r}")
+    out: List[Any] = []
+    i += 1
+    while True:
+        while text[i] == " ":
+            i += 1
+        if text[i] == "]":
+            return out, i + 1
+        if text[i] == "[":
+            item, i = _flow(text, i)
+        else:
+            j = i
+            if text[i] in "'\"":
+                j = text.index(text[i], i + 1) + 1
+            while text[j] not in ",]":
+                j += 1
+            item, i = _scalar(text[i:j]), j
+        out.append(item)
+        while text[i] == " ":
+            i += 1
+        if text[i] == ",":
+            i += 1
+        elif text[i] != "]":
+            raise ValueError(f"expected ',' or ']' at {text[i:]!r}")
+
+
+def _value(text: str) -> Any:
+    text = text.strip()
+    if text.startswith("["):
+        val, end = _flow(text)
+        if text[end:].strip():
+            raise ValueError(f"trailing text after flow sequence: {text!r}")
+        return val
+    return _scalar(text)
+
+
+def _strip_comment(line: str) -> str:
+    quote = None
+    for k, ch in enumerate(line):
+        if quote:
+            quote = None if ch == quote else quote
+        elif ch in "'\"":
+            quote = ch
+        elif ch == "#" and (k == 0 or line[k - 1] == " "):
+            return line[:k]
+    return line
+
+
+def load_yaml(path) -> Dict[str, Any]:
+    """Read a model YAML (the subset described in the module docstring)."""
+    root: Dict[str, Any] = {}
+    key: Optional[str] = None  # top-level key whose block is open
+    for raw in Path(path).read_text().splitlines():
+        line = _strip_comment(raw).rstrip()
+        if not line.strip():
+            continue
+        indent = len(line) - len(line.lstrip(" "))
+        body = line.strip()
+        if indent == 0:
+            k, sep, rest = body.partition(":")
+            if not sep:
+                raise ValueError(f"unsupported YAML line: {raw!r}")
+            key = k.strip()
+            root[key] = _value(rest) if rest.strip() else None
+        elif key is None:
+            raise ValueError(f"indented line outside a block: {raw!r}")
+        elif body.startswith("- "):
+            if root[key] is None:
+                root[key] = []
+            root[key].append(_value(body[2:]))
+        else:
+            k, sep, rest = body.partition(":")
+            if not sep:
+                raise ValueError(f"unsupported YAML line: {raw!r}")
+            if root[key] is None:
+                root[key] = {}
+            root[key][k.strip()] = _value(rest)
+    return root

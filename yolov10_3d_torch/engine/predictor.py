@@ -1,0 +1,149 @@
+"""NMS-free detection predictor (port of ``yolov10_3d_tpu/engine/predictor.py``,
+the v10 detect task).
+
+Pipeline: source -> letterbox batch -> forward (one2one branch only) ->
+decode (kernel K1 on the card) + top-k -> host unpad + scale to original
+coords -> Results. Same-shape uint8 chunks take the device path (uint8 H2D,
+letterbox on the device); mixed shapes letterbox on the host.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+import warnings
+from typing import Any, Dict, Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..data.preprocess import preprocess_batch
+from ..ops.postprocess import v10_detections
+from ..ops.preprocess import serve_preprocess
+from .results import Results
+
+
+def load_source(source) -> Iterator:
+    """Yield (path, HWC RGB uint8) frames from an ndarray or a list of them."""
+    if isinstance(source, (list, tuple)):
+        for s in source:
+            yield from load_source(s)
+        return
+    if isinstance(source, np.ndarray) and source.ndim == 3 and source.dtype == np.uint8:
+        yield "array", source
+        return
+    raise NotImplementedError(
+        f"unsupported source {type(source).__name__}: the port takes HWC uint8 "
+        "numpy images or lists of them"
+    )
+
+
+def check_imgsz(imgsz, stride: int = 32):
+    """Round image size(s) up to a multiple of the max stride."""
+    scalar = isinstance(imgsz, (int, float))
+    sizes = [int(imgsz)] if scalar else [int(v) for v in imgsz]
+    if any(s <= 0 for s in sizes):
+        raise ValueError(f"imgsz {imgsz} must be > 0")
+    out = [math.ceil(s / stride) * stride for s in sizes]
+    if out != sizes:
+        warnings.warn(f"imgsz {sizes} not a multiple of stride {stride}; updated to {out}")
+    return out[0] if scalar else out
+
+
+def _scale_boxes_np(boxes, from_shape, to_shape):
+    gain = min(from_shape[0] / to_shape[0], from_shape[1] / to_shape[1])
+    pad_w = round((from_shape[1] - to_shape[1] * gain) / 2 - 0.1)
+    pad_h = round((from_shape[0] - to_shape[0] * gain) / 2 - 0.1)
+    boxes = boxes - np.array([pad_w, pad_h, pad_w, pad_h])
+    boxes = boxes / gain
+    boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, to_shape[1])
+    boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, to_shape[0])
+    return boxes
+
+
+class Predictor:
+    """NMS-free YOLOv10 detection predictor on the model's device."""
+
+    def __init__(self, model, spec, args: Dict[str, Any], names=None):
+        if spec.head_module != "v10Detect":
+            raise NotImplementedError(f"head {spec.head_module!r}: only v10Detect is ported")
+        if args.get("int8"):
+            raise NotImplementedError("int8 serving is not ported yet")
+        if args.get("spd_serving"):
+            raise NotImplementedError("spd_serving (TPU stem layout) is not ported")
+        self.model = model.eval()
+        self.spec = spec
+        self.args = args
+        self.names = names or {i: str(i) for i in range(spec.nc)}
+        self.device = next(model.parameters()).device
+
+    def _resolve(self, conf, max_det, imgsz):
+        conf = conf if conf is not None else (self.args.get("conf") or 0.25)
+        max_det = max_det or self.args.get("max_det") or 300
+        imgsz = check_imgsz(
+            imgsz or self.args.get("imgsz") or 640,
+            stride=max(self.spec.strides) if self.spec.strides else 32,
+        )
+        return conf, max_det, imgsz
+
+    @torch.inference_mode()
+    def _forward(self, x: torch.Tensor, max_det: int) -> np.ndarray:
+        """Forward + decode + top-k; one (B, max_det, 6) host transfer."""
+        feats = self.model(x, fast_eval=True)["one2one"]
+        det = v10_detections(feats, self.spec.strides, self.spec.nc, max_det=max_det)
+        out = torch.cat(
+            [det["boxes"], det["scores"][..., None], det["labels"][..., None].float()], -1
+        )
+        return out.cpu().numpy()
+
+    def _process_chunk(self, chunk, max_det, conf, classes, imgsz) -> List[Results]:
+        shape = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
+        imgs = [f[1] for f in chunk]
+        uniform = len({im.shape for im in imgs}) == 1
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            if uniform:
+                u8 = torch.from_numpy(np.stack(imgs)).to(self.device)
+                x = serve_preprocess(u8, tuple(shape))
+                model_hw = tuple(shape)
+            else:
+                batch, _ = preprocess_batch(imgs, imgsz)
+                x = torch.from_numpy(batch).to(self.device).permute(0, 3, 1, 2).contiguous()
+                model_hw = batch.shape[1:3]
+        t1 = time.perf_counter()
+        out = self._forward(x, max_det)
+        t2 = time.perf_counter()
+        results = []
+        for j, (path, img) in enumerate(chunk):
+            boxes, scores, labels = out[j, :, :4], out[j, :, 4], out[j, :, 5]
+            keep = scores > conf
+            if classes is not None:
+                keep &= np.isin(labels, np.asarray(classes))
+            b = _scale_boxes_np(boxes[keep], model_hw, img.shape[:2])
+            det = np.concatenate([b, scores[keep, None], labels[keep, None]], -1)
+            res = Results(img, path=path, names=self.names, boxes=det)
+            res.speed = {
+                "preprocess": (t1 - t0) / len(chunk) * 1e3,
+                "inference": (t2 - t1) / len(chunk) * 1e3,
+            }
+            results.append(res)
+        return results
+
+    def __call__(
+        self,
+        source,
+        batch_size: int = 1,
+        conf: Optional[float] = None,
+        max_det: Optional[int] = None,
+        imgsz=None,
+        classes: Optional[Sequence[int]] = None,
+    ) -> List[Results]:
+        conf, max_det, imgsz = self._resolve(conf, max_det, imgsz)
+        frames = list(load_source(source))
+        results = []
+        for i in range(0, len(frames), batch_size):
+            results.extend(
+                self._process_chunk(frames[i : i + batch_size], int(max_det), conf,
+                                    classes, imgsz)
+            )
+        return results

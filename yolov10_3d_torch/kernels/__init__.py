@@ -1,0 +1,18 @@
+"""Hand-written Hopper kernels and their plain PyTorch twins.
+
+Each kernel's wrapper counts its launches in ``launch_counts`` (one per
+launch, nowhere else), so a run can show that its main path went through
+the kernel. The twin runs only for tensors on the CPU; a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+launch_counts: Dict[str, int] = {"decode_detect": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0

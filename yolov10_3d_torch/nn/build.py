@@ -1,0 +1,295 @@
+"""YAML -> model compiler for the YOLOv10 family (port of
+``yolov10_3d_tpu/nn/build.py``, cut to the modules the v10 YAMLs use).
+
+``parse_model_yaml`` produces the same static ``ModelSpec`` as the JAX
+package; ``YOLOModel`` instantiates the layers as ``model.{i}`` (so the JAX
+``model_{i}`` parameter names carry over) and walks them with a dict of
+saved features.
+"""
+
+from __future__ import annotations
+
+import ast
+import contextlib
+import dataclasses
+import math
+import re
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..cfg import load_yaml
+from ..device import resolve_device
+from . import heads as H
+from . import modules as M
+
+HEAD_MODULES = {"v10Detect"}
+# Modules following the (c1, c2, ...) channel convention
+CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "SCDown", "C2fCIB"}
+# Modules whose repeat count n is absorbed as an inner arg
+REPEAT_MODULES = {"C2f", "C2fCIB"}
+
+
+def make_divisible(x: float, divisor: int = 8) -> int:
+    """Round channels up to the nearest multiple."""
+    return math.ceil(x / divisor) * divisor
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    i: int                      # layer index
+    f: Union[int, Tuple[int, ...]]  # input layer index/indices (-1 = previous)
+    n: int                      # outer repeat count (after depth scaling)
+    module: str                 # registry name
+    args: Tuple[Any, ...]       # positional args (post channel-scaling)
+    c2: int                     # output channels
+    stride: int                 # cumulative spatial stride vs input image
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelSpec:
+    nc: int
+    layers: Tuple[LayerSpec, ...]
+    save: Tuple[int, ...]       # indices whose outputs must be kept
+    head_index: int
+    head_module: str
+    strides: Tuple[int, ...]    # detection strides, e.g. (8, 16, 32)
+
+
+def _freeze(x):
+    if isinstance(x, list):
+        return tuple(_freeze(v) for v in x)
+    if isinstance(x, dict):
+        return tuple(sorted((k, _freeze(v)) for k, v in x.items()))
+    return x
+
+
+def parse_model_yaml(
+    cfg: Union[str, Path, dict], scale: Optional[str] = None, ch: int = 3,
+    nc: Optional[int] = None,
+) -> ModelSpec:
+    """Compile a v10 model YAML into a static ModelSpec.
+
+    Depth gain n = max(round(n*depth), 1) for n > 1; width gain
+    c2 = make_divisible(min(c2, max_channels) * width, 8).
+    """
+    if isinstance(cfg, (str, Path)):
+        stem = Path(cfg).stem
+        m = re.search(r"yolov?\d*[-_]?([nsmblxce])(?:[-_.]|$)", stem) or re.search(
+            r"[-_]([nsmblx])$", stem
+        )
+        if scale is None and m:
+            scale = m.group(1)
+        d = load_yaml(cfg)
+    else:
+        d = dict(cfg)
+
+    d_nc = int(nc if nc is not None else d.get("nc", 80))
+    depth, width, max_channels = 1.0, 1.0, float("inf")
+    scales = d.get("scales")
+    if scales:
+        if scale is None:
+            scale = next(iter(scales))
+        depth, width, max_channels = scales[scale]
+
+    ch_list = [ch]
+    layers = []
+    save = []
+    stride_list = []
+    head_index = -1
+    head_module = ""
+    head_strides: Tuple[int, ...] = ()
+
+    rows = list(d["backbone"]) + list(d["head"])
+    for i, (f, n, mname, args) in enumerate(rows):
+        mname = mname.replace("nn.Upsample", "Upsample")
+        args = list(args)
+        for j, a in enumerate(args):
+            if isinstance(a, str) and a == "nc":
+                args[j] = d_nc
+            elif isinstance(a, str):
+                # 'None'/'True'/'False' arrive as strings
+                with contextlib.suppress(ValueError, SyntaxError):
+                    args[j] = ast.literal_eval(a)
+        n = max(round(n * depth), 1) if n > 1 else n
+
+        f_first = f if isinstance(f, int) else f[0]
+        in_stride = 1 if i == 0 else stride_list[f_first]
+
+        if mname in CH_MODULES:
+            c2 = args[0]
+            if c2 != d_nc:
+                c2 = make_divisible(min(c2, max_channels) * width, 8)
+            args = [c2, *args[1:]]
+            if mname in REPEAT_MODULES:
+                args.insert(1, n)
+                n = 1
+            s = 1
+            if mname == "Conv" and len(args) >= 3:
+                s = args[2]
+            elif mname == "SCDown":
+                s = args[2]
+            out_stride = in_stride * s
+        elif mname == "Upsample":
+            c2 = ch_list[f]
+            out_stride = in_stride // args[1]
+        elif mname == "Concat":
+            c2 = sum(ch_list[x] for x in f)
+            out_stride = in_stride
+            args = []
+        elif mname in HEAD_MODULES:
+            in_ch = tuple(ch_list[x] for x in f)
+            head_strides = tuple(stride_list[x] for x in f)
+            args = [d_nc, in_ch]
+            c2 = 0
+            out_stride = in_stride
+            head_index = i
+            head_module = mname
+        else:
+            raise ValueError(f"unknown module {mname!r} in model yaml")
+
+        layers.append(
+            LayerSpec(
+                i=i,
+                f=f if isinstance(f, int) else tuple(f),
+                n=n,
+                module=mname,
+                args=tuple(_freeze(a) for a in args),
+                c2=c2,
+                stride=out_stride,
+            )
+        )
+        save.extend(x % i for x in ([f] if isinstance(f, int) else f) if x != -1)
+        if i == 0:
+            ch_list = []
+        ch_list.append(c2)
+        stride_list = stride_list if i > 0 else []
+        stride_list.append(out_stride)
+
+    return ModelSpec(
+        nc=d_nc,
+        layers=tuple(layers),
+        save=tuple(sorted(set(save))),
+        head_index=head_index,
+        head_module=head_module,
+        strides=head_strides,
+    )
+
+
+def _build_module(spec: LayerSpec, c1: int) -> nn.Module:
+    a = spec.args
+    if spec.module == "Conv":
+        k = a[1] if len(a) > 1 else 1
+        s = a[2] if len(a) > 2 else 1
+        p = a[3] if len(a) > 3 else None
+        g = a[4] if len(a) > 4 else 1
+        d = a[5] if len(a) > 5 else 1
+        act = a[6] if len(a) > 6 else True
+        return M.Conv(c1, a[0], k, s, p, g, d, act)
+    if spec.module == "Bottleneck":
+        return M.Bottleneck(c1, a[0], a[1] if len(a) > 1 else True)
+    if spec.module == "C2f":
+        return M.C2f(c1, a[0], a[1], a[2] if len(a) > 2 else False)
+    if spec.module == "C2fCIB":
+        shortcut = a[2] if len(a) > 2 else False
+        lk = a[3] if len(a) > 3 else False
+        return M.C2fCIB(c1, a[0], a[1], shortcut, lk)
+    if spec.module == "SCDown":
+        return M.SCDown(c1, a[0], a[1], a[2])
+    if spec.module == "SPPF":
+        return M.SPPF(c1, a[0], a[1] if len(a) > 1 else 5)
+    if spec.module == "PSA":
+        return M.PSA(c1, a[0])
+    if spec.module == "Upsample":
+        return M.Upsample(int(a[1]) if len(a) > 1 and a[1] else 2)
+    if spec.module == "Concat":
+        return M.Concat(1)
+    if spec.module == "v10Detect":
+        return H.V10Detect(nc=a[0], ch=a[1])
+    raise ValueError(spec.module)
+
+
+class YOLOModel(nn.Module):
+    """The compiled detection model: backbone + PAN neck + head, NCHW input.
+
+    ``fast_eval`` (serving) skips the train-only one2many branches at eval;
+    ``forward(x, fast_eval=...)`` overrides it per call.
+    """
+
+    def __init__(self, spec: ModelSpec, fast_eval: bool = False, ch: int = 3):
+        super().__init__()
+        self.spec = spec
+        self.fast_eval = fast_eval
+        chans = []
+        mods = []
+        for s in spec.layers:
+            if s.i == 0:
+                c1 = ch
+            elif isinstance(s.f, int):
+                c1 = chans[s.f]
+            else:
+                c1 = chans[s.f[0]]
+            mod = (
+                _build_module(s, c1)
+                if s.n == 1
+                else nn.Sequential(*(_build_module(s, c1 if j == 0 else s.c2)
+                                     for j in range(s.n)))
+            )
+            mods.append(mod)
+            chans.append(s.c2)
+        self.model = nn.ModuleList(mods)
+
+    def forward(self, x: torch.Tensor, fast_eval: Optional[bool] = None):
+        """x: (B, 3, H, W) normalised image. Returns the head output."""
+        fast = self.fast_eval if fast_eval is None else fast_eval
+        saved: Dict[int, torch.Tensor] = {}
+        out = x
+        for spec, layer in zip(self.spec.layers, self.model):
+            def _lookup(j):
+                if j == -1:
+                    return out
+                return saved[j if j >= 0 else spec.i + j]
+
+            inp = [_lookup(j) for j in spec.f] if isinstance(spec.f, tuple) else _lookup(spec.f)
+            if spec.module in HEAD_MODULES:
+                out = layer(inp, one2many=self.training or not fast)
+            else:
+                out = layer(inp)
+            if spec.i in self.spec.save:
+                saved[spec.i] = out
+        return out
+
+
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded random weights: conv kernels ~ N(0, 1/fan_in) (the variance of
+    flax's lecun_normal), conv biases 0, BN identity statistics."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.Conv2d):
+                fan_in = m.weight[0].numel()
+                m.weight.copy_(
+                    torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)
+                )
+                if m.bias is not None:
+                    m.bias.zero_()
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+    return model
+
+
+def build_model(
+    cfg: Union[str, Path, dict],
+    scale: Optional[str] = None,
+    nc: Optional[int] = None,
+    fast_eval: bool = False,
+    device: Union[str, torch.device] = "cuda",
+    seed: int = 0,
+) -> Tuple[YOLOModel, ModelSpec]:
+    """YAML -> (YOLOModel with seeded random weights on ``device``, spec)."""
+    dev = resolve_device(device)
+    spec = parse_model_yaml(cfg, scale=scale, nc=nc)
+    model = YOLOModel(spec, fast_eval=fast_eval)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return model.to(dev).eval(), spec

@@ -1,0 +1,249 @@
+"""Neural-net building blocks of the YOLOv10 main path, NCHW.
+
+Port of ``yolov10_3d_tpu/nn/modules.py``: the same class names and child
+names, so the JAX parameter tree maps 1:1 onto these modules' state_dict
+(see ``utils/weights.py``). Each block takes its input channel count ``c1``
+explicitly, as torch modules do; the flax blocks infer it from the input.
+
+Numerical conventions, as in the JAX package:
+  - activation SiLU;
+  - BatchNorm eps 1e-3, torch momentum 0.03 (flax keep-fraction 0.97);
+    eval normalises with the running statistics;
+  - "same" autopad p = k // 2.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_EPS = 1e-3
+BN_MOMENTUM = 0.03  # torch momentum == 1 - flax keep-fraction (0.97)
+
+
+def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
+    """'same'-shape padding."""
+    if d > 1:
+        k = d * (k - 1) + 1
+    if p is None:
+        p = k // 2
+    return p
+
+
+class Conv(nn.Module):
+    """Conv2d (no bias) + BatchNorm + SiLU; ``g`` groups (depthwise at g == c1)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
+                 p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
+        super().__init__()
+        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d,
+                              groups=g, bias=False)
+        self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
+        self.act = nn.SiLU() if act is True else nn.Identity()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.act(self.bn(self.conv(x)))
+
+
+class Bottleneck(nn.Module):
+    """Standard bottleneck."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, g: int = 1,
+                 k: Sequence[int] = (3, 3), e: float = 0.5):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = Conv(c1, c_, k[0], 1)
+        self.cv2 = Conv(c_, c2, k[1], 1, g=g)
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv2(self.cv1(x))
+        return x + y if self.add else y
+
+
+class C2f(nn.Module):
+    """Fast CSP bottleneck with 2 convs."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv((2 + n) * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = list(self.cv1(x).chunk(2, 1))
+        for m in self.m:
+            y.append(m(y[-1]))
+        return self.cv2(torch.cat(y, 1))
+
+
+class SPPF(nn.Module):
+    """Spatial pyramid pooling - fast; max-pool pads with -inf, as flax's."""
+
+    def __init__(self, c1: int, c2: int, k: int = 5):
+        super().__init__()
+        c_ = c1 // 2
+        self.cv1 = Conv(c1, c_, 1, 1)
+        self.cv2 = Conv(c_ * 4, c2, 1, 1)
+        self.m = nn.MaxPool2d(kernel_size=k, stride=1, padding=k // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.cv1(x)
+        y1 = self.m(x)
+        y2 = self.m(y1)
+        return self.cv2(torch.cat([x, y1, y2, self.m(y2)], 1))
+
+
+class SCDown(nn.Module):
+    """Spatial-channel decoupled downsample."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 2):
+        super().__init__()
+        self.cv1 = Conv(c1, c2, 1, 1)
+        self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.cv2(self.cv1(x))
+
+
+class RepVGGDW(nn.Module):
+    """7x7 dw conv + 3x3 dw conv, summed, SiLU (train form)."""
+
+    def __init__(self, ed: int):
+        super().__init__()
+        self.conv = Conv(ed, ed, 7, 1, 3, g=ed, act=False)
+        self.conv1 = Conv(ed, ed, 3, 1, 1, g=ed, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.silu(self.conv(x) + self.conv1(x))
+
+
+class CIB(nn.Module):
+    """Compact inverted block."""
+
+    def __init__(self, c1: int, c2: int, shortcut: bool = True, e: float = 0.5,
+                 lk: bool = False):
+        super().__init__()
+        c_ = int(c2 * e)
+        self.cv1 = nn.Sequential(
+            Conv(c1, c1, 3, g=c1),
+            Conv(c1, 2 * c_, 1),
+            RepVGGDW(2 * c_) if lk else Conv(2 * c_, 2 * c_, 3, g=2 * c_),
+            Conv(2 * c_, c2, 1),
+            Conv(c2, c2, 3, g=c2),
+        )
+        self.add = shortcut and c1 == c2
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self.cv1(x)
+        return x + y if self.add else y
+
+
+class C2fCIB(C2f):
+    """C2f with CIB inner blocks."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = False,
+                 lk: bool = False, g: int = 1, e: float = 0.5):
+        super().__init__(c1, c2, n, shortcut, g, e)
+        self.m = nn.ModuleList(
+            CIB(self.c, self.c, shortcut, e=1.0, lk=lk) for _ in range(n)
+        )
+
+
+class Attention(nn.Module):
+    """Multi-head self-attention with a positional-encoding conv on v.
+
+    The qkv channels are grouped per head as [q (key_dim), k (key_dim),
+    v (head_dim)], which is the JAX package's NHWC reshape
+    (B, N, heads, 2*key_dim + head_dim). Plain matmul + softmax, so the
+    numerics follow the JAX einsums.
+    """
+
+    def __init__(self, dim: int, num_heads: int = 8, attn_ratio: float = 0.5):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.key_dim = int(self.head_dim * attn_ratio)
+        self.scale = self.key_dim ** -0.5
+        h = dim + self.key_dim * num_heads * 2
+        self.qkv = Conv(dim, h, 1, act=False)
+        self.proj = Conv(dim, dim, 1, act=False)
+        self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, C, H, W = x.shape
+        N = H * W
+        qkv = self.qkv(x).view(B, self.num_heads, 2 * self.key_dim + self.head_dim, N)
+        q, k, v = qkv.split([self.key_dim, self.key_dim, self.head_dim], dim=2)
+        attn = (q.transpose(-2, -1) @ k) * self.scale  # (B, heads, N, N)
+        attn = attn.softmax(dim=-1)
+        out = (v @ attn.transpose(-2, -1)).reshape(B, C, H, W)
+        out = out + self.pe(v.reshape(B, C, H, W))
+        return self.proj(out)
+
+
+class PSA(nn.Module):
+    """Partial self-attention block (c2 == c1)."""
+
+    def __init__(self, c1: int, c2: int, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.attn = Attention(self.c, attn_ratio=0.5, num_heads=self.c // 64)
+        self.ffn = nn.Sequential(
+            Conv(self.c, self.c * 2, 1), Conv(self.c * 2, self.c, 1, act=False)
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, b = self.cv1(x).split((self.c, self.c), dim=1)
+        b = b + self.attn(b)
+        b = b + self.ffn(b)
+        return self.cv2(torch.cat((a, b), 1))
+
+
+class Concat(nn.Module):
+    """Channel concat."""
+
+    def __init__(self, dimension: int = 1):
+        super().__init__()
+        self.d = dimension
+
+    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.cat(list(xs), self.d)
+
+
+class Upsample(nn.Module):
+    """Nearest-neighbour upsample by an integer factor."""
+
+    def __init__(self, scale: int = 2):
+        super().__init__()
+        self.scale = scale
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.interpolate(x, scale_factor=self.scale, mode="nearest")
+
+
+def dfl_decode(box_logits: torch.Tensor, reg_max: int = 16) -> torch.Tensor:
+    """Integral (DFL) box decode: softmax over reg_max bins -> expectation.
+
+    (..., 4*reg_max) -> (..., 4). Parameter-free: the reference's frozen
+    arange conv is this projection. The sums run bin by bin, as kernel K1
+    (csrc/decode_detect.cu) runs them, so the two round alike.
+    """
+    x = box_logits.float().reshape(*box_logits.shape[:-1], 4, reg_max)
+    m = x.amax(-1)
+    s = torch.zeros_like(m)
+    p = torch.zeros_like(m)
+    for j in range(reg_max):
+        e = torch.exp(x[..., j] - m)
+        s = s + e
+        p = p + e * float(j)
+    return p / s

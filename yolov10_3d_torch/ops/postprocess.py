@@ -1,0 +1,80 @@
+"""NMS-free decode + top-k postprocess (port of
+``yolov10_3d_tpu/ops/postprocess.py``, the v10 2D subset).
+
+Feature maps are NCHW; the public layouts are the JAX package's: the decode
+returns (B, A, 4 + nc) with anchors per scale H x W row-major, which is what
+NCHW ``flatten(2)`` gives.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.decode import REG_MAX, decode_detect_flat
+
+
+def flatten_feats(feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
+    """[(B, C, H, W)...] -> (B, sum(H*W), C), plus per-scale (H, W)."""
+    x, shapes = _flatten_channel_major(feats)
+    return x.transpose(1, 2), shapes
+
+
+def _flatten_channel_major(feats):
+    shapes = [(f.shape[2], f.shape[3]) for f in feats]
+    return torch.cat([f.flatten(2) for f in feats], 2), shapes
+
+
+def decode_detect(
+    feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = REG_MAX
+) -> torch.Tensor:
+    """Raw per-scale head maps -> (B, A, 4 + nc): xyxy boxes in input pixels +
+    sigmoid class scores. CUDA maps go through kernel K1; CPU maps through
+    its plain twin."""
+    x, shapes = _flatten_channel_major(feats)  # (B, C, A), contiguous
+    return decode_detect_flat(x, shapes, strides[: len(shapes)], nc, reg_max)
+
+
+def v10_postprocess(
+    preds: torch.Tensor, max_det: int, nc: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """NMS-free two-stage top-k: the top-max_det anchors by best-class score,
+    then the top-max_det (anchor, class) pairs among those. Returns
+    (boxes (B, max_det, 4), scores (B, max_det), labels (B, max_det)),
+    padded with score -1 when fewer than max_det pairs exist."""
+    boxes, scores = preds[..., :4], preds[..., 4:]
+    A = preds.shape[1]
+    k1 = min(max_det, A)  # small inputs can have fewer anchors than max_det
+    _, idx = scores.amax(-1).topk(k1, dim=1)  # (B, k1)
+    boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
+    scores = scores.gather(1, idx[..., None].expand(-1, -1, nc))  # (B, k1, nc)
+
+    flat = scores.reshape(scores.shape[0], -1)  # (B, k1*nc)
+    k2 = min(max_det, k1 * nc)
+    top_scores, flat_idx = flat.topk(k2, dim=1)
+    labels = flat_idx % nc
+    boxes = boxes.gather(1, (flat_idx // nc)[..., None].expand(-1, -1, 4))
+    if k2 < max_det:  # pad to the fixed max_det layout
+        pad = max_det - k2
+        boxes = F.pad(boxes, (0, 0, 0, pad))
+        top_scores = F.pad(top_scores, (0, pad), value=-1.0)
+        labels = F.pad(labels, (0, pad))
+    return boxes, top_scores, labels
+
+
+def v10_detections(
+    feats: Sequence[torch.Tensor],
+    strides: Sequence[int],
+    nc: int,
+    max_det: int = 300,
+    conf: float = 0.0,
+) -> Dict[str, torch.Tensor]:
+    """Full eval epilogue: decode + top-k + confidence mask.
+
+    Returns dict(boxes (B, max_det, 4) xyxy input pixels, scores, labels,
+    valid), fixed shapes; ``valid`` marks detections above ``conf``."""
+    preds = decode_detect(feats, strides, nc)
+    boxes, scores, labels = v10_postprocess(preds, max_det, nc)
+    return {"boxes": boxes, "scores": scores, "labels": labels, "valid": scores > conf}

@@ -1,0 +1,160 @@
+"""Parity harness: give random weights realistic activations, and compare two
+detection lists that may differ by float rounding.
+
+Untrained weights with identity BatchNorm statistics shrink activations layer
+by layer, so every class score sits at 0.5 and top-k order is decided by
+rounding. ``calibrate`` sets each BatchNorm's running statistics from its
+input on a calibration batch and rescales the head's output convs (DFL bin j
+centred at -j/2, so boxes span a few strides as a trained model's do, rather
+than the frame; class logits between -2 and +2), which spreads the scores the
+way a trained model's are spread. A random net is chaotic, so the calibration
+batch is the images that are then served (``smooth_images`` makes them: pixel
+noise would make the served scores hinge on resize details).
+``match_detections`` pairs detections by class and box and compares those
+clear of the selection boundaries, where the selection cannot flip.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..data.preprocess import resize_linear
+
+
+@torch.no_grad()
+def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
+              cls_mean: float = -2.0, cls_max: float = 2.0) -> nn.Module:
+    """Calibrate a YOLOModel on ``x`` (B, 3, H, W), in eval mode.
+
+    One forward sets each BatchNorm's running statistics from its own input,
+    layer after layer, so that it normalises that input to mean 0 and std
+    ``bn_std``, and every later layer sees calibrated inputs. A random net
+    amplifies float rounding layer by layer; at std 0.5 the one2one maps of
+    yolov10n differ from the JAX package's by a quarter of what they do at
+    std 1. A second forward rescales each head output conv: box logits (DFL
+    bin j) per channel to std 1 and mean -j/2; class logits to mean
+    ``cls_mean`` and, with one scale for all classes, batch maximum
+    ``cls_max``. The class logits of a random net are heavy-tailed, so unit
+    variance lets the top scores saturate at 1.0 and tie; pinning the maximum
+    keeps every served score below sigmoid(cls_max), on the slope."""
+    model.eval()
+
+    def set_stats(bn, inp):
+        t = inp[0]
+        bn.running_mean.copy_(t.mean((0, 2, 3)))
+        bn.running_var.copy_(t.var((0, 2, 3), unbiased=False) / bn_std**2)
+
+    hooks = [m.register_forward_pre_hook(set_stats)
+             for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
+    try:
+        model(x, fast_eval=False)
+    finally:
+        for h in hooks:
+            h.remove()
+
+    head = model.model[model.spec.head_index]
+    outs = []
+    for name in ("cv2", "cv3", "one2one_cv2", "one2one_cv3"):
+        for seq in getattr(head, name):
+            conv = seq[-1]
+            is_cls = name.endswith("cv3")
+            if is_cls:
+                target = torch.full((conv.out_channels,), cls_mean, device=conv.weight.device)
+            else:  # 4 sides x reg_max bins
+                bins = torch.arange(conv.out_channels, device=conv.weight.device)
+                target = -0.5 * (bins % (conv.out_channels // 4)).float()
+            outs.append((conv, target, is_cls))
+    seen = {}
+    hooks = [conv.register_forward_hook(lambda mod, i, o: seen.__setitem__(mod, o))
+             for conv, _, _ in outs]
+    try:
+        model(x, fast_eval=False)
+    finally:
+        for h in hooks:
+            h.remove()
+    for conv, target, is_cls in outs:
+        y = seen[conv]
+        mu = y.mean((0, 2, 3))
+        if is_cls:  # one scale for all classes: the batch max -> cls_max
+            sd = ((y - mu[:, None, None]).amax() / (cls_max - cls_mean)).clamp_min(1e-6)
+            sd = sd.expand_as(mu)
+        else:
+            sd = y.std((0, 2, 3)).clamp_min(1e-6)
+        conv.weight.div_(sd[:, None, None, None])
+        conv.bias.copy_((conv.bias - mu) / sd + target)
+    return model
+
+
+def smooth_images(rng: np.random.Generator, shapes, cell: int = 8):
+    """Seeded HWC uint8 images of the given (h, w): coarse noise, one value
+    per ``cell`` x ``cell`` block, bilinearly upsampled."""
+    return [
+        resize_linear(
+            rng.integers(0, 256, (max(h // cell, 2), max(w // cell, 2), 3), dtype=np.uint8),
+            (w, h),
+        )
+        for h, w in shapes
+    ]
+
+
+def _clear_of_cutoffs(scores: np.ndarray, conf: float, tol: float) -> np.ndarray:
+    """Entries more than ``tol`` above both selection boundaries: the
+    confidence threshold and the lowest score (the top-k cutoff). Only an
+    entry near a boundary can be in one list and not the other."""
+    if len(scores) == 0:
+        return np.zeros(0, bool)
+    return (scores - conf > tol) & (scores - scores.min() > tol)
+
+
+def match_detections(
+    ref: np.ndarray, got: np.ndarray, conf: float, score_tol: float, box_tol: float
+) -> Dict[str, float]:
+    """Compare two (n, 6) [x1, y1, x2, y2, score, cls] lists of one image.
+
+    Every entry of either list that is clear of the selection boundaries must
+    have a partner in the other with the same class, the nearest box within
+    ``box_tol`` px (max over the four coordinates) and the score within
+    ``score_tol``. Pairing is by (class, box), the stand-in for (class,
+    anchor), never by rank, so ties in score do not matter. Raises
+    AssertionError otherwise. Returns the counts and the largest errors."""
+    stats = {"n_ref": len(ref), "n_got": len(got), "n_compared": 0,
+             "max_score_err": 0.0, "max_box_err": 0.0}
+    for a, b, name in ((ref, got, "ref"), (got, ref, "got")):
+        for i in np.flatnonzero(_clear_of_cutoffs(a[:, 4], conf, score_tol)):
+            same = b[b[:, 5] == a[i, 5]]
+            if len(same) == 0:
+                raise AssertionError(f"{name}[{i}] class {a[i, 5]:.0f} has no partner")
+            box_err = np.abs(same[:, :4] - a[i, :4]).max(1)
+            j = int(box_err.argmin())
+            score_err = abs(float(same[j, 4] - a[i, 4]))
+            if box_err[j] > box_tol or score_err > score_tol:
+                raise AssertionError(
+                    f"{name}[{i}] {a[i].tolist()} vs nearest {same[j].tolist()}: "
+                    f"box err {box_err[j]:.3g} (bar {box_tol}), "
+                    f"score err {score_err:.3g} (bar {score_tol})"
+                )
+            stats["n_compared"] += 1
+            stats["max_score_err"] = max(stats["max_score_err"], score_err)
+            stats["max_box_err"] = max(stats["max_box_err"], float(box_err[j]))
+    return stats
+
+
+def compare_results(ref: Sequence, got: Sequence, conf: float, score_tol: float,
+                    box_tol: float) -> Dict[str, float]:
+    """``match_detections`` over two lists of Results; summed counts, max errors."""
+    if len(ref) != len(got):
+        raise AssertionError(f"{len(ref)} vs {len(got)} results")
+    total = {"n_ref": 0, "n_got": 0, "n_compared": 0, "max_score_err": 0.0,
+             "max_box_err": 0.0}
+    for r, g in zip(ref, got):
+        s = match_detections(np.asarray(r.boxes.data, np.float64),
+                             np.asarray(g.boxes.data, np.float64), conf, score_tol, box_tol)
+        for k in ("n_ref", "n_got", "n_compared"):
+            total[k] += s[k]
+        for k in ("max_score_err", "max_box_err"):
+            total[k] = max(total[k], s[k])
+    return total
