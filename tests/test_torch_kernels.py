@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+from yolov10_3d_torch.kernels import int8 as K8
 from yolov10_3d_torch.kernels.decode import (
     decode_detect_cuda, decode_detect_flat, decode_detect_torch,
 )
@@ -40,9 +41,12 @@ def test_decode_kernel_refuses_cpu_tensors():
 
 
 def test_reset_launch_counts():
-    launch_counts["decode_detect"] += 3
+    for k in launch_counts:
+        launch_counts[k] += 3
     reset_launch_counts()
-    assert launch_counts == {"decode_detect": 0}
+    assert set(launch_counts) >= {"decode_detect", "int8_mm_fused", "int8_conv3x3_fused",
+                                  "int8_conv_f32"}
+    assert all(v == 0 for v in launch_counts.values()), launch_counts
 
 
 @pytest.mark.cuda
@@ -73,3 +77,106 @@ def test_decode_kernel_checks_inputs(cuda_device):
         decode_detect_cuda(x.transpose(1, 2), SMALL, STRIDES, NC)
     with pytest.raises(ValueError, match="cover"):
         decode_detect_cuda(x, FULL, STRIDES, NC)
+
+
+# ------------------------------------------------------------ int8 kernels
+def _int8_case(seed, x_shape, w_shape, device="cpu"):
+    """Seeded int8 inputs and a realistic epilogue: deq as sx * sw, BN rows."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randint(-127, 128, x_shape, generator=g, dtype=torch.int8)
+    w = torch.randint(-127, 128, w_shape, generator=g, dtype=torch.int8)
+    N, fan_in = w_shape[0], w[0].numel()
+    deq = (8 / 127) / (127 * fan_in**0.5) * (0.5 + torch.rand(N, generator=g))
+    ep = torch.stack([deq, torch.randn(N, generator=g) * 0.2, 0.5 + torch.rand(N, generator=g),
+                      torch.randn(N, generator=g) * 0.2]).float()
+    return x.to(device), w.to(device), ep.to(device)
+
+
+INV = 127 / 8
+
+
+def test_int8_kernels_refuse_cpu_tensors():
+    """No silent fallback: the wrappers take CUDA tensors only; the
+    dispatchers take the twins for CPU tensors and launch nothing."""
+    x, w, ep = _int8_case(0, (2, 6, 5, 8), (12, 3, 3, 8))
+    with pytest.raises(ValueError, match="CUDA"):
+        K8.int8_mm_fused_cuda(x.view(-1, 8), w[:, 1, 1].contiguous(), ep, INV)
+    with pytest.raises(ValueError, match="CUDA"):
+        K8.int8_conv3x3_fused_cuda(x, w, ep, INV)
+    with pytest.raises(ValueError, match="CUDA"):
+        K8.int8_conv_f32_cuda(x, w, ep, 1, 1, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K8.int8_conv_f32(x.to("meta"), w, ep, 1, 1, True)
+    before = dict(launch_counts)
+    assert K8.int8_mm_fused(x.view(-1, 8), w[:, 1, 1].contiguous(), ep, INV).shape == (60, 12)
+    assert K8.int8_conv3x3_fused(x, w, ep, INV).shape == (2, 6, 5, 12)
+    assert K8.int8_conv_f32(x, w, ep, 2, 1, False).shape == (2, 12, 3, 3)
+    assert launch_counts == before
+
+
+def test_int8_twins_accumulate_exactly():
+    """The twins' float64 sums are the exact int32 sums: an int64 loop
+    over the taps agrees on a 3x3 stride-2 case with the largest products."""
+    x = torch.full((1, 5, 5, 8), -127, dtype=torch.int8)
+    w = torch.full((4, 3, 3, 8), -127, dtype=torch.int8)
+    ep = K8.affine_epilogue(torch.ones(4), torch.zeros(4))
+    got = K8.int8_conv_f32_torch(x, w, ep, 2, 1, False)
+    xp = torch.nn.functional.pad(x.long(), (0, 0, 1, 1, 1, 1))
+    want = torch.zeros(1, 4, 3, 3, dtype=torch.int64)
+    for oy in range(3):
+        for ox in range(3):
+            patch = xp[0, 2 * oy:2 * oy + 3, 2 * ox:2 * ox + 3]
+            want[0, :, oy, ox] = (patch[None] * w.long()).sum((1, 2, 3))
+    torch.testing.assert_close(got, want.float(), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [(400, 512, 256), (97, 32, 40), (1, 4, 3), (6400, 128, 200)])
+def test_int8_mm_fused_matches_twin(cuda_device, M, K, N):
+    """K2 against its twin, bit for bit: SPPF.cv1's shape at 640 and
+    ragged M and N (not multiples of the 64-wide tiles or of 4)."""
+    x, w, ep = _int8_case(M + N, (M, K), (N, K), cuda_device)
+    before = launch_counts["int8_mm_fused"]
+    got = K8.int8_mm_fused(x, w, ep, INV)
+    assert launch_counts["int8_mm_fused"] == before + 1
+    want = K8.int8_mm_fused_torch(x, w, ep, INV)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,K,N", [(1, 80, 80, 128, 64), (2, 7, 5, 16, 24), (3, 1, 9, 4, 70)])
+def test_int8_conv3x3_fused_matches_twin(cuda_device, B, H, W, K, N):
+    """K3 against its twin, bit for bit, including images narrower than the
+    filter's reach and tiles cut by the image edge."""
+    x, w, ep = _int8_case(H * W, (B, H, W, K), (N, 3, 3, K), cuda_device)
+    got = K8.int8_conv3x3_fused(x, w, ep, INV)
+    want = K8.int8_conv3x3_fused_torch(x, w, ep, INV)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ks,stride,pad,act", [(3, 2, 1, True), (3, 1, 1, False), (1, 1, 0, True),
+                                               (1, 2, 0, False), (3, 1, 0, True)])
+def test_int8_conv_f32_matches_twin(cuda_device, ks, stride, pad, act):
+    """The float-epilogue conv against its twin, bit for bit, on NCHW f32."""
+    x, w, ep = _int8_case(ks * 10 + stride, (2, 19, 23, 36), (72, ks, ks, 36), cuda_device)
+    got = K8.int8_conv_f32(x, w, ep, stride, pad, act)
+    want = K8.int8_conv_f32_torch(x, w, ep, stride, pad, act)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_kernels_check_inputs(cuda_device):
+    x, w, ep = _int8_case(1, (1, 8, 8, 6), (4, 3, 3, 6), cuda_device)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        K8.int8_conv3x3_fused_cuda(x, w, ep, INV)
+    x, w, ep = _int8_case(1, (1, 8, 8, 8), (4, 3, 3, 8), cuda_device)
+    with pytest.raises(TypeError):
+        K8.int8_conv3x3_fused_cuda(x.float(), w, ep, INV)
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.int8_conv_f32_cuda(x.transpose(1, 2), w, ep, 1, 1, True)
+    with pytest.raises(ValueError, match="ep must be"):
+        K8.int8_conv_f32_cuda(x, w, ep[:, :2].contiguous(), 1, 1, True)

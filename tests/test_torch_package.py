@@ -14,6 +14,7 @@ import torch
 import yolov10_3d_torch
 from yolov10_3d_torch import YOLOv10, build_model
 from yolov10_3d_torch.device import resolve_device
+from yolov10_3d_torch.nn.quant import Int8Config
 
 PKG_DIR = Path(yolov10_3d_torch.__file__).resolve().parent
 REPO = PKG_DIR.parent
@@ -31,9 +32,10 @@ import numpy as np
 import yolov10_3d_torch
 for mod in pkgutil.walk_packages(yolov10_3d_torch.__path__, "yolov10_3d_torch."):
     importlib.import_module(mod.name)
-res = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu").predict(
-    np.full((48, 64, 3), 128, np.uint8), imgsz=64)
-assert len(res) == 1 and res[0].boxes.data.shape[1] == 6
+for int8 in (False, True):
+    res = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu").predict(
+        np.full((48, 64, 3), 128, np.uint8), imgsz=64, int8=int8)
+    assert len(res) == 1 and res[0].boxes.data.shape[1] == 6
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 print("isolated ok")
@@ -80,11 +82,15 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("option", ["int8", "spd_serving"])
 def test_unported_serving_options_raise(option):
-    """int8 and spd_serving are not ported: asking for them is an error, not
-    a silent float32 run."""
+    """spd_serving is not ported, nor int8's scope 'all' (grouped and
+    depthwise convs; int8 serving itself runs scope k3deep): asking for them
+    is an error, not a silent float32 or k3deep run."""
     model = YOLOv10("yolov10n.yaml", device="cpu")
     with pytest.raises(NotImplementedError, match=option):
-        model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, **{option: True})
+        if option == "int8":
+            model.model(torch.zeros((1, 3, 64, 64)), int8=Int8Config(scope="all"))
+        else:
+            model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, **{option: True})
 
 
 def test_checkpoints_and_unknown_sources_raise():

@@ -15,9 +15,8 @@ from typing import Any, Dict, List, Optional, Tuple
 CFG_DIR = Path(__file__).resolve().parent
 
 # The cfg/default.yaml keys the Predictor reads, with the JAX defaults.
-# int8 and spd_serving are serving switches the port has not ported (the
-# Predictor raises on them); spd_serving is a TPU stem layout, on by default
-# in the JAX package, off here.
+# spd_serving is a TPU stem layout, on by default in the JAX package, off
+# here (the Predictor raises on it).
 DEFAULTS: Dict[str, Any] = {
     "conf": None,
     "max_det": 50,

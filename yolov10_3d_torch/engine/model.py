@@ -2,8 +2,8 @@
 the ``YOLOv10`` new-from-YAML constructor and ``predict``).
 
 ``YOLOv10("yolov10s.yaml")`` builds the model on the card with seeded random
-weights; ``.predict(source, **kwargs)`` serves it. Checkpoint loading is not
-ported yet.
+weights; ``.predict(source, **kwargs)`` serves it, in int8 with
+``int8=True``. Checkpoint loading is not ported yet.
 """
 
 from __future__ import annotations

@@ -5,6 +5,12 @@ Pipeline: source -> letterbox batch -> forward (one2one branch only) ->
 decode (kernel K1 on the card) + top-k -> host unpad + scale to original
 coords -> Results. Same-shape uint8 chunks take the device path (uint8 H2D,
 letterbox on the device); mixed shapes letterbox on the host.
+
+``int8=True`` serves the forward in int8 as the JAX Predictor does (scope
+``k3deep``, static activation scale 8/127; ``nn/quant.py``): the gated convs
+run the int8 kernels K2, K3 and ``int8_conv_f32`` on the card. The
+Predictor holds that configuration and passes it with each forward; the
+model is not switched.
 """
 
 from __future__ import annotations
@@ -18,6 +24,7 @@ import numpy as np
 import torch
 
 from ..data.preprocess import preprocess_batch
+from ..nn.quant import Int8Config
 from ..ops.postprocess import v10_detections
 from ..ops.preprocess import serve_preprocess
 from .results import Results
@@ -67,8 +74,6 @@ class Predictor:
     def __init__(self, model, spec, args: Dict[str, Any], names=None):
         if spec.head_module != "v10Detect":
             raise NotImplementedError(f"head {spec.head_module!r}: only v10Detect is ported")
-        if args.get("int8"):
-            raise NotImplementedError("int8 serving is not ported yet")
         if args.get("spd_serving"):
             raise NotImplementedError("spd_serving (TPU stem layout) is not ported")
         self.model = model.eval()
@@ -76,6 +81,7 @@ class Predictor:
         self.args = args
         self.names = names or {i: str(i) for i in range(spec.nc)}
         self.device = next(model.parameters()).device
+        self.int8 = Int8Config(scope="k3deep") if args.get("int8") else None
 
     def _resolve(self, conf, max_det, imgsz):
         conf = conf if conf is not None else (self.args.get("conf") or 0.25)
@@ -89,7 +95,7 @@ class Predictor:
     @torch.inference_mode()
     def _forward(self, x: torch.Tensor, max_det: int) -> np.ndarray:
         """Forward + decode + top-k; one (B, max_det, 6) host transfer."""
-        feats = self.model(x, fast_eval=True)["one2one"]
+        feats = self.model(x, fast_eval=True, int8=self.int8)["one2one"]
         det = v10_detections(feats, self.spec.strides, self.spec.nc, max_det=max_det)
         out = torch.cat(
             [det["boxes"], det["scores"][..., None], det["labels"][..., None].float()], -1

@@ -10,7 +10,12 @@ from __future__ import annotations
 
 from typing import Dict
 
-launch_counts: Dict[str, int] = {"decode_detect": 0}
+launch_counts: Dict[str, int] = {
+    "decode_detect": 0,  # K1, kernels/decode.py
+    "int8_mm_fused": 0,  # K2, kernels/int8.py
+    "int8_conv3x3_fused": 0,  # K3, kernels/int8.py
+    "int8_conv_f32": 0,  # kernels/int8.py
+}
 
 
 def reset_launch_counts() -> None:

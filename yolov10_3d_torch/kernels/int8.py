@@ -1,0 +1,194 @@
+"""The int8 convolutions of int8 serving (``csrc/int8_conv.cu``) and their twins.
+
+Three kernels, each with a wrapper (``*_cuda``), a plain PyTorch twin
+(``*_torch``) and a dispatcher (the bare name) that launches the kernel for a
+CUDA tensor and takes the twin for a CPU tensor, nothing else:
+
+- ``int8_mm_fused`` (K2) replaces ``yolov10_3d_tpu/ops/pallas_kernels.py``
+  ``int8_mm_fused``: int8 x (M, K) against int8 w (N, K), int32 sums, the
+  epilogue below, then SiLU and requantization to int8 (M, N).
+- ``int8_conv3x3_fused`` (K3) replaces ``ops/pallas_kernels.py``
+  ``int8_conv3x3_fused``: a 3x3, stride-1, SAME int8 conv of x (B, H, W, K)
+  with w (N, 3, 3, K), the same epilogue, int8 (B, H, W, N) out.
+- ``int8_conv_f32``: the XLA int8 conv of the JAX package's int8 mode
+  (``nn/modules.py`` ``int8_conv`` followed by BatchNorm and the
+  activation), 1x1 or 3x3 at stride 1 or 2, float32 NCHW out.
+
+Weights are (N, kh, kw, K): each filter's bytes are contiguous, which is
+what the kernels' 4-byte dot products read. K is a multiple of 4 (the
+caller pads channels with zeros). ``ep`` is a (4, N) float32 tensor of
+per-channel rows (deq, mean, mul, beta); the epilogue is
+``((acc * deq - mean) * mul) + beta``, each step rounded to float32, and
+the Pallas kernels' ``acc * scale + bias`` is ``affine_epilogue(scale,
+bias)`` (mean 0, mul 1), which rounds the same. The twins' int32 sums are
+exact: a float64 conv or matmul of the int8 values, whose every partial sum
+is an integer below 2**53.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+import torch.nn.functional as F
+
+from . import launch_counts
+from ._build import load
+
+LIB = "int8_conv"
+INT32_SAFE_K = (2**31 - 1) // (127 * 127)  # longest reduction whose int32 sum cannot overflow
+_GRID_Y = 65535
+
+
+def affine_epilogue(scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """The Pallas kernels' epilogue ``acc * scale + bias`` as an ``ep``."""
+    return torch.stack([scale, torch.zeros_like(scale), torch.ones_like(scale), bias]).float()
+
+
+# ---------------------------------------------------------------- twins
+def _epilogue(acc: torch.Tensor, ep: torch.Tensor, shape, act: bool) -> torch.Tensor:
+    """The kernels' epilogue in their order; ``shape`` broadcasts a channel row."""
+    deq, mean, mul, beta = (r.reshape(shape) for r in ep)
+    y = ((acc.float() * deq - mean) * mul) + beta
+    if act:
+        y = y * (1.0 / (1.0 + torch.exp(-y)))
+    return y
+
+
+def _requant(y: torch.Tensor, inv: float) -> torch.Tensor:
+    return torch.round(y * inv).clamp_(-127, 127).to(torch.int8)
+
+
+def _conv_acc(x: torch.Tensor, w: torch.Tensor, stride: int, pad: int) -> torch.Tensor:
+    """Exact int32 sums of an int8 NHWC conv, NCHW out."""
+    acc = F.conv2d(x.permute(0, 3, 1, 2).double(), w.permute(0, 3, 1, 2).double(),
+                   stride=stride, padding=pad)
+    return acc.round().to(torch.int32)
+
+
+def int8_mm_fused_torch(x, w, ep, inv: float) -> torch.Tensor:
+    acc = (x.double() @ w.double().t()).round().to(torch.int32)
+    return _requant(_epilogue(acc, ep, (1, -1), True), inv)
+
+
+def int8_conv3x3_fused_torch(x, w, ep, inv: float) -> torch.Tensor:
+    acc = _conv_acc(x, w, 1, 1).permute(0, 2, 3, 1)
+    return _requant(_epilogue(acc, ep, (1, 1, 1, -1), True), inv).contiguous()
+
+
+def int8_conv_f32_torch(x, w, ep, stride: int, pad: int, act: bool) -> torch.Tensor:
+    return _epilogue(_conv_acc(x, w, stride, pad), ep, (1, -1, 1, 1), act).contiguous()
+
+
+# -------------------------------------------------------------- wrappers
+def _check(name, x, w, ep, dims: int):
+    if not (x.is_cuda and w.is_cuda and ep.is_cuda):
+        raise ValueError(f"{name} needs CUDA tensors, got {x.device}, {w.device}, {ep.device}")
+    if x.dtype != torch.int8 or w.dtype != torch.int8 or ep.dtype != torch.float32:
+        raise TypeError(f"{name} takes int8 x and w and a float32 ep, got "
+                        f"{x.dtype}, {w.dtype}, {ep.dtype}")
+    if x.dim() != dims or not (x.is_contiguous() and w.is_contiguous() and ep.is_contiguous()):
+        raise ValueError(f"{name}: x must be a contiguous {dims}-d tensor, w and ep contiguous")
+    if len({x.device, w.device, ep.device}) != 1:
+        raise ValueError(f"{name}: tensors on different devices")
+    K, N = x.shape[-1], w.shape[0]
+    if K % 4 or w.shape[-1] != K:
+        raise ValueError(f"{name}: channels K={K} must be a multiple of 4 and match w "
+                         f"{tuple(w.shape)}")
+    if w[0].numel() > INT32_SAFE_K:
+        raise ValueError(f"{name}: reduction of {w[0].numel()} > {INT32_SAFE_K} may overflow int32")
+    if ep.shape != (4, N):
+        raise ValueError(f"{name}: ep must be (4, {N}), got {tuple(ep.shape)}")
+    if -(-N // 64) > _GRID_Y or x.numel() // K * N >= 2**31:
+        raise ValueError(f"{name}: x {tuple(x.shape)} with N={N} exceeds the kernel's "
+                         "grid or its 32-bit pixel index")
+
+
+@functools.lru_cache(maxsize=None)
+def _fn(name: str):
+    fn = getattr(load(LIB), name)
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = {
+        "k2_int8_mm_fused": [p, p, p, f, p, i, i, i, p],
+        "k3_int8_conv3x3_fused": [p, p, p, f, p, i, i, i, i, i, p],
+        "int8_conv_f32": [p, p, p, i, p, i, i, i, i, i, i, i, i, p],
+    }[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch(name: str, key: str, x: torch.Tensor, *args) -> None:
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _fn(name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{key} kernel launch failed: cudaError {err}")
+    launch_counts[key] += 1
+
+
+def int8_mm_fused_cuda(x, w, ep, inv: float) -> torch.Tensor:
+    """Launch K2 on the current stream: x (M, K), w (N, K) -> int8 (M, N)."""
+    _check("int8_mm_fused", x, w, ep, 2)
+    if w.dim() != 2:
+        raise ValueError(f"int8_mm_fused: w must be (N, K), got {tuple(w.shape)}")
+    (M, K), N = x.shape, w.shape[0]
+    out = torch.empty((M, N), dtype=torch.int8, device=x.device)
+    _launch("k2_int8_mm_fused", "int8_mm_fused", x, x.data_ptr(), w.data_ptr(),
+            ep.data_ptr(), float(inv), out.data_ptr(), M, K, N)
+    return out
+
+
+def int8_conv3x3_fused_cuda(x, w, ep, inv: float) -> torch.Tensor:
+    """Launch K3 on the current stream: x (B, H, W, K), w (N, 3, 3, K) ->
+    int8 (B, H, W, N)."""
+    _check("int8_conv3x3_fused", x, w, ep, 4)
+    if w.dim() != 4 or w.shape[1:3] != (3, 3):
+        raise ValueError(f"int8_conv3x3_fused: w must be (N, 3, 3, K), got {tuple(w.shape)}")
+    (B, H, W, K), N = x.shape, w.shape[0]
+    out = torch.empty((B, H, W, N), dtype=torch.int8, device=x.device)
+    _launch("k3_int8_conv3x3_fused", "int8_conv3x3_fused", x, x.data_ptr(), w.data_ptr(),
+            ep.data_ptr(), float(inv), out.data_ptr(), B, H, W, K, N)
+    return out
+
+
+def int8_conv_f32_cuda(x, w, ep, stride: int, pad: int, act: bool) -> torch.Tensor:
+    """Launch the int8 conv with the float epilogue: x (B, H, W, K),
+    w (N, k, k, K) with k 1 or 3 -> float32 (B, N, Ho, Wo)."""
+    _check("int8_conv_f32", x, w, ep, 4)
+    ks = w.shape[1]
+    if w.dim() != 4 or ks not in (1, 3) or w.shape[2] != ks or stride not in (1, 2) or pad < 0:
+        raise ValueError(f"int8_conv_f32: w {tuple(w.shape)} stride {stride} pad {pad}: "
+                         "needs a 1x1 or 3x3 filter, stride 1 or 2")
+    (B, H, W, K), N = x.shape, w.shape[0]
+    Ho, Wo = (H + 2 * pad - ks) // stride + 1, (W + 2 * pad - ks) // stride + 1
+    if Ho <= 0 or Wo <= 0:
+        raise ValueError(f"int8_conv_f32: empty output for a {H}x{W} input")
+    out = torch.empty((B, N, Ho, Wo), dtype=torch.float32, device=x.device)
+    _launch("int8_conv_f32", "int8_conv_f32", x, x.data_ptr(), w.data_ptr(), ep.data_ptr(),
+            int(act), out.data_ptr(), B, H, W, K, N, ks, stride, pad)
+    return out
+
+
+# ------------------------------------------------------------ dispatch
+def _dispatch(cuda_fn, torch_fn, x, *args):
+    if x.is_cuda:
+        return cuda_fn(x, *args)
+    if x.device.type == "cpu":
+        return torch_fn(x, *args)
+    raise ValueError(f"unsupported device {x.device}")
+
+
+def int8_mm_fused(x, w, ep, inv: float) -> torch.Tensor:
+    """K2 for a CUDA tensor, the twin for a CPU tensor; nothing else."""
+    return _dispatch(int8_mm_fused_cuda, int8_mm_fused_torch, x, w, ep, inv)
+
+
+def int8_conv3x3_fused(x, w, ep, inv: float) -> torch.Tensor:
+    """K3 for a CUDA tensor, the twin for a CPU tensor; nothing else."""
+    return _dispatch(int8_conv3x3_fused_cuda, int8_conv3x3_fused_torch, x, w, ep, inv)
+
+
+def int8_conv_f32(x, w, ep, stride: int, pad: int, act: bool) -> torch.Tensor:
+    """The int8 conv kernel for a CUDA tensor, the twin for a CPU tensor."""
+    return _dispatch(int8_conv_f32_cuda, int8_conv_f32_torch, x, w, ep, stride, pad, act)

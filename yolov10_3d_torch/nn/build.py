@@ -24,6 +24,7 @@ from ..cfg import load_yaml
 from ..device import resolve_device
 from . import heads as H
 from . import modules as M
+from .quant import Int8Config, plan_int8
 
 HEAD_MODULES = {"v10Detect"}
 # Modules following the (c1, c2, ...) channel convention
@@ -215,7 +216,9 @@ class YOLOModel(nn.Module):
     """The compiled detection model: backbone + PAN neck + head, NCHW input.
 
     ``fast_eval`` (serving) skips the train-only one2many branches at eval;
-    ``forward(x, fast_eval=...)`` overrides it per call.
+    ``forward(x, fast_eval=...)`` overrides it per call. ``forward(x,
+    int8=Int8Config(...))`` runs the call in int8 (``nn/quant.py``); the
+    plans of the input sizes served so far are kept in ``int8_plans``.
     """
 
     def __init__(self, spec: ModelSpec, fast_eval: bool = False, ch: int = 3):
@@ -240,10 +243,14 @@ class YOLOModel(nn.Module):
             mods.append(mod)
             chans.append(s.c2)
         self.model = nn.ModuleList(mods)
+        self.int8_plans: Dict[tuple, Any] = {}
 
-    def forward(self, x: torch.Tensor, fast_eval: Optional[bool] = None):
+    def forward(self, x: torch.Tensor, fast_eval: Optional[bool] = None,
+                int8: Optional[Int8Config] = None):
         """x: (B, 3, H, W) normalised image. Returns the head output."""
         fast = self.fast_eval if fast_eval is None else fast_eval
+        one2many = self.training or not fast
+        plan = plan_int8(self, tuple(x.shape[-2:]), int8, one2many) if int8 is not None else None
         saved: Dict[int, torch.Tensor] = {}
         out = x
         for spec, layer in zip(self.spec.layers, self.model):
@@ -254,9 +261,9 @@ class YOLOModel(nn.Module):
 
             inp = [_lookup(j) for j in spec.f] if isinstance(spec.f, tuple) else _lookup(spec.f)
             if spec.module in HEAD_MODULES:
-                out = layer(inp, one2many=self.training or not fast)
+                out = layer(inp, one2many=one2many, plan=plan)
             else:
-                out = layer(inp)
+                out = M.run(layer, inp, plan)
             if spec.i in self.spec.save:
                 saved[spec.i] = out
         return out

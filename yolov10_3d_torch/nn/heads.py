@@ -11,7 +11,7 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
-from .modules import Conv
+from .modules import Conv, run
 
 REG_MAX = 16
 
@@ -49,15 +49,15 @@ class V10Detect(nn.Module):
         self.one2one_cv3 = nn.ModuleList(_v10_cls_branch(x, c3, nc) for x in ch)
 
     @staticmethod
-    def _forward_feat(xs, cv2, cv3) -> List[torch.Tensor]:
-        return [torch.cat([cv2[i](x), cv3[i](x)], 1) for i, x in enumerate(xs)]
+    def _forward_feat(xs, cv2, cv3, plan) -> List[torch.Tensor]:
+        return [torch.cat([run(cv2[i], x, plan), run(cv3[i], x, plan)], 1) for i, x in enumerate(xs)]
 
-    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True
+    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True, plan=None
                 ) -> Dict[str, List[torch.Tensor]]:
         # one2one trains on detached features (the JAX stop_gradient)
         one2one = self._forward_feat(
-            [x.detach() for x in xs], self.one2one_cv2, self.one2one_cv3
+            [x.detach() for x in xs], self.one2one_cv2, self.one2one_cv3, plan
         )
         if not one2many:
             return {"one2one": one2one}
-        return {"one2many": self._forward_feat(xs, self.cv2, self.cv3), "one2one": one2one}
+        return {"one2many": self._forward_feat(xs, self.cv2, self.cv3, plan), "one2one": one2one}

@@ -10,6 +10,11 @@ Numerical conventions, as in the JAX package:
   - BatchNorm eps 1e-3, torch momentum 0.03 (flax keep-fraction 0.97);
     eval normalises with the running statistics;
   - "same" autopad p = k // 2.
+
+Every forward takes ``plan``, the int8 plan of the call (``nn/quant.py``), or
+None for float32. A ``Conv`` the plan routes to a fused kernel returns int8
+NHWC codes; only the blocks that hold such a producer (Bottleneck, SPPF,
+PSA and the head's box branches) ever see them.
 """
 
 from __future__ import annotations
@@ -33,8 +38,19 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
     return p
 
 
+def run(m: nn.Module, x, plan):
+    """``m(x)``, handing the int8 plan to the port's blocks; runs an
+    ``nn.Sequential`` child by child."""
+    if isinstance(m, nn.Sequential):
+        for sub in m:
+            x = run(sub, x, plan)
+        return x
+    return m(x) if isinstance(m, nn.Conv2d) else m(x, plan)
+
+
 class Conv(nn.Module):
-    """Conv2d (no bias) + BatchNorm + SiLU; ``g`` groups (depthwise at g == c1)."""
+    """Conv2d (no bias) + BatchNorm + SiLU; ``g`` groups (depthwise at g == c1).
+    ``int8_cache`` holds the int8 weights of int8 serving (``nn/quant.py``)."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
@@ -43,8 +59,12 @@ class Conv(nn.Module):
                               groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.Identity()
+        self.int8_cache = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        route = plan.route(self, x) if plan is not None else None
+        if route is not None:
+            return plan.run(self, x, route)
         return self.act(self.bn(self.conv(x)))
 
 
@@ -59,8 +79,8 @@ class Bottleneck(nn.Module):
         self.cv2 = Conv(c_, c2, k[1], 1, g=g)
         self.add = shortcut and c1 == c2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv2(self.cv1(x))
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        y = self.cv2(self.cv1(x, plan), plan)
         return x + y if self.add else y
 
 
@@ -77,11 +97,11 @@ class C2f(nn.Module):
             Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = list(self.cv1(x).chunk(2, 1))
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        y = list(self.cv1(x, plan).chunk(2, 1))
         for m in self.m:
-            y.append(m(y[-1]))
-        return self.cv2(torch.cat(y, 1))
+            y.append(m(y[-1], plan))
+        return self.cv2(torch.cat(y, 1), plan)
 
 
 class SPPF(nn.Module):
@@ -94,11 +114,17 @@ class SPPF(nn.Module):
         self.cv2 = Conv(c_ * 4, c2, 1, 1)
         self.m = nn.MaxPool2d(kernel_size=k, stride=1, padding=k // 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.cv1(x)
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        x = self.cv1(x, plan)
+        if x.dtype == torch.int8:  # codes (NHWC): the pools commute with quantization
+            c = x.permute(0, 3, 1, 2).float()  # exact
+            y1 = self.m(c)
+            y2 = self.m(y1)
+            cat = torch.cat([c, y1, y2, self.m(y2)], 1).to(torch.int8)
+            return self.cv2(cat.permute(0, 2, 3, 1).contiguous(), plan)
         y1 = self.m(x)
         y2 = self.m(y1)
-        return self.cv2(torch.cat([x, y1, y2, self.m(y2)], 1))
+        return self.cv2(torch.cat([x, y1, y2, self.m(y2)], 1), plan)
 
 
 class SCDown(nn.Module):
@@ -109,8 +135,8 @@ class SCDown(nn.Module):
         self.cv1 = Conv(c1, c2, 1, 1)
         self.cv2 = Conv(c2, c2, k, s, g=c2, act=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.cv2(self.cv1(x))
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        return self.cv2(self.cv1(x, plan), plan)
 
 
 class RepVGGDW(nn.Module):
@@ -121,8 +147,8 @@ class RepVGGDW(nn.Module):
         self.conv = Conv(ed, ed, 7, 1, 3, g=ed, act=False)
         self.conv1 = Conv(ed, ed, 3, 1, 1, g=ed, act=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.silu(self.conv(x) + self.conv1(x))
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        return F.silu(self.conv(x, plan) + self.conv1(x, plan))
 
 
 class CIB(nn.Module):
@@ -141,8 +167,8 @@ class CIB(nn.Module):
         )
         self.add = shortcut and c1 == c2
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.cv1(x)
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        y = run(self.cv1, x, plan)
         return x + y if self.add else y
 
 
@@ -177,16 +203,16 @@ class Attention(nn.Module):
         self.proj = Conv(dim, dim, 1, act=False)
         self.pe = Conv(dim, dim, 3, 1, g=dim, act=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
         B, C, H, W = x.shape
         N = H * W
-        qkv = self.qkv(x).view(B, self.num_heads, 2 * self.key_dim + self.head_dim, N)
+        qkv = self.qkv(x, plan).view(B, self.num_heads, 2 * self.key_dim + self.head_dim, N)
         q, k, v = qkv.split([self.key_dim, self.key_dim, self.head_dim], dim=2)
         attn = (q.transpose(-2, -1) @ k) * self.scale  # (B, heads, N, N)
         attn = attn.softmax(dim=-1)
         out = (v @ attn.transpose(-2, -1)).reshape(B, C, H, W)
-        out = out + self.pe(v.reshape(B, C, H, W))
-        return self.proj(out)
+        out = out + self.pe(v.reshape(B, C, H, W), plan)
+        return self.proj(out, plan)
 
 
 class PSA(nn.Module):
@@ -202,11 +228,11 @@ class PSA(nn.Module):
             Conv(self.c, self.c * 2, 1), Conv(self.c * 2, self.c, 1, act=False)
         )
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        a, b = self.cv1(x).split((self.c, self.c), dim=1)
-        b = b + self.attn(b)
-        b = b + self.ffn(b)
-        return self.cv2(torch.cat((a, b), 1))
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        a, b = self.cv1(x, plan).split((self.c, self.c), dim=1)
+        b = b + self.attn(b, plan)
+        b = b + run(self.ffn, b, plan)
+        return self.cv2(torch.cat((a, b), 1), plan)
 
 
 class Concat(nn.Module):
@@ -216,7 +242,7 @@ class Concat(nn.Module):
         super().__init__()
         self.d = dimension
 
-    def forward(self, xs: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, xs: Sequence[torch.Tensor], plan=None) -> torch.Tensor:
         return torch.cat(list(xs), self.d)
 
 
@@ -227,7 +253,7 @@ class Upsample(nn.Module):
         super().__init__()
         self.scale = scale
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
         return F.interpolate(x, scale_factor=self.scale, mode="nearest")
 
 

@@ -27,7 +27,7 @@ from ..data.preprocess import resize_linear
 
 @torch.no_grad()
 def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
-              cls_mean: float = -2.0, cls_max: float = 2.0) -> nn.Module:
+              cls_mean: float = -2.0, cls_max: float = 2.0, int8=None) -> nn.Module:
     """Calibrate a YOLOModel on ``x`` (B, 3, H, W), in eval mode.
 
     One forward sets each BatchNorm's running statistics from its own input,
@@ -40,7 +40,15 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
     ``cls_mean`` and, with one scale for all classes, batch maximum
     ``cls_max``. The class logits of a random net are heavy-tailed, so unit
     variance lets the top scores saturate at 1.0 and tie; pinning the maximum
-    keeps every served score below sigmoid(cls_max), on the slope."""
+    keeps every served score below sigmoid(cls_max), on the slope.
+
+    ``int8`` (an ``nn.quant.Int8Config``) rescales the head on the outputs of
+    that int8 forward instead, for serving in int8: the static activation
+    scale quantizes a random net's activations coarsely (the [0, 1] image
+    to 17 levels), and head scales fitted to the float outputs would
+    saturate the int8 scores. The BatchNorm statistics still come from the
+    float forward: an int8 conv applies its BatchNorm in the kernel, where
+    no hook sees it."""
     model.eval()
 
     def set_stats(bn, inp):
@@ -72,7 +80,7 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
     hooks = [conv.register_forward_hook(lambda mod, i, o: seen.__setitem__(mod, o))
              for conv, _, _ in outs]
     try:
-        model(x, fast_eval=False)
+        model(x, fast_eval=False, int8=int8)
     finally:
         for h in hooks:
             h.remove()
