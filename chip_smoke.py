@@ -27,20 +27,39 @@ Phases, each fatal on failure:
                 the CPU int8 path given the same input (a free-running CPU run
                 is chaotic in int8: see int8_layers_vs_cpu); the free-running
                 gap is printed.
+  5. train-lockstep - one train step of YOLOv10-S (nc=80, seeded weights, the
+                trainer's head init) at 640x640, batch 2, on one augmented
+                batch with fixed draws, SGD, float32 with TF32 off, on the GPU
+                and on the CPU from the same state: the six loss terms within
+                rtol 1e-3 and every parameter's update within 1e-2 of its
+                largest element (plus 1e-4 of the model's largest update, for
+                the parameters whose exact gradient is 0).
+  6. train    - YOLOv10("yolov10s.yaml").train(...) on a synthetic set of 160
+                PNGs (640x480, painted boxes) that the script writes to a
+                temporary directory: imgsz 640, batch 16, one epoch, device
+                augmentation, the JAX defaults otherwise (AdamW, nbs 64, amp);
+                then a shorter float32 run (amp=False). K4 must launch once
+                per step; the epoch's loss means must be finite.
 
-The last three lines are the card line, one JSON object with the per-kernel
-numbers, and {"ok": true, "device": {...}}. Imports no JAX.
+Each path (serving, train) is driven with the launch counts set to 0 just
+before it and read just after. The last three lines are the card line, one
+JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
+Imports no JAX.
 """
 
 from __future__ import annotations
 
 import contextlib
+import copy
 import json
 import math
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 from pathlib import Path
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, float32 (non-tensor-core) peak and
@@ -52,6 +71,9 @@ L2_COLD_BYTES = 100 * 2**20  # twice the 50 MB L2 cache
 # K1 arithmetic per anchor: 4 x 16 bins x (max, sub, exp, add, mul, add)
 # + 4 divides + 8 box ops + nc x (neg, exp, add, divide).
 K1_OPS_PER_ANCHOR = lambda nc: 4 * 16 * 6 + 4 + 8 + 4 * nc  # noqa: E731
+# K4 arithmetic per pixel: max/min 4, 4 divides, 8 adds and subtracts, 3 gain
+# multiplies, fmod, 4 clips, floor, 8 for p/q/t, 15 sector selects, 6 compares.
+K4_OPS_PER_PIXEL = 54
 
 # Every kernel of the main path: where it lives and the TPU kernel it replaces.
 KERNELS = {
@@ -63,7 +85,11 @@ KERNELS = {
                            "replaces": "yolov10_3d_tpu/ops/pallas_kernels.py:161"},
     "int8_conv_f32": {"route": "cuda", "source": "yolov10_3d_torch/csrc/int8_conv.cu",
                       "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv, no TPU kernel)"},
+    "hsv_jitter": {"route": "cuda", "source": "yolov10_3d_torch/csrc/hsv_jitter.cu",
+                   "replaces": "yolov10_3d_tpu/ops/pallas_preprocess.py:113"},
 }
+SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32")
+TRAIN_KERNELS = ("hsv_jitter",)
 
 IMGSZ = 640
 SCORE_TOL = 1e-4  # end-to-end bars of tests/test_torch_predictor.py
@@ -278,12 +304,49 @@ def check_conv_f32(B: int) -> dict:
     return r
 
 
+def check_k4(B: int) -> dict:
+    """K4 on planar (B, 3, 640, 640) float32 images, the training batch's."""
+    import torch
+
+    from yolov10_3d_torch.kernels.hsv import hsv_jitter_cuda, hsv_jitter_torch
+
+    H = W = IMGSZ
+    g = torch.Generator(device="cuda").manual_seed(B)
+    n_buf = -(-L2_COLD_BYTES // (B * 3 * H * W * 4))  # inputs > 2x the L2 cache
+    xs = [torch.rand((B, 3, H, W), generator=g, device="cuda") for _ in range(n_buf)]
+    hyp = torch.tensor([0.015, 0.7, 0.4], device="cuda")
+    gains = 1 + (torch.rand((B, 3), generator=g, device="cuda") * 2 - 1) * hyp
+    got = hsv_jitter_cuda(xs[0], gains)
+    ref = hsv_jitter_torch(xs[0], gains)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    if not err <= 1e-6:
+        raise AssertionError(f"k4 B={B}: max abs error {err:.3g} against the twin (bar 1e-6)")
+    ms = time_device([lambda x=x: hsv_jitter_cuda(x, gains) for x in xs])
+    plain_ms = time_device([lambda x=x: hsv_jitter_torch(x, gains) for x in xs], replays=5)
+    call_ms = time_cuda(lambda: hsv_jitter_cuda(xs[0], gains), 200)
+    nbytes = 2 * xs[0].numel() * 4 + gains.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = B * H * W * K4_OPS_PER_PIXEL / F32_FLOPS_PER_S * 1e3
+    r = {
+        "shape": [B, 3, H, W], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None, "eager_call_ms": call_ms,
+    }
+    print(f"[k4] B={B} (B, 3, {H}, {W}): max_abs_err {err:.3g} (bar 1e-6) | kernel {ms:.4f} ms "
+          f"(device, graph replay, {n_buf} input buffers) | twin {plain_ms:.4f} ms | bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB) | eager call "
+          f"{call_ms:.4f} ms | library_ms: null (no single PyTorch call converts to HSV)")
+    return r
+
+
 def phase_kernels():
     return {
         "decode_detect": (check_k1(1), check_k1(32)),
         "int8_mm_fused": (check_k2(1), check_k2(32)),
         "int8_conv3x3_fused": (check_k3(1), check_k3(32)),
         "int8_conv_f32": (check_conv_f32(1), check_conv_f32(32)),
+        "hsv_jitter": (check_k4(1), check_k4(16)),
     }
 
 
@@ -476,9 +539,9 @@ def phase_serving(card: str):
             _check_results(res, [im.shape[:2] for im in ims])
         gpu_res[name] = res
     launches = dict(launch_counts)
-    for k, v in launches.items():
-        if v == 0:
-            raise AssertionError(f"kernel {k} never launched on the main path")
+    for k in SERVING_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched on the serving path")
 
     u8 = torch.from_numpy(np.stack(images["uniform_b8"]))
     gap = (serve_preprocess(u8.cuda(), (IMGSZ, IMGSZ)).cpu()
@@ -536,6 +599,355 @@ def phase_serving(card: str):
     return launches
 
 
+def write_png(path: Path, img) -> None:
+    """An 8-bit RGB PNG of an HWC uint8 image (filter 0, zlib level 1)."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                     + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def painted_image(rng, h: int, w: int, n_max: int = 5):
+    """A smooth background with 1..n_max painted boxes; (HWC uint8, YOLO label rows)."""
+    import numpy as np
+
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = rng.integers(0, 120, 3)
+    img = np.stack([(base[c] + (yy * (c + 1) + xx * (3 - c)) // 16) % 140 for c in range(3)],
+                   -1).astype(np.uint8)
+    rows = []
+    for _ in range(int(rng.integers(1, n_max + 1))):
+        bw, bh = int(rng.integers(24, w // 3)), int(rng.integers(24, h // 3))
+        x0, y0 = int(rng.integers(0, w - bw)), int(rng.integers(0, h - bh))
+        img[y0:y0 + bh, x0:x0 + bw] = rng.integers(140, 256, 3)
+        rows.append((int(rng.integers(0, 80)), (x0 + bw / 2) / w, (y0 + bh / 2) / h, bw / w, bh / h))
+    return img, rows
+
+
+def synthetic_set(root: Path, n: int = 160, seed: int = 0) -> Path:
+    """n 640x480 PNGs with their YOLO label files and a data.yaml (nc=80)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir(parents=True)
+    for i in range(n):
+        img, rows = painted_image(rng, 480, 640)
+        write_png(root / "images" / f"{i:04d}.png", img)
+        (root / "labels" / f"{i:04d}.txt").write_text(
+            "\n".join(f"{c} {x:.6f} {y:.6f} {w:.6f} {h:.6f}" for c, x, y, w, h in rows))
+    names = "\n".join(f"  {i}: class{i}" for i in range(80))
+    (root / "data.yaml").write_text(f"path: {root}\ntrain: images\nval: images\nnames:\n{names}\n")
+    return root / "data.yaml"
+
+
+def lockstep_batch():
+    """Two samples of four 640x640 tiles with tile-frame labels, and fixed
+    augmentation draws (crop offsets, HSV gains, flips)."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch.data.preprocess import letterbox
+
+    rng = np.random.default_rng(1)
+    tiles = np.zeros((2, 4, IMGSZ, IMGSZ, 3), np.uint8)
+    labels = np.zeros((2, 4, 8, 5), np.float32)
+    mask = np.zeros((2, 4, 8), bool)
+    for b in range(2):
+        for t in range(4):
+            img, rows = painted_image(rng, 480, 640)
+            tiles[b, t], r, (dw, dh) = letterbox(img, (IMGSZ, IMGSZ))
+            for k, (c, x, y, w, h) in enumerate(rows):
+                labels[b, t, k] = (c, (x - w / 2) * 640 * r + dw, (y - h / 2) * 480 * r + dh,
+                                   (x + w / 2) * 640 * r + dw, (y + h / 2) * 480 * r + dh)
+                mask[b, t, k] = True
+    draws = {"oy": torch.tensor([150, 420]), "ox": torch.tensor([333, 40]),
+             "gains": torch.tensor([[1.012, 1.35, 0.82], [0.991, 0.55, 1.25]]),
+             "flip": torch.tensor([True, False])}
+    return [torch.from_numpy(a) for a in (tiles, labels, mask)], draws
+
+
+@contextlib.contextmanager
+def assignments(record: list = None, replay: list = None):
+    """Inside: the loss's TAL assignments are appended to ``record`` (on the
+    CPU), or taken in order from ``replay`` instead of being computed."""
+    from yolov10_3d_torch.train import loss as L
+
+    real = L.assign
+
+    def assign(*args, **kw):
+        if replay is not None:
+            r = replay.pop(0)
+            return type(r)(*(t.to(args[0].device) for t in r))
+        r = real(*args, **kw)
+        if record is not None:
+            record.append(type(r)(*(t.detach().cpu() for t in r)))
+        return r
+
+    L.assign = assign
+    try:
+        yield
+    finally:
+        L.assign = real
+
+
+def assignment_gap(a, b) -> str:
+    """How two TAL assignments of one branch differ."""
+    fg = int((a.fg_mask != b.fg_mask).sum())
+    idx = int(((a.target_gt_idx != b.target_gt_idx) & a.fg_mask & b.fg_mask).sum())
+    ts = float((a.target_scores - b.target_scores).abs().max())
+    return (f"fg {int(a.fg_mask.sum())}/{int(b.fg_mask.sum())}, {fg} anchors differ in fg, "
+            f"{idx} in target GT, target scores max abs diff {ts:.3g}")
+
+
+def phase_train_lockstep(card: str) -> dict:
+    """One SGD train step of YOLOv10-S at 640x640, batch 2, float32 (TF32
+    off), on the GPU and on the CPU from the same state and batch. The CPU
+    step takes the GPU step's TAL assignments, so that the comparison is of
+    the arithmetic; the CPU's own assignments are computed too and the
+    difference printed (a random net has near-ties in the top-10 metric)."""
+    import torch
+
+    from yolov10_3d_torch.cfg import resolve_model_cfg
+    from yolov10_3d_torch.nn.build import build_model
+    from yolov10_3d_torch.nn.heads import detect_bias_init
+    from yolov10_3d_torch.ops.device_aug import augment_core
+    from yolov10_3d_torch.train.optim import Optimizer
+    from yolov10_3d_torch.train.state import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    (tiles, labels, mask), draws = lockstep_batch()
+    gpu, spec = build_model(resolve_model_cfg("yolov10s"), device="cuda", seed=0)
+    detect_bias_init(gpu.model[spec.head_index], spec.nc, spec.strides)
+    cpu = copy.deepcopy(gpu).cpu()
+    kw = dict(name="SGD", lr0=0.01, epochs=10, steps_per_epoch=10, warmup_epochs=0.0,
+              batch_size=2, nbs=2)
+    step = make_train_step(nc=spec.nc, strides=spec.strides)
+    before = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
+    own_cpu = copy.deepcopy(cpu)
+    rec_gpu, rec_cpu = [], []
+    out = {}
+    for name, model, dev, ctx in (("gpu", gpu, "cuda", assignments(record=rec_gpu)),
+                                  ("cpu", cpu, "cpu", assignments(replay=rec_gpu)),
+                                  ("cpu_own", own_cpu, "cpu", assignments(record=rec_cpu))):
+        batch = augment_core(tiles.to(dev), labels.to(dev), mask.to(dev), **draws,
+                             out_hw=(IMGSZ, IMGSZ), crop_hw=(IMGSZ, IMGSZ), max_boxes=32)
+        state = TrainState.create(model, Optimizer(model, **kw))
+        if name == "cpu":
+            rec_gpu_kept = list(rec_gpu)
+        with ctx:
+            _, metrics = step(state, batch)
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()}, batch)
+    (mg, sg, bg), (mc, sc, bc) = out["gpu"], out["cpu"]
+    m_own = out["cpu_own"][0]
+    print("[train-lockstep] TAL assignments, GPU vs the CPU's own: " + "; ".join(
+        f"{br}: {assignment_gap(a, b)}"
+        for br, a, b in zip(("one2many", "one2one"), rec_gpu_kept, rec_cpu)))
+    print("[train-lockstep] loss terms of the CPU step with its own assignments: " + ", ".join(
+        f"{k} {v:.7g}" for k, v in m_own.items()))
+    img_err = float((bg["img"].cpu() - bc["img"]).abs().max())
+    if not img_err <= 1e-6 or not torch.equal(bg["mask_gt"].cpu(), bc["mask_gt"]):
+        raise AssertionError(f"the augmented batch differs between GPU and CPU ({img_err:.3g})")
+    worst_term = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    params = [k for k, _ in cpu.named_parameters()]
+    big = max(float((sc[k] - before[k]).abs().max()) for k in params)
+    worst, floored, bad = (0.0, ""), [], []
+    for k in params:
+        d_gpu, d_cpu = sg[k] - before[k], sc[k] - before[k]
+        top = float(d_cpu.abs().max())
+        err = float((d_gpu - d_cpu).abs().max())
+        if err > 1e-2 * top:
+            floored.append(k)
+        if err > 1e-2 * top + 1e-4 * big:
+            bad.append(f"{k} ({err:.3g} of {top:.3g})")
+        worst = max(worst, (err / (top + 1e-30), k))
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    bn_err = max(float((sg[k] - sc[k]).abs().max()) for k in stats)
+    print(f"[train-lockstep] YOLOv10-S 640x640 B=2, SGD, float32 (TF32 off), one step; "
+          f"augmented batch GPU (K4) vs CPU (twin): max abs {img_err:.3g} ({card})")
+    print("[train-lockstep] loss terms GPU / CPU given the GPU's assignments: " + ", ".join(
+        f"{k} {mg[k]:.7g} / {mc[k]:.7g}" for k in mc) + f" | worst rel {worst_term:.3g} (bar 1e-3)")
+    print(f"[train-lockstep] updates: worst {worst[0]:.3g} of its own largest element at "
+          f"{worst[1]}; {len(floored)} of {len(params)} parameters beyond 1e-2 of their own, "
+          f"all within it plus 1e-4 of the model's largest update ({big:.3g}) unless listed: "
+          f"{bad[:8] or 'none'}{' ...' if len(bad) > 8 else ''} ({len(bad)} listed); BN running "
+          f"stats max abs diff {bn_err:.3g} ({time.perf_counter() - t0:.1f} s)")
+    if worst_term > 1e-3 or bad:
+        raise AssertionError(f"train-lockstep: GPU step off the CPU step (terms {worst_term:.3g}, "
+                             f"{len(bad)} updates beyond their bar)")
+    return {"loss_terms_rel": worst_term, "update_worst": worst[0], "floored": len(floored),
+            "bn_err": bn_err}
+
+
+@contextlib.contextmanager
+def timed_train_steps(times: list, prof=None, profiled=()):
+    """Inside: every train step that ``DetectionTrainer`` builds is timed,
+    host clock between two synchronisations; the steps whose index is in
+    ``profiled`` (consecutive) also run under the profiler ``prof``."""
+    import torch
+
+    from yolov10_3d_torch.engine import trainer as T
+
+    real = T.make_train_step
+
+    def make(**kw):
+        step = real(**kw)
+
+        def timed(state, batch):
+            n = len(times)
+            torch.cuda.synchronize()
+            if profiled and n == profiled[0]:
+                prof.start()
+            t0 = time.perf_counter()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            if profiled and n == profiled[-1]:
+                prof.stop()
+            return out
+
+        return timed
+
+    T.make_train_step = make
+    try:
+        yield
+    finally:
+        T.make_train_step = real
+
+
+KERNEL_GROUPS = (  # kernel name fragments -> a layer of the train step
+    ("hsv_jitter", "K4 hsv_jitter"), ("conv", "convolution (cuDNN)"),
+    ("gemm", "matmul / convolution GEMM"), ("sm90", "matmul / convolution GEMM"),
+    ("sm80", "matmul / convolution GEMM"), ("cutlass", "matmul / convolution GEMM"),
+    ("batch_norm", "batch norm"), ("bn_", "batch norm"),
+    ("foreach", "optimizer and EMA (foreach)"), ("reduce", "reductions"),
+    ("elementwise", "elementwise"), ("copy", "copies and casts"),
+)
+
+
+def profile_report(prof, wall_ms: float, steps: int) -> str:
+    """Device time per train step by layer and the top kernels, from a
+    torch.profiler trace of ``steps`` synchronised steps (``wall_ms`` of host
+    time), and the device's idle share."""
+    kernels = {}
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+        if t and e.device_type.name == "CUDA":
+            kernels[e.key] = kernels.get(e.key, 0.0) + t / 1e3  # ms
+    busy = sum(kernels.values())
+    if not busy:
+        return "the profiler saw no device time (not measured)"
+    groups = {}
+    for name, ms in kernels.items():
+        low = name.lower()
+        g = next((g for frag, g in KERNEL_GROUPS if frag in low), "other")
+        groups[g] = groups.get(g, 0.0) + ms
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    return (f"device busy {busy / steps:.1f} ms/step of {wall_ms / steps:.1f} ms, idle share "
+            f"{max(0.0, 1 - busy / wall_ms):.3f}; by layer (ms/step): " + ", ".join(
+                f"{g} {ms / steps:.1f}" for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]))
+            + "; top kernels (ms/step): " + "; ".join(
+                f"{name[:70]} {ms / steps:.2f}" for name, ms in top))
+
+
+def isolated_steps(trainer, amp: bool, n: int = 5) -> list:
+    """ms of ``n`` more train steps of the trained state on one cached batch,
+    with no loader thread running (synchronised, host clock)."""
+    import torch
+
+    from yolov10_3d_torch.data.dataset import DataLoader
+    from yolov10_3d_torch.train.state import make_train_step
+
+    args = trainer.args
+    batch = next(iter(DataLoader(trainer.train_ds, args["batch"], workers=0, pin_memory=True)))
+    batch = {k: v.cuda(non_blocking=True) for k, v in batch.items()}
+    step = make_train_step(nc=trainer.spec.nc, strides=trainer.spec.strides,
+                           gains=(args["box"], args["cls"], args["dfl"]), amp=amp,
+                           preprocess_fn=trainer.make_preprocess_fn())
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(trainer.state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def phase_train(card: str) -> dict:
+    """YOLOv10.train on the synthetic set: the amp (bf16) run, then a shorter
+    float32 one. Returns the launch counts of the amp run."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    launches = None
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = synthetic_set(Path(tmp) / "set")
+        n_img = len(list(data.parent.glob("images/*.png")))
+        print(f"[train] synthetic set: {n_img} PNGs 640x480 written in "
+              f"{time.perf_counter() - t0:.1f} s")
+        for amp, fraction in ((True, 1.0), (False, 0.6)):
+            times = []
+            model = YOLOv10("yolov10s.yaml")
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            profiled = (6, 7, 8) if amp else (4, 5)  # steady steps, timed apart
+            t0 = time.perf_counter()
+            with timed_train_steps(times, prof, profiled):
+                state = model.train(data=str(data), imgsz=IMGSZ, batch=16, epochs=1,
+                                    device_aug=True, val=False, save=False, workers=4, amp=amp,
+                                    fraction=fraction, save_dir=str(Path(tmp) / f"run{int(amp)}"))
+            wall = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            row = model.trainer.last_metrics
+            steps = state.step
+            if counts["hsv_jitter"] != steps or steps < 3:
+                raise AssertionError(f"train: {steps} steps launched K4 {counts['hsv_jitter']} times")
+            terms = {k: v for k, v in row.items() if k not in ("epoch", "time", "lr")}
+            if not all(math.isfinite(v) for v in terms.values()):
+                raise AssertionError(f"train: non-finite epoch loss means {terms}")
+            steady = [t for i, t in enumerate(times) if i >= 2 and i not in profiled]
+            ms = statistics.median(steady)
+            traced_ms = sum(times[i] for i in profiled)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[train] YOLOv10-S amp={amp} ({'bf16 autocast' if amp else 'float32, TF32 off'}) "
+                  f"{steps} micro-steps of 16 at 640x640, {state.optimizer.updates} optimizer "
+                  f"updates (accumulate {state.optimizer.accumulate}): median {ms:.1f} ms/step "
+                  f"({len(steady)} steady steps, not traced; all: "
+                  f"{', '.join(f'{t:.0f}' for t in times)} ms), "
+                  f"{16 / ms * 1e3:.1f} img/s; epoch {row['time']:.1f} s "
+                  f"({16 * steps / row['time']:.1f} img/s with the loader), call {wall:.1f} s; "
+                  f"peak device memory {peak:.2f} GiB ({card})")
+            print(f"[train] amp={amp} profile of steps {[i + 1 for i in profiled]} (traced: "
+                  f"{traced_ms / len(profiled):.1f} ms/step): "
+                  f"{profile_report(prof, traced_ms, len(profiled))}")
+            iso = isolated_steps(model.trainer, amp)
+            print(f"[train] amp={amp} the same step with no loader running (a cached batch, "
+                  f"{len(iso)} steps): median {statistics.median(iso):.1f} ms/step "
+                  f"({', '.join(f'{t:.0f}' for t in iso)} ms)")
+            print(f"[train] amp={amp} epoch loss means: " + ", ".join(
+                f"{k} {v:.5g}" for k, v in terms.items()) + f"; lr {row['lr']:.3g}; launches "
+                f"{counts}")
+            if launches is None:
+                launches = counts
+    return launches
+
+
 def main() -> int:
     t0 = time.perf_counter()
     sys.path.insert(0, str(Path(__file__).resolve().parent))
@@ -546,14 +958,24 @@ def main() -> int:
 
     phase_build()
     kern = phase_kernels()
-    launches = phase_serving(card)
-    if not set(KERNELS) == set(kern) == set(launches):
+    serving = phase_serving(card)
+    failed = []
+    try:  # the train phase runs even when the lockstep misses a bar; both are fatal
+        phase_train_lockstep(card)
+    except AssertionError as e:
+        failed.append(f"train-lockstep: {e}")
+        print(f"[train-lockstep] FAILED: {e}")
+    train = phase_train(card)
+    if failed:
+        raise AssertionError("; ".join(failed))
+    launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}
+    if not set(KERNELS) == set(kern) == set(launches) == set(serving):
         raise AssertionError(f"kernel tables disagree: {set(KERNELS)}, {set(kern)}, {set(launches)}")
     entries = [
         {"name": name, **KERNELS[name], "launches": launches[name], **b1,
-         "b32": {k: b32[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                     "eager_call_ms")}}
-        for name, (b1, b32) in kern.items()
+         "large": {k: big[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
+                                       "eager_call_ms")}}
+        for name, (b1, big) in kern.items()
     ]
     print(f"[done] {time.perf_counter() - t0:.1f} s")
     print(card_line())

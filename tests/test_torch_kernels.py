@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+from yolov10_3d_torch.kernels import hsv as K4
 from yolov10_3d_torch.kernels import int8 as K8
 from yolov10_3d_torch.kernels.decode import (
     decode_detect_cuda, decode_detect_flat, decode_detect_torch,
@@ -45,7 +46,7 @@ def test_reset_launch_counts():
         launch_counts[k] += 3
     reset_launch_counts()
     assert set(launch_counts) >= {"decode_detect", "int8_mm_fused", "int8_conv3x3_fused",
-                                  "int8_conv_f32"}
+                                  "int8_conv_f32", "hsv_jitter"}
     assert all(v == 0 for v in launch_counts.values()), launch_counts
 
 
@@ -180,3 +181,43 @@ def test_int8_kernels_check_inputs(cuda_device):
         K8.int8_conv_f32_cuda(x.transpose(1, 2), w, ep, 1, 1, True)
     with pytest.raises(ValueError, match="ep must be"):
         K8.int8_conv_f32_cuda(x, w, ep[:, :2].contiguous(), 1, 1, True)
+
+
+# ------------------------------------------------------------ K4 hsv_jitter
+def _hsv_case(seed, B, H, W, device):
+    g = torch.Generator().manual_seed(seed)
+    img = torch.rand((B, 3, H, W), generator=g)
+    edges = torch.tensor([[0.5, 1, 1, 0, 0, 0], [0.5, 0, 1, 1, 1, 0], [0.5, 0, 0, 0, 1, 1]])
+    img[:, :, 0, :6] = edges[:, :W]  # grey and the hue-sector edges
+    gains = 1 + (torch.rand((B, 3), generator=g) * 2 - 1) * torch.tensor([0.015, 0.7, 0.4])
+    return img.to(device), gains.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W", [(1, 640, 640), (16, 640, 640), (3, 37, 53), (2, 1, 3)])
+def test_hsv_jitter_matches_twin(cuda_device, B, H, W):
+    """K4 against its twin on the same CUDA tensors: the training batch at
+    640x640 (B 1 and 16) and odd sizes (the one-pixel-per-thread path and a
+    ragged last block). Bar: 1e-6; both round every step alike, so they
+    should agree to the bit."""
+    img, gains = _hsv_case(B * H, B, H, W, cuda_device)
+    before = launch_counts["hsv_jitter"]
+    got = K4.hsv_jitter(img, gains)
+    assert launch_counts["hsv_jitter"] == before + 1
+    want = K4.hsv_jitter_torch(img, gains)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_hsv_jitter_checks_inputs(cuda_device):
+    img, gains = _hsv_case(0, 2, 8, 8, cuda_device)
+    with pytest.raises(TypeError):
+        K4.hsv_jitter_cuda(img.double(), gains)
+    with pytest.raises(ValueError, match="contiguous"):
+        K4.hsv_jitter_cuda(img.transpose(2, 3), gains)
+    with pytest.raises(ValueError, match="gains"):
+        K4.hsv_jitter_cuda(img, gains[:1].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        K4.hsv_jitter_cuda(img, gains.cpu())

@@ -1,8 +1,10 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package (nor cv2 or PIL), runs on the card unless the caller asks for the
-CPU, and refuses the serving options it has not ported."""
+package (nor cv2 or PIL), serves and trains without them, runs on the card
+unless the caller asks for the CPU, and refuses the serving options it has
+not ported."""
 
 import ast
+import os
 import subprocess
 import sys
 from pathlib import Path
@@ -13,7 +15,9 @@ import torch
 
 import yolov10_3d_torch
 from yolov10_3d_torch import YOLOv10, build_model
+from yolov10_3d_torch.cfg import get_cfg
 from yolov10_3d_torch.device import resolve_device
+from yolov10_3d_torch.engine.trainer import DetectionTrainer
 from yolov10_3d_torch.nn.quant import Int8Config
 
 PKG_DIR = Path(yolov10_3d_torch.__file__).resolve().parent
@@ -36,6 +40,22 @@ for int8 in (False, True):
     res = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu").predict(
         np.full((48, 64, 3), 128, np.uint8), imgsz=64, int8=int8)
     assert len(res) == 1 and res[0].boxes.data.shape[1] == 6
+# the training path: device augmentation of random tiles, then one train step
+import torch
+from yolov10_3d_torch.data import dataset
+from yolov10_3d_torch.nn.build import build_model
+from yolov10_3d_torch.ops.device_aug import device_train_augment
+from yolov10_3d_torch.train import loss, optim, state, tal
+g = torch.Generator().manual_seed(0)
+labels = torch.cat([torch.zeros(2, 4, 3, 1), torch.rand(2, 4, 3, 2, generator=g) * 20,
+                    20 + torch.rand(2, 4, 3, 2, generator=g) * 30], -1)
+batch = device_train_augment(torch.randint(0, 256, (2, 4, 32, 32, 3), dtype=torch.uint8),
+                             labels, torch.ones(2, 4, 3, dtype=torch.bool), g,
+                             out_hw=(64, 64), crop_hw=(64, 64))
+model, spec = build_model(yolov10_3d_torch.cfg.resolve_model_cfg("yolov10n"), device="cpu")
+st = state.TrainState.create(model, optim.Optimizer(model, batch_size=2))
+st, metrics = state.make_train_step(nc=spec.nc, strides=spec.strides)(st, batch)
+assert st.step == 1 and bool(torch.isfinite(metrics["loss"]))
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 print("isolated ok")
@@ -43,9 +63,11 @@ print("isolated ok")
 
 
 def test_port_imports_and_serves_without_jax():
-    """In a subprocess: tests/conftest.py has already imported jax here."""
+    """In a subprocess: tests/conftest.py has already imported jax here. The
+    subprocess also runs the training path (device augmentation, one train
+    step)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
-                         text=True, timeout=300)
+                         text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and "isolated ok" in out.stdout, out.stderr[-3000:]
 
 
@@ -75,6 +97,8 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
         YOLOv10("yolov10n.yaml")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model(PKG_DIR / "cfg" / "models" / "v10" / "yolov10n.yaml", device="cuda")
+    with pytest.raises(RuntimeError, match="no CUDA device"):  # the trainer, device unset
+        DetectionTrainer(get_cfg({"device_aug": True, "val": False, "save": False, "epochs": 1}))
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError, match="unsupported device"):
         resolve_device("meta")

@@ -1,9 +1,10 @@
-"""Configuration: the model YAMLs and the serving defaults the port reads.
+"""Configuration: the model YAMLs, dataset YAMLs and the defaults the port reads.
 
 The model YAMLs under ``models/v10`` are copies of the JAX package's. The
 machines the port runs on need not have PyYAML, so ``load_yaml`` reads the
-small subset those files use: top-level scalars, one nested mapping
-(``scales``) and block sequences of flow lists (``backbone``/``head``).
+small subset those files and dataset YAMLs use: top-level scalars, one level
+of nested mapping (``scales``, ``names``) and block sequences of scalars or
+flow lists (``backbone``/``head``).
 """
 
 from __future__ import annotations
@@ -14,17 +15,59 @@ from typing import Any, Dict, List, Optional, Tuple
 
 CFG_DIR = Path(__file__).resolve().parent
 
-# The cfg/default.yaml keys the Predictor reads, with the JAX defaults.
-# spd_serving is a TPU stem layout, on by default in the JAX package, off
-# here (the Predictor raises on it).
+# The cfg/default.yaml keys the Predictor and the trainer read, with the JAX
+# defaults. spd_serving is a TPU stem layout, on by default in the JAX
+# package, off here (the Predictor raises on it). The trainer raises on the
+# training options it has not ported (engine/trainer.py).
 DEFAULTS: Dict[str, Any] = {
+    # predict
     "conf": None,
     "max_det": 50,
     "imgsz": [960, 640],
-    "batch": 1,
     "classes": None,
     "int8": False,
     "spd_serving": False,
+    # train
+    "model": None,
+    "data": None,
+    "device": None,
+    "epochs": 400,
+    "batch": 32,
+    "save": True,
+    "save_dir": None,
+    "val": True,
+    "cache": False,
+    "workers": 4,
+    "optimizer": "AdamW",
+    "seed": 5,
+    "single_cls": False,
+    "rect": False,
+    "cos_lr": False,
+    "close_mosaic": 10,
+    "resume": False,
+    "device_aug": False,
+    "amp": True,
+    "fraction": 1.0,
+    "multi_scale": False,
+    "lr0": 0.001,
+    "lrf": 0.01,
+    "momentum": 0.937,
+    "weight_decay": 0.0005,
+    "warmup_epochs": 3.0,
+    "warmup_momentum": 0.8,
+    "warmup_bias_lr": 0.1,
+    "box": 5.0,
+    "cls": 1.0,
+    "dfl": 1.5,
+    "nbs": 64,
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "fliplr": 0.5,
+    "mosaic": 1.0,
 }
 
 
@@ -35,6 +78,25 @@ def get_cfg(overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
     if unknown:
         raise KeyError(f"unknown config keys {unknown}; valid keys: {sorted(DEFAULTS)}")
     return {**DEFAULTS, **overrides}
+
+
+def load_dataset_yaml(path) -> Dict[str, Any]:
+    """Dataset YAML {path, train, val, names (list or index mapping) | nc}
+    -> the same dict with ``names`` as {index: name} and ``nc``."""
+    path = Path(path)
+    if not path.exists():
+        raise FileNotFoundError(f"dataset yaml not found: {path}")
+    d = load_yaml(path)
+    names = d.get("names")
+    if isinstance(names, list):
+        names = dict(enumerate(names))
+    if names is None and "nc" in d:
+        names = {i: f"class{i}" for i in range(int(d["nc"]))}
+    if not names:
+        raise ValueError(f"{path}: dataset yaml needs names or nc")
+    d["names"] = {int(k): v for k, v in names.items()}
+    d["nc"] = len(d["names"])
+    return d
 
 
 def resolve_model_cfg(name: str) -> Path:
@@ -149,5 +211,5 @@ def load_yaml(path) -> Dict[str, Any]:
                 raise ValueError(f"unsupported YAML line: {raw!r}")
             if root[key] is None:
                 root[key] = {}
-            root[key][k.strip()] = _value(rest)
+            root[key][_scalar(k)] = _value(rest)
     return root

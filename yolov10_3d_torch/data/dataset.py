@@ -1,0 +1,347 @@
+"""YOLO-format detection dataset and loader (port of
+``yolov10_3d_tpu/data/dataset.py``, tile mode: the host half of the
+device-augmentation path).
+
+``YOLODataset`` returns, per sample, the four letterboxed uint8 tiles of a
+mosaic (the sample and three partners drawn from ``self.rng``) with their
+labels in tile-frame pixels; ``ops/device_aug.py`` does the rest on the
+device. ``DataLoader`` batches them in a seeded per-epoch order.
+
+Images are decoded without cv2 or PIL: 8-bit PNG only (``decode_png``).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import queue
+import struct
+import threading
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+
+from .preprocess import letterbox
+
+IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # grey, RGB, grey + alpha, RGBA
+
+
+def img2label_path(img_path: str) -> str:
+    """.../images/.../x.png -> .../labels/.../x.txt (the last ``images`` only)."""
+    import os
+
+    sa, sb = f"{os.sep}images{os.sep}", f"{os.sep}labels{os.sep}"
+    p = str(img_path)
+    if sa in p:
+        p = sb.join(p.rsplit(sa, 1))
+    return str(Path(p).with_suffix(".txt"))
+
+
+def _unfilter_row(ft: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
+    """One PNG scanline with its filter (0-4) undone."""
+    if ft == 0:
+        return line
+    if ft == 1:  # Sub: a running sum per channel, mod 256
+        return (np.cumsum(line.reshape(-1, bpp), 0, dtype=np.int64) & 255).astype(
+            np.uint8).reshape(-1)
+    if ft == 2:  # Up
+        return line + prior
+    if ft not in (3, 4):
+        raise ValueError(f"bad PNG filter type {ft}")
+    x, up, out = line.tolist(), prior.tolist(), [0] * len(line)
+    for i in range(len(x)):  # Average and Paeth depend on the decoded left pixel
+        a = out[i - bpp] if i >= bpp else 0
+        b = up[i]
+        if ft == 3:
+            pred = (a + b) >> 1
+        else:
+            c = up[i - bpp] if i >= bpp else 0
+            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
+            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
+        out[i] = (x[i] + pred) & 255
+    return np.asarray(out, np.uint8)
+
+
+def decode_png(data: bytes, name: str = "image") -> np.ndarray:
+    """8-bit, non-interlaced PNG (grey, grey + alpha, RGB or RGBA) -> HWC RGB
+    uint8; alpha is dropped. Anything else raises."""
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{name}: not a PNG file")
+    pos, header, idat = 8, None, []
+    while pos + 8 <= len(data):
+        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+        if ctype == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif ctype == b"IDAT":
+            idat.append(body)
+        elif ctype == b"IEND":
+            break
+    if header is None:
+        raise ValueError(f"{name}: PNG without IHDR")
+    w, h, depth, color, compression, filtering, interlace = header
+    if depth != 8 or color not in _PNG_CHANNELS or interlace or compression or filtering:
+        raise NotImplementedError(
+            f"{name}: PNG with bit depth {depth}, colour type {color}, interlace {interlace}: "
+            "only 8-bit non-interlaced grey, RGB and RGBA PNGs are decoded "
+            "(ROADMAP queue 1, item 9f)")
+    bpp = _PNG_CHANNELS[color]
+    stride = w * bpp
+    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if rows.size != h * (stride + 1):
+        raise ValueError(f"{name}: PNG data has {rows.size} bytes, expected {h * (stride + 1)}")
+    rows = rows.reshape(h, stride + 1)
+    if not rows[:, 0].any():  # no row filtered: one copy, no Python loop
+        out = rows[:, 1:]
+    else:
+        out = np.empty((h, stride), np.uint8)
+        prior = np.zeros(stride, np.uint8)
+        for y in range(h):
+            prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, bpp)
+    img = out.reshape(h, w, bpp)
+    if bpp <= 2:  # grey (+ alpha)
+        return np.repeat(img[..., :1], 3, axis=2)
+    return np.ascontiguousarray(img[..., :3])
+
+
+def _load_image(path: str) -> np.ndarray:
+    """HWC RGB uint8 of an image file (8-bit PNG)."""
+    if Path(path).suffix.lower() != ".png":
+        raise NotImplementedError(
+            f"{path}: the port decodes PNG images only; JPEG and other formats are "
+            "ROADMAP queue 1, item 9f")
+    return decode_png(Path(path).read_bytes(), path)
+
+
+class YOLODataset:
+    """Detection dataset over YOLO-format labels, in tile mode: item ``i`` is
+    {tiles (4, H, W, 3) uint8, tile_labels (4, M, 5) cls + xyxy px in the
+    tile frame, tile_mask (4, M) bool} for the mosaic of sample i and three
+    partners drawn from ``self.rng``. ``img_path`` is a directory of images
+    or a .txt list of image paths; labels live under the parallel ``labels``
+    directory."""
+
+    def __init__(
+        self,
+        img_path: Union[str, Path],
+        imgsz: Union[int, Tuple[int, int]] = 640,
+        hyp: Optional[Dict] = None,
+        max_boxes: int = 100,
+        fraction: float = 1.0,
+        single_cls: bool = False,
+        seed: int = 0,
+    ):
+        hyp = dict(hyp or {})
+        if not hyp.get("mosaic", 1.0) > 0:
+            raise NotImplementedError(
+                "YOLODataset runs in tile mode only (mosaic > 0); the host augmentation and "
+                "validation paths are ROADMAP queue 1, items 9a and 9b")
+        self.imgsz = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
+        self.hyp = hyp
+        self.max_boxes = max_boxes
+        self.single_cls = single_cls
+        self.rng = np.random.default_rng(seed)
+        self.im_files = self._scan(img_path)
+        if fraction < 1.0:
+            self.im_files = self.im_files[: max(1, round(len(self.im_files) * fraction))]
+        self.label_files = [img2label_path(f) for f in self.im_files]
+        self.labels = self._load_labels(Path(img_path))
+
+    # -- labels, cached in labels.cache.npz beside the images --
+    def _labels_hash(self) -> str:
+        """Content hash over image and label paths, sizes and mtimes."""
+        h = hashlib.sha256()
+        for f in self.im_files + self.label_files:
+            p = Path(f)
+            st = p.stat() if p.exists() else None
+            h.update(f.encode())
+            h.update(str((st.st_size, st.st_mtime_ns) if st else None).encode())
+        return h.hexdigest()
+
+    def _parse_label_file(self, i: int) -> np.ndarray:
+        """(n, 5) cls + normalized xywh rows; rows of fewer than 5 values are
+        skipped and coordinates clipped to [0, 1]."""
+        lp = Path(self.label_files[i])
+        if not lp.exists():
+            return np.zeros((0, 5), np.float32)
+        rows = []
+        for line in lp.read_text().splitlines():
+            vals = line.split()
+            if len(vals) < 5:
+                continue
+            row = [float(v) for v in vals[:5]]
+            if not all(0.0 <= v <= 1.0 for v in row[1:5]):
+                row[1:5] = list(np.clip(row[1:5], 0.0, 1.0))
+            rows.append(row)
+        return np.array(rows, np.float32) if rows else np.zeros((0, 5), np.float32)
+
+    def _load_labels(self, root: Path) -> List[np.ndarray]:
+        cache_path = (root if root.is_dir() else root.parent) / "labels.cache.npz"
+        want = self._labels_hash()
+        try:
+            z = np.load(cache_path, allow_pickle=False)
+            if str(z["hash"]) == want and int(z["n"]) == len(self.im_files):
+                return [z[f"l{i}"] for i in range(len(self.im_files))]
+        except (FileNotFoundError, KeyError, ValueError, OSError):
+            pass
+        labels = [self._parse_label_file(i) for i in range(len(self.im_files))]
+        try:
+            np.savez_compressed(cache_path, hash=want, n=len(labels),
+                                **{f"l{i}": lab for i, lab in enumerate(labels)})
+        except OSError:  # a read-only dataset directory: the cache is optional
+            pass
+        return labels
+
+    @staticmethod
+    def _scan(img_path) -> List[str]:
+        p = Path(img_path)
+        if p.is_file() and p.suffix == ".txt":
+            lines = [ln.strip() for ln in p.read_text().splitlines() if ln.strip()]
+            return [ln if Path(ln).is_absolute() else str((p.parent / ln).resolve())
+                    for ln in lines]
+        if p.is_dir():
+            files = sorted(str(f) for f in p.rglob("*") if f.suffix[1:].lower() in IMG_FORMATS)
+            if not files:
+                raise FileNotFoundError(f"no images found under {p}")
+            return files
+        raise FileNotFoundError(f"invalid dataset path {img_path}")
+
+    def __len__(self) -> int:
+        return len(self.im_files)
+
+    def _raw(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
+        """(img HWC RGB uint8, labels (n, 5) cls + xyxy px)."""
+        img = _load_image(self.im_files[i])
+        h, w = img.shape[:2]
+        lab = self.labels[i]
+        if not len(lab):
+            return img, np.zeros((0, 5), np.float32)
+        cls = np.zeros_like(lab[:, 0]) if self.single_cls else lab[:, 0]
+        cx, cy, bw, bh = lab[:, 1] * w, lab[:, 2] * h, lab[:, 3] * w, lab[:, 4] * h
+        labels = np.stack([cls, cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2],
+                          -1).astype(np.float32)
+        return img, labels
+
+    def tile_indices(self, i: int) -> List[int]:
+        """Sample i and its three mosaic partners, drawn from ``self.rng``."""
+        return [i] + [int(self.rng.integers(0, len(self))) for _ in range(3)]
+
+    def load_tiles(self, idxs: Sequence[int]) -> Dict[str, np.ndarray]:
+        """The four samples ``idxs`` letterboxed to imgsz, with their labels."""
+        th, tw = self.imgsz
+        M = self.max_boxes
+        tiles = np.zeros((4, th, tw, 3), np.uint8)
+        tlab = np.zeros((4, M, 5), np.float32)
+        tmask = np.zeros((4, M), bool)
+        for t, j in enumerate(idxs):
+            img, labels = self._raw(j)
+            tiles[t], ratio, (dw, dh) = letterbox(img, (th, tw), scaleup=True)
+            n = min(len(labels), M)
+            if n:
+                lab = labels[:n].copy()
+                lab[:, [1, 3]] = lab[:, [1, 3]] * ratio + dw
+                lab[:, [2, 4]] = lab[:, [2, 4]] * ratio + dh
+                tlab[t, :n] = lab
+                tmask[t, :n] = True
+        return {"tiles": tiles, "tile_labels": tlab, "tile_mask": tmask}
+
+    def tiles_item(self, i: int) -> Dict[str, np.ndarray]:
+        return self.load_tiles(self.tile_indices(i))
+
+    __getitem__ = tiles_item
+
+
+class _Failure:
+    def __init__(self, error: BaseException):
+        self.error = error
+
+
+_END = object()
+
+
+class DataLoader:
+    """Training batches of a tile-mode dataset as torch tensors (pinned when
+    asked), in the order of ``np.random.default_rng(seed + epoch)``, the
+    short last batch dropped.
+
+    ``workers=0`` loads in the caller's thread. Otherwise a producer thread
+    draws every sample's mosaic partners in order (so a batch does not
+    depend on thread timing) and decodes them on a pool of ``workers``
+    threads, two batches ahead; the threads are stopped and joined when the
+    iteration ends, fails or is abandoned."""
+
+    PREFETCH = 2
+
+    def __init__(self, dataset: YOLODataset, batch_size: int, seed: int = 0, workers: int = 4,
+                 pin_memory: bool = False):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.seed = seed
+        self.workers = max(0, int(workers))
+        self.pin_memory = pin_memory
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return len(self.dataset) // self.batch_size
+
+    def _batches(self) -> List[np.ndarray]:
+        idx = np.arange(len(self.dataset))
+        np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return [idx[b * self.batch_size:(b + 1) * self.batch_size] for b in range(len(self))]
+
+    def _collate(self, sel: np.ndarray, map_fn=map) -> Dict[str, torch.Tensor]:
+        idxs = [self.dataset.tile_indices(int(i)) for i in sel]  # draws in order
+        items = list(map_fn(self.dataset.load_tiles, idxs))
+        out = {k: torch.from_numpy(np.stack([it[k] for it in items])) for k in items[0]}
+        return {k: v.pin_memory() for k, v in out.items()} if self.pin_memory else out
+
+    def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
+        batches = self._batches()
+        if self.workers == 0:
+            for sel in batches:
+                yield self._collate(sel)
+            self.epoch += 1
+            return
+        q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
+        stop = threading.Event()
+        pool = ThreadPoolExecutor(max_workers=self.workers, thread_name_prefix="yolo-loader")
+
+        def put(item) -> bool:  # False once the consumer has gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for sel in batches:
+                    if stop.is_set() or not put(self._collate(sel, pool.map)):
+                        return
+                put(_END)
+            except Exception as e:  # handed to the consumer, which raises it
+                put(_Failure(e))
+
+        producer = threading.Thread(target=produce, name="yolo-loader-producer", daemon=True)
+        producer.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _END:
+                    break
+                if isinstance(item, _Failure):
+                    raise item.error
+                yield item
+            self.epoch += 1
+        finally:
+            stop.set()
+            producer.join()
+            pool.shutdown(wait=True, cancel_futures=True)

@@ -20,12 +20,15 @@ _COEF_SCALE = 1 << _COEF_BITS
 
 
 def letterbox_geometry(
-    shape: Tuple[int, int], new_shape: Union[int, Tuple[int, int]]
+    shape: Tuple[int, int], new_shape: Union[int, Tuple[int, int]], scaleup: bool = True
 ) -> Tuple[float, float, float]:
-    """(ratio, dw, dh) of a centred ``letterbox`` of a source (h, w)."""
+    """(ratio, dw, dh) of a centred ``letterbox`` of a source (h, w); with
+    ``scaleup=False`` the image is only ever shrunk."""
     if isinstance(new_shape, int):
         new_shape = (new_shape, new_shape)
     r = min(new_shape[0] / shape[0], new_shape[1] / shape[1])
+    if not scaleup:
+        r = min(r, 1.0)
     new_unpad = (round(shape[1] * r), round(shape[0] * r))  # w, h
     dw, dh = new_shape[1] - new_unpad[0], new_shape[0] - new_unpad[1]
     return r, dw / 2, dh / 2
@@ -64,14 +67,14 @@ def resize_linear(img: np.ndarray, new_wh: Tuple[int, int]) -> np.ndarray:
 
 
 def letterbox(
-    img: np.ndarray, new_shape: Union[int, Tuple[int, int]] = (640, 640)
+    img: np.ndarray, new_shape: Union[int, Tuple[int, int]] = (640, 640), scaleup: bool = True
 ) -> Tuple[np.ndarray, float, Tuple[float, float]]:
     """Resize to fit + centre pad (grey 114) to new_shape (h, w).
     Returns (img, ratio, (dw, dh))."""
     shape = img.shape[:2]  # h, w
     if isinstance(new_shape, int):
         new_shape = (new_shape, new_shape)
-    r, dw, dh = letterbox_geometry(shape, new_shape)
+    r, dw, dh = letterbox_geometry(shape, new_shape, scaleup)
     new_unpad = (round(shape[1] * r), round(shape[0] * r))  # w, h
     if shape[::-1] != new_unpad:
         img = resize_linear(img, new_unpad)

@@ -1,9 +1,11 @@
 """User-facing model facade (port of ``yolov10_3d_tpu/engine/model.py``:
-the ``YOLOv10`` new-from-YAML constructor and ``predict``).
+the ``YOLOv10`` new-from-YAML constructor, ``predict`` and ``train``).
 
 ``YOLOv10("yolov10s.yaml")`` builds the model on the card with seeded random
 weights; ``.predict(source, **kwargs)`` serves it, in int8 with
-``int8=True``. Checkpoint loading is not ported yet.
+``int8=True``; ``.train(data=..., device_aug=True, val=False, save=False)``
+trains a fresh model of the same YAML on a dataset (2D detection) and then
+serves the trained EMA weights. Checkpoint loading is not ported yet.
 """
 
 from __future__ import annotations
@@ -14,8 +16,11 @@ from typing import Optional, Union
 import torch
 
 from ..cfg import get_cfg, resolve_model_cfg
+from ..device import resolve_device
 from ..nn.build import build_model
+from ..train.state import TrainState
 from .predictor import Predictor
+from .trainer import DetectionTrainer
 
 
 class YOLOv10:
@@ -27,9 +32,12 @@ class YOLOv10:
         model = str(model)
         if model.endswith((".ckpt", ".pt")):
             raise NotImplementedError("checkpoint loading is not ported yet; pass a model YAML")
+        self.model_cfg = model
+        self.device = resolve_device(device)
         self.model, self.spec = build_model(resolve_model_cfg(model), nc=nc, fast_eval=True,
-                                            device=device, seed=seed)
+                                            device=self.device, seed=seed)
         self.names = {i: f"class{i}" for i in range(self.spec.nc)}
+        self.trainer = None
 
     def predict(self, source, **kwargs):
         """Detect on an HWC uint8 image or a list of them -> [Results]."""
@@ -37,7 +45,7 @@ class YOLOv10:
         pred = Predictor(self.model, self.spec, args, self.names)
         return pred(
             source,
-            batch_size=args["batch"],
+            batch_size=kwargs.get("batch", 1),
             conf=kwargs.get("conf"),
             max_det=kwargs.get("max_det"),
             imgsz=kwargs.get("imgsz") or 640,
@@ -45,3 +53,14 @@ class YOLOv10:
         )
 
     __call__ = predict
+
+    def train(self, **kwargs) -> TrainState:
+        """Train a fresh model of this YAML with the dataset's nc on this
+        facade's device (the JAX ``YOLOv10.train``, 2D detection with device
+        augmentation); afterwards the facade serves the EMA weights."""
+        args = get_cfg({"model": self.model_cfg, "device": str(self.device), **kwargs})
+        self.trainer = DetectionTrainer(args)
+        state = self.trainer.train()
+        self.model, self.spec = self.trainer.eval_model(), self.trainer.spec
+        self.names = dict(self.trainer.names)
+        return state

@@ -6,6 +6,7 @@ decode and top-k live in ``ops/postprocess.py``.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Sequence
 
 import torch
@@ -61,3 +62,18 @@ class V10Detect(nn.Module):
         if not one2many:
             return {"one2one": one2one}
         return {"one2many": self._forward_feat(xs, self.cv2, self.cv3, plan), "one2one": one2one}
+
+
+@torch.no_grad()
+def detect_bias_init(head: V10Detect, nc: int, strides: Sequence[int]) -> V10Detect:
+    """The head's training init, in place (the JAX ``detect_bias_init``): each
+    box branch's last bias 1.0, each class branch's log(5 / nc / (640 / s)^2);
+    then the one2one branches take copies of the one2many parameters, so
+    that both start identical. Running statistics are not copied."""
+    for i, s in enumerate(strides):
+        head.cv2[i][2].bias.fill_(1.0)
+        head.cv3[i][2].bias.fill_(math.log(5 / nc / (640 / s) ** 2))
+    for src, dst in ((head.cv2, head.one2one_cv2), (head.cv3, head.one2one_cv3)):
+        for p_src, p_dst in zip(src.parameters(), dst.parameters()):
+            p_dst.copy_(p_src)
+    return head

@@ -1,0 +1,78 @@
+"""Train state and the train step (port of ``yolov10_3d_tpu/train/state.py``).
+
+One ``train_step(state, batch)`` runs the device augmentation (for tile
+batches), the train-mode forward (BN batch statistics, both head branches),
+the dual-assignment loss, the backward, the optimizer's micro-step (clip,
+accumulation, update) and the EMA. The step updates the state in place and
+returns it with its metrics, which stay on the device.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+from typing import Callable, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .loss import v10_detect_loss
+from .optim import Optimizer, ema_update
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The model (parameters and BN statistics), the EMA of its parameters,
+    the optimizer and the micro-step count."""
+
+    model: nn.Module
+    optimizer: Optimizer
+    ema_params: List[torch.Tensor]
+    step: int = 0
+
+    @classmethod
+    def create(cls, model: nn.Module, optimizer: Optimizer) -> "TrainState":
+        return cls(model, optimizer, [p.detach().clone() for p in model.parameters()])
+
+    def ema_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The model's state_dict with the EMA in place of the parameters."""
+        sd = dict(self.model.state_dict())
+        for (name, _), e in zip(self.model.named_parameters(), self.ema_params):
+            sd[name] = e
+        return sd
+
+
+def make_train_step(
+    *,
+    nc: int,
+    strides: Tuple[int, ...],
+    gains: Tuple[float, float, float] = (7.5, 0.5, 1.5),
+    one2many_topk: int = 10,
+    amp: bool = False,
+    preprocess_fn: Optional[Callable] = None,
+) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Build ``train_step(state, batch)``. A batch holds either ``img`` (B, 3,
+    H, W) uint8 or float [0, 1] with its targets, or the tile keys that
+    ``preprocess_fn(batch, step)`` turns into such a batch. ``amp`` runs the
+    forward under bfloat16 autocast; the loss is float32 either way."""
+
+    def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        if preprocess_fn is not None and "tiles" in batch:
+            batch = preprocess_fn(batch, state.step)
+        img = batch["img"]
+        img = img.float() / 255.0 if img.dtype == torch.uint8 else img
+        model = state.model
+        model.train()
+        autocast = (torch.autocast(img.device.type, dtype=torch.bfloat16) if amp
+                    else contextlib.nullcontext())
+        with autocast:
+            preds = model(img)
+        loss, aux = v10_detect_loss(preds, batch, nc=nc, strides=strides, gains=gains,
+                                    one2many_topk=one2many_topk)
+        loss.backward()
+        state.optimizer.step()
+        ema_update(state.ema_params, [p.detach() for p in model.parameters()], state.step + 1)
+        state.step += 1
+        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+
+    return train_step
