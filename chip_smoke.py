@@ -13,20 +13,36 @@ Phases, each fatal on failure:
                 the main path's shapes, at batch 1 and 32; time both on the
                 device (CUDA graph replay, CUDA events) and the kernel's eager
                 call as well. The int8 kernels must equal their twins bit for bit.
+                The fused stem (stem_conv): float32 at B=1 and B=32 at 640x640
+                and B=1 at 384x1280, bf16 at B=32, odd sizes with C 16 and 80,
+                each bit for bit against its twin, beside cuDNN's conv + SiLU.
   4. serving  - YOLOv10-S (full width, nc=80, seeded random weights) answers
                 three float32 predict requests at 640x640 (batch 1, a uniform
                 batch of 8 HD frames and a mixed-shape list) and two int8 ones
-                (batch 1 and the 8 HD frames; scope k3deep, scale 8/127). Each
-                request must launch its kernels: K1 once per batch, and in int8
-                K2, K3 and int8_conv_f32 exactly as often as the int8 plan has
-                them per forward; float32 requests launch no int8 kernel. The
+                (batch 1 and the 8 HD frames; scope k3deep, scale 8/127), all
+                with the default spd_serving (the stem in the fused stem
+                kernel). Each request must launch its kernels: the stem kernel
+                and K1 once per batch, and in int8 K2, K3 and int8_conv_f32
+                exactly as often as the int8 plan has them per forward (the
+                stem out of it); float32 requests launch no int8 kernel. The
                 float32 detections must match the same model run on the CPU
-                (TF32 off) within the parity-test bars. The int8 detections
-                must match the same forward with the kernels' twins on the
-                card (score 1e-2, box 1 px), and every gated conv must match
-                the CPU int8 path given the same input (a free-running CPU run
-                is chaotic in int8: see int8_layers_vs_cpu); the free-running
-                gap is printed.
+                (TF32 off) within the parity-test bars, and the same requests
+                served with spd_serving=False (the unfused stem) on the card.
+                The int8 detections must match the same forward with the
+                kernels' twins on the card (score 1e-2, box 1 px), and every
+                gated conv must match the CPU int8 path given the same input (a
+                free-running CPU run is chaotic in int8: see
+                int8_layers_vs_cpu); the free-running gap is printed.
+  4b. serve3d - YOLOv10-S-3D (full width, nc=3, seeded random weights
+                calibrated on the served frames) answers KITTI-sized requests
+                at 384x1280 (375x1242 uint8 frames): one frame and eight at
+                max_det 50 (the sparse head) and one at max_det 100 (the dense
+                fallback), five times each; the stem kernel launches once per
+                forward. The detections must match a CPU run of the same
+                weights (TF32 off): score 1e-4, 2D box and projected 3D centre
+                0.1 px, s3d and dep_un 1e-3 (the CPU's own float32 error on
+                these frames is printed beside them); and on the card the
+                sparse head must match the dense one.
   5. train-lockstep - one train step of YOLOv10-S (nc=80, seeded weights, the
                 trainer's head init) at 640x640, batch 2, on one augmented
                 batch with fixed draws, SGD, float32 with TF32 off, on the GPU
@@ -41,8 +57,8 @@ Phases, each fatal on failure:
                 then a shorter float32 run (amp=False). K4 must launch once
                 per step; the epoch's loss means must be finite.
 
-Each path (serving, train) is driven with the launch counts set to 0 just
-before it and read just after. The last three lines are the card line, one
+Each path (serving, serve3d, train) is driven with the launch counts set to
+0 just before it and read just after. The last three lines are the card line, one
 JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
 Imports no JAX.
 """
@@ -87,8 +103,12 @@ KERNELS = {
                       "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv, no TPU kernel)"},
     "hsv_jitter": {"route": "cuda", "source": "yolov10_3d_torch/csrc/hsv_jitter.cu",
                    "replaces": "yolov10_3d_tpu/ops/pallas_preprocess.py:113"},
+    "stem_conv": {"route": "cuda", "source": "yolov10_3d_torch/csrc/stem_conv.cu",
+                  "replaces": "tools/exp_pallas_stem.py:94; tools/exp_pallas_stem2.py:130"},
 }
-SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32")
+SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
+                   "stem_conv")
+SERVE3D_KERNELS = ("stem_conv",)
 TRAIN_KERNELS = ("hsv_jitter",)
 
 IMGSZ = 640
@@ -97,6 +117,14 @@ BOX_TOL = 0.1
 SCORE_TOL_INT8 = 1e-2  # int8: a float rounding gap can move a code by one step
 BOX_TOL_INT8 = 1.0
 CONF = 0.01  # low enough that every image fills max_det: the top-k cut is compared too
+KITTI_HW = (384, 1280)  # the 3D model's input; KITTI frames are 375x1242
+REG_TOL_3D = 1e-3  # s3d and dep_un, raw head outputs of order 1 (tests/test_torch_detect3d.py)
+# The 3D net is calibrated to BatchNorm outputs of std 0.25, not the 2D
+# requests' 0.5: at 0.5 a random YOLOv10-S-3D amplifies float32 rounding on
+# these KITTI frames to 5.7e-5 in score and 6e-3 in the regression maps on
+# the CPU alone (against float64), the size of the bars; at 0.25 to 3.4e-6
+# and 8.4e-5. float32_gap_3d prints that floor beside each comparison.
+BN_STD_3D = 0.25
 
 
 def card_line() -> str:
@@ -340,13 +368,71 @@ def check_k4(B: int) -> dict:
     return r
 
 
+def check_stem(B: int, H: int, W: int, C: int = 32, bf16: bool = False) -> dict:
+    """The fused stem kernel against its twin on the same CUDA tensors, bit
+    for bit (bf16: the twin's float32 result rounded once to bf16); device
+    times of the kernel, the twin and cuDNN's conv + SiLU on the same folded
+    weights (TF32 off), the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov10_3d_torch.kernels.stem import stem_conv_cuda, stem_conv_torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    g = torch.Generator(device="cuda").manual_seed(B * H + C)
+    size = B * 3 * H * W * (2 if bf16 else 4)
+    n_buf = -(-L2_COLD_BYTES // size)  # inputs > 2x the L2 cache
+    xs = [torch.rand((B, 3, H, W), generator=g, device="cuda").to(dtype) for _ in range(n_buf)]
+    w = torch.randn((C, 3, 3, 3), generator=g, device="cuda") / 27**0.5
+    b = torch.randn((C,), generator=g, device="cuda") * 0.5
+    got = stem_conv_cuda(xs[0], w, b)
+    ref = stem_conv_torch(xs[0], w, b)
+    torch.cuda.synchronize()
+    err = float((got.float() - ref.float()).abs().max())
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
+        raise AssertionError(f"stem B={B} {H}x{W} C={C} {dtype}: kernel differs from its twin "
+                             f"(max abs {err:.3g}; bar 0)")
+    wl = w.to(dtype)
+    bl = b.to(dtype)
+    ms = time_device([lambda x=x: stem_conv_cuda(x, w, b) for x in xs])
+    plain_ms = time_device([lambda x=x: stem_conv_torch(x, w, b) for x in xs], replays=3)
+    lib_ms = time_device([lambda x=x: F.silu(F.conv2d(x, wl, bl, 2, 1)) for x in xs])
+    conv_ms = time_device([lambda x=x: F.conv2d(x, wl, bl, 2, 1) for x in xs])
+    call_ms = time_cuda(lambda: stem_conv_cuda(xs[0], w, b), 200)
+    Ho, Wo = (H + 1) // 2, (W + 1) // 2
+    nbytes = xs[0].numel() * xs[0].element_size() + got.numel() * got.element_size() \
+        + (w.numel() + b.numel()) * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * 27 * C * B * Ho * Wo / F32_FLOPS_PER_S * 1e3  # float32 sums on CUDA cores
+    r = {
+        "shape": [B, 3, H, W, C, str(dtype).split(".")[-1]], "max_abs_err": err, "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+        "library_conv_ms": conv_ms, "eager_call_ms": call_ms,
+    }
+    print(f"[stem] B={B} {H}x{W} C={C} {str(dtype).split('.')[-1]}: bit-exact vs twin | kernel "
+          f"{ms:.4f} ms (device, graph replay, {n_buf} input buffers) | twin {plain_ms:.4f} ms "
+          f"| bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"{2 * 27 * C * B * Ho * Wo / 1e9:.3f} GFLOP) | library (two calls: cuDNN conv2d + "
+          f"silu, TF32 off) {lib_ms:.4f} ms, conv2d alone {conv_ms:.4f} ms | eager call "
+          f"{call_ms:.4f} ms")
+    return r
+
+
 def phase_kernels():
+    stem = (check_stem(1, IMGSZ, IMGSZ), check_stem(32, IMGSZ, IMGSZ))
+    check_stem(1, *KITTI_HW)  # YOLOv10-S-3D's stem at the KITTI size
+    check_stem(32, IMGSZ, IMGSZ, bf16=True)  # the TPU kernel's dtype contract
+    check_stem(2, 375, 1241, C=16)  # odd sizes, YOLOv10-N's width
+    check_stem(3, 333, 517, C=80)  # odd sizes, YOLOv10-X's width
     return {
         "decode_detect": (check_k1(1), check_k1(32)),
         "int8_mm_fused": (check_k2(1), check_k2(32)),
         "int8_conv3x3_fused": (check_k3(1), check_k3(32)),
         "int8_conv_f32": (check_conv_f32(1), check_conv_f32(32)),
         "hsv_jitter": (check_k4(1), check_k4(16)),
+        "stem_conv": stem,
     }
 
 
@@ -366,19 +452,22 @@ def _check_results(results, shapes):
 
 @contextlib.contextmanager
 def twins_on_card():
-    """Inside: the int8 kernels' wrappers run their plain twins on CUDA
-    tensors (a reference run of the same forward with the same float ops)."""
+    """Inside: the int8 kernels' and the stem kernel's wrappers run their
+    plain twins on CUDA tensors (a reference run of the same forward with
+    the same float ops)."""
     from yolov10_3d_torch.kernels import int8 as K8
+    from yolov10_3d_torch.kernels import stem as KS
 
-    names = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32")
-    saved = {n: getattr(K8, f"{n}_cuda") for n in names}
+    swaps = [(K8, n) for n in ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32")]
+    swaps.append((KS, "stem_conv"))
+    saved = {(mod, n): getattr(mod, f"{n}_cuda") for mod, n in swaps}
     try:
-        for n in names:
-            setattr(K8, f"{n}_cuda", getattr(K8, f"{n}_torch"))
+        for mod, n in swaps:
+            setattr(mod, f"{n}_cuda", getattr(mod, f"{n}_torch"))
         yield
     finally:
-        for n, fn in saved.items():
-            setattr(K8, f"{n}_cuda", fn)
+        for (mod, n), fn in saved.items():
+            setattr(mod, f"{n}_cuda", fn)
 
 
 def int8_layers_vs_cpu(gpu8, cpu8, x) -> dict:
@@ -507,13 +596,18 @@ def phase_serving(card: str):
     models = {False: gpu, True: gpu8}
     n_params = sum(p.numel() for p in gpu.model.parameters())
     print(f"[serve] YOLOv10-S nc={gpu.spec.nc} params={n_params} strides={gpu.spec.strides}")
-    plan = plan_int8(gpu8.model, (IMGSZ, IMGSZ), Int8Config()).counts()
-    print(f"[serve] int8 plan at {IMGSZ}x{IMGSZ}, launches per forward: {plan}")
+    # spd_serving (the default) takes the stem out of the int8 plan
+    plan = plan_int8(gpu8.model, (IMGSZ, IMGSZ), Int8Config(), stem=True).counts()
+    print(f"[serve] int8 plan at {IMGSZ}x{IMGSZ} with the fused stem, launches per forward: "
+          f"{plan}")
+    if plan != {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 30}:
+        raise AssertionError(f"int8 plan {plan}, expected 2 / 11 / 30")
 
-    def expected(ims, b, int8):
+    def expected(ims, b, int8, spd=True):
         batches = -(-len(ims) // b)
         want = {k: 0 for k in launch_counts}
         want["decode_detect"] = batches
+        want["stem_conv"] = batches if spd else 0
         if int8:
             want.update({k: n * batches for k, n in plan.items()})
         return want
@@ -542,6 +636,23 @@ def phase_serving(card: str):
     for k in SERVING_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched on the serving path")
+
+    # the float32 requests again with the unfused stem (cuDNN conv, BN, SiLU)
+    for name, ims, b, int8 in requests:
+        if int8:
+            continue
+        before = dict(launch_counts)
+        plain = gpu.predict(ims, imgsz=IMGSZ, batch=b, conf=CONF, spd_serving=False)
+        got = {k: launch_counts[k] - before[k] for k in launch_counts}
+        if got != expected(ims, b, False, spd=False):
+            raise AssertionError(f"request {name} with spd_serving=False: launches {got}")
+        stats = compare_results(plain, gpu_res[name], conf=CONF, score_tol=SCORE_TOL,
+                                box_tol=BOX_TOL)
+        if stats["n_compared"] < 0.5 * (stats["n_ref"] + stats["n_got"]):
+            raise AssertionError(f"request {name}: too few separated detections {stats}")
+        print(f"[serve] {name}: spd_serving=True (fused stem) vs False (unfused stem) on the "
+              f"GPU: {stats['n_compared']} compared, max score err {stats['max_score_err']:.3g} "
+              f"(bar {SCORE_TOL}), max box err {stats['max_box_err']:.3g} px (bar {BOX_TOL})")
 
     u8 = torch.from_numpy(np.stack(images["uniform_b8"]))
     gap = (serve_preprocess(u8.cuda(), (IMGSZ, IMGSZ)).cpu()
@@ -596,6 +707,162 @@ def phase_serving(card: str):
           f"{d['first']}; {d['head']}; one2one maps max abs diff {d['maps']:.3g}, against "
           f"{d['effect']:.3g} between GPU int8 and GPU float32 (the quantization's effect)")
     print(f"[serve] main-path launches: {launches}")
+    return launches
+
+
+def _check_results3d(results, shapes, max_det: int):
+    """Finite 3D rows of the Boxes3D layout, one per 2D detection."""
+    import numpy as np
+
+    _check_results(results, shapes)
+    for r in results:
+        d = np.asarray(r.boxes3d.data)
+        if d.shape != (len(r.boxes), 16) or len(d) > max_det or not np.isfinite(d).all():
+            raise AssertionError(f"bad 3D rows {d.shape} for {len(r.boxes)} detections")
+        if not np.array_equal(d[:, :6], r.boxes.data):
+            raise AssertionError("boxes3d's 2D columns differ from boxes")
+
+
+def sparse_vs_dense_on_card(model, x, nc: int) -> dict:
+    """The 3D head's sparse forward against its dense one on the card:
+    equal class maps, zeros off the candidates, 1e-4 + 1e-4 |y| at them,
+    and the same detections at max_det SPARSE_K."""
+    import torch
+
+    from yolov10_3d_torch.nn.heads3d import SPARSE_K
+    from yolov10_3d_torch.ops.postprocess import decode_detect3d, v10_3d_postprocess
+
+    strides = model.spec.strides
+    with torch.inference_mode():
+        dense = model(x, fast_eval=True, stem=True)["one2one"]
+        sparse = model(x, fast_eval=True, stem=True, sparse=True)["one2one"]
+        fills, worst = [], 0.0
+        for d, s in zip(dense, sparse):
+            if not torch.equal(d[:, :nc], s[:, :nc]):
+                raise AssertionError("sparse head: class maps differ from dense")
+            cand = (s[:, nc:].abs().sum(1) > 0)[:, None].expand_as(s[:, nc:])
+            if bool((s[:, nc:][~cand] != 0).any()):
+                raise AssertionError("sparse head: non-zero regression off the candidates")
+            err = ((s[:, nc:] - d[:, nc:]).abs() - 1e-4 * d[:, nc:].abs())[cand]
+            if float(err.max()) > 1e-4:
+                raise AssertionError(f"sparse head off dense at the candidates by {float(err.max())}")
+            worst = max(worst, float((s[:, nc:] - d[:, nc:]).abs()[cand].max()))
+            fills.append(round(float(cand[:, 0].float().mean()), 4))
+        pd = v10_3d_postprocess(decode_detect3d(dense, strides[: len(dense)], nc), SPARSE_K, nc)
+        ps = v10_3d_postprocess(decode_detect3d(sparse, strides[: len(sparse)], nc), SPARSE_K, nc)
+    if not (torch.equal(pd[2], ps[2]) and torch.equal(pd[1], ps[1])):
+        raise AssertionError("sparse head: top-k labels or scores differ from dense")
+    reg_err = float((pd[0] - ps[0]).abs().max())
+    if reg_err > 1e-3:
+        raise AssertionError(f"sparse head: detections' regression off dense by {reg_err:.3g}")
+    return {"fills": fills, "maps": worst, "detections": reg_err}
+
+
+def float32_gap_3d(cpu, x) -> dict:
+    """How far the CPU's float32 head maps of ``x`` lie from a float64 run of
+    the same weights, per 3D branch (max abs over the batch): the float
+    noise floor of a GPU-vs-CPU comparison on this random net."""
+    import torch
+
+    from yolov10_3d_torch.nn.heads3d import OUTPUT_CHANNELS
+
+    m64 = copy.deepcopy(cpu.model).double()
+    with torch.inference_mode():
+        a = cpu.model(x, fast_eval=True)["one2one"]
+        b = m64(x.double(), fast_eval=True)["one2one"]
+    c0 = cpu.spec.nc
+    gaps = {"score": max(float((p[:, :c0].sigmoid() - q[:, :c0].sigmoid()).abs().max())
+                         for p, q in zip(a, b))}
+    for name, n in list(OUTPUT_CHANNELS.items())[1:]:
+        gaps[name] = max(float((p[:, c0:c0 + n] - q[:, c0:c0 + n]).abs().max())
+                         for p, q in zip(a, b))
+        c0 += n
+    return gaps
+
+
+def phase_serve3d(card: str):
+    """YOLOv10-S-3D at 384x1280: KITTI-sized requests on the card, held to a
+    CPU run of the same weights; the sparse head held to the dense one."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.utils.parity import calibrate, compare_results, smooth_images
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = smooth_images(np.random.default_rng(3), [(375, 1242)] * 8)
+    imgsz = [KITTI_HW[1], KITTI_HW[0]]  # predict's [w, h]
+    requests = [("kitti_b1", frames[:1], 1, 50), ("kitti_b8", frames, 8, 50),
+                ("kitti_b1_dense", frames[:1], 1, 100)]
+    cols = {"center3d": (slice(6, 8), BOX_TOL), "s3d": (slice(8, 11), REG_TOL_3D),
+            "dep_un": (slice(15, 16), REG_TOL_3D)}
+    gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+    x = serve_preprocess(torch.from_numpy(np.stack(frames)).cuda(), KITTI_HW)
+    calibrate(gpu.model, x, bn_std=BN_STD_3D)
+    n_params = sum(p.numel() for p in gpu.model.parameters())
+    print(f"[serve3d] YOLOv10-S-3D nc={gpu.spec.nc} params={n_params} strides="
+          f"{gpu.spec.strides} at {KITTI_HW[0]}x{KITTI_HW[1]} (375x1242 frames)")
+    for _, ims, b, md in requests:  # warm-up
+        gpu.predict(ims, imgsz=imgsz, batch=b, conf=CONF, max_det=md)
+    torch.cuda.synchronize()
+
+    reps = 5
+    reset_launch_counts()
+    gpu_res, times = {}, {}
+    for name, ims, b, md in requests:
+        want = {k: 0 for k in launch_counts}
+        want["stem_conv"] = -(-len(ims) // b)
+        times[name] = []
+        for _ in range(reps):
+            before = dict(launch_counts)
+            t0 = time.perf_counter()
+            res = gpu.predict(ims, imgsz=imgsz, batch=b, conf=CONF, max_det=md)
+            times[name].append((time.perf_counter() - t0) * 1e3)
+            got = {k: launch_counts[k] - before[k] for k in launch_counts}
+            if got != want:
+                raise AssertionError(f"request {name}: launches {got}, expected {want}")
+            _check_results3d(res, [im.shape[:2] for im in ims], md)
+        gpu_res[name] = res
+    launches = dict(launch_counts)
+    for k in SERVE3D_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched on the 3D serving path")
+
+    sd = sparse_vs_dense_on_card(gpu.model, x, gpu.spec.nc)
+    print(f"[serve3d] sparse vs dense head on the GPU, 8 frames: class maps equal, candidates "
+          f"fill {sd['fills']} of P3/P4/P5, max abs diff at the candidates {sd['maps']:.3g} "
+          f"(bar 1e-4 + 1e-4 |y|), top-{50} labels and scores equal, regression max abs diff "
+          f"{sd['detections']:.3g} (bar 1e-3)")
+
+    cpu = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    t0 = time.perf_counter()
+    gaps = float32_gap_3d(cpu, x.cpu())
+    print(f"[serve3d] the CPU's own float32 error on the 8 frames (dense head maps vs a float64 "
+          f"run, max abs; BatchNorm std {BN_STD_3D}): "
+          + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items())
+          + f" ({time.perf_counter() - t0:.1f} s)")
+    for name, ims, b, md in requests:
+        t0 = time.perf_counter()
+        ref = cpu.predict(ims, imgsz=imgsz, batch=b, conf=CONF, max_det=md)
+        ref_s = time.perf_counter() - t0
+        stats = compare_results(ref, gpu_res[name], conf=CONF, score_tol=SCORE_TOL,
+                                box_tol=BOX_TOL, cols=cols)
+        if stats["n_compared"] < 0.5 * (stats["n_ref"] + stats["n_got"]):
+            raise AssertionError(f"request {name}: too few separated detections {stats}")
+        ms = statistics.median(times[name])
+        print(f"[serve3d] {name}: {len(ims)} img, max_det {md}, {stats['n_ref']} dets | GPU "
+              f"median {ms:.2f} ms/request, {len(ims) / ms * 1e3:.1f} img/s ({card}, {reps} "
+              f"reps: {', '.join(f'{t:.2f}' for t in times[name])}) | vs CPU: "
+              f"{stats['n_compared']} compared, max score err {stats['max_score_err']:.3g} (bar "
+              f"{SCORE_TOL}), box {stats['max_box_err']:.3g} px (bar {BOX_TOL}), 3D centre "
+              f"{stats['max_center3d_err']:.3g} px (bar {BOX_TOL}), s3d "
+              f"{stats['max_s3d_err']:.3g}, dep_un {stats['max_dep_un_err']:.3g} (bar "
+              f"{REG_TOL_3D}); reference took {ref_s:.1f} s")
+    print(f"[serve3d] main-path launches: {launches}")
     return launches
 
 
@@ -959,6 +1226,7 @@ def main() -> int:
     phase_build()
     kern = phase_kernels()
     serving = phase_serving(card)
+    serve3d = phase_serve3d(card)
     failed = []
     try:  # the train phase runs even when the lockstep misses a bar; both are fatal
         phase_train_lockstep(card)
@@ -969,12 +1237,14 @@ def main() -> int:
     if failed:
         raise AssertionError("; ".join(failed))
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}
+    for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too
+        launches[k] += serve3d[k]
     if not set(KERNELS) == set(kern) == set(launches) == set(serving):
         raise AssertionError(f"kernel tables disagree: {set(KERNELS)}, {set(kern)}, {set(launches)}")
     entries = [
         {"name": name, **KERNELS[name], "launches": launches[name], **b1,
          "large": {k: big[k] for k in ("shape", "max_abs_err", "ms", "plain_ms", "bound_ms",
-                                       "eager_call_ms")}}
+                                       "library_ms", "eager_call_ms")}}
         for name, (b1, big) in kern.items()
     ]
     print(f"[done] {time.perf_counter() - t0:.1f} s")

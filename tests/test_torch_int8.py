@@ -24,7 +24,10 @@ Bars, and what this CPU run measured:
   ones by at most a tenth of JAX's own int8-versus-float32 gap (measured:
   1.05e-5 against 7.75);
 - ``predict(int8=True)`` meets the JAX facade's at score 1e-3 and box
-  0.1 px (measured: 3.6e-7 and 2.3e-5 px, 190 of 200 detections compared).
+  0.1 px (measured: 3.6e-7 and 2.3e-5 px, 190 of 200 detections compared),
+  with spd_serving False on both sides and True on both sides (the stem
+  then stays float on both: the JAX space-to-depth stem is outside its
+  int8 gate, and the port's fused stem outside its int8 plan).
 """
 
 from collections.abc import Mapping
@@ -188,6 +191,17 @@ def test_plan_of_yolov10s_at_640():
     assert sum(small.values()) > 44
 
 
+def test_plan_with_the_fused_stem():
+    """spd_serving: the stem runs the fused stem kernel and leaves the int8
+    plan, 43 gated convs (2 / 11 / 30) for YOLOv10-S at 640, as JAX's
+    space-to-depth stem leaves its int8 gate."""
+    model = YOLOv10("yolov10s.yaml", device="cpu").model
+    plan = plan_int8(model, (640, 640), Int8Config(), stem=True)
+    assert plan.counts() == {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 30}
+    assert set(plan_int8(model, (640, 640), Int8Config()).paths()) - set(plan.paths()) == {
+        "model.0"}
+
+
 # --------------------------------------------------------- model fixture
 @pytest.fixture(scope="module")
 def pair():
@@ -323,11 +337,24 @@ def test_predict_int8_matches_jax(pair):
     (``spd_serving=False``) on the same calibrated weights and images."""
     jm, port, imgs = pair["jm"], pair["port"], pair["imgs"]
     want = jm.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, int8=True, spd_serving=False)
-    got = port.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, int8=True)
+    got = port.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, int8=True, spd_serving=False)
     stats = compare_results(want, got, conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL)
     assert stats["n_compared"] >= 0.5 * (stats["n_ref"] + stats["n_got"]), stats
-    fp32 = port.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF)
+    fp32 = port.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, spd_serving=False)
     assert any(not np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(got, fp32))
+
+
+def test_predict_int8_spd_serving_matches_jax(pair):
+    """int8 with the default spd_serving on both sides: the stem is a float
+    fused stem in the port and JAX's float packed stem; the other gated
+    convs are int8 on both."""
+    jm, port, imgs = pair["jm"], pair["port"], pair["imgs"]
+    want = jm.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, int8=True, spd_serving=True)
+    got = port.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, int8=True, spd_serving=True)
+    stats = compare_results(want, got, conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL)
+    assert stats["n_compared"] >= 0.5 * (stats["n_ref"] + stats["n_got"]), stats
+    plain = port.predict(imgs, imgsz=IMGSZ, batch=2, conf=CONF, int8=True, spd_serving=False)
+    assert any(not np.array_equal(a.boxes.data, b.boxes.data) for a, b in zip(got, plain))
 
 
 def test_int8_weights_follow_load_state_dict(pair):

@@ -11,6 +11,7 @@ import torch
 from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
 from yolov10_3d_torch.kernels import hsv as K4
 from yolov10_3d_torch.kernels import int8 as K8
+from yolov10_3d_torch.kernels import stem as KS
 from yolov10_3d_torch.kernels.decode import (
     decode_detect_cuda, decode_detect_flat, decode_detect_torch,
 )
@@ -221,3 +222,68 @@ def test_hsv_jitter_checks_inputs(cuda_device):
         K4.hsv_jitter_cuda(img, gains[:1].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         K4.hsv_jitter_cuda(img, gains.cpu())
+
+
+# ------------------------------------------------------------ fused stem
+def _stem_case(seed, B, H, W, C, device, dtype=torch.float32):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.rand((B, 3, H, W), generator=g).to(dtype)
+    w = torch.randn((C, 3, 3, 3), generator=g) / 27**0.5
+    b = torch.randn((C,), generator=g) * 0.5
+    return x.to(device), w.to(device), b.to(device)
+
+
+def test_stem_kernel_refuses_cpu_tensors():
+    """No silent fallback: the kernel wrapper takes CUDA tensors only; the
+    dispatcher takes the twin for CPU tensors and launches nothing."""
+    x, w, b = _stem_case(0, 1, 8, 8, 16, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        KS.stem_conv_cuda(x, w, b)
+    with pytest.raises(ValueError, match="unsupported device"):
+        KS.stem_conv(x.to("meta"), w, b)
+    before = launch_counts["stem_conv"]
+    assert KS.stem_conv(x, w, b).shape == (1, 16, 4, 4)
+    assert launch_counts["stem_conv"] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [(1, 640, 640, 32), (2, 384, 1280, 32), (2, 37, 53, 16),
+                                     (3, 33, 65, 80), (1, 1, 1, 48), (2, 130, 7, 64)])
+def test_stem_conv_matches_twin(cuda_device, B, H, W, C):
+    """The stem kernel against its twin on the same CUDA tensors, float32,
+    bit for bit: YOLOv10-S's stem at 640x640 and at the KITTI 384x1280, the
+    other widths and odd sizes (ragged tiles, a one-pixel image)."""
+    x, w, b = _stem_case(B * H + C, B, H, W, C, cuda_device)
+    before = launch_counts["stem_conv"]
+    got = KS.stem_conv(x, w, b)
+    assert launch_counts["stem_conv"] == before + 1
+    want = KS.stem_conv_torch(x, w, b)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, C, (H + 1) // 2, (W + 1) // 2)
+    assert torch.equal(got, want), float((got - want).abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C", [(4, 640, 640, 32), (2, 17, 31, 80)])
+def test_stem_conv_bf16_matches_twin(cuda_device, B, H, W, C):
+    """bf16 in and out, float32 weights and sums: equal to the twin's float32
+    result rounded once to bf16."""
+    x, w, b = _stem_case(C, B, H, W, C, cuda_device, torch.bfloat16)
+    got = KS.stem_conv_cuda(x, w, b)
+    want = KS.stem_conv_torch(x, w, b)
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == torch.bfloat16
+    assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+@pytest.mark.cuda
+def test_stem_conv_checks_inputs(cuda_device):
+    x, w, b = _stem_case(0, 1, 8, 8, 32, cuda_device)
+    with pytest.raises(TypeError):
+        KS.stem_conv_cuda(x.double(), w, b)
+    with pytest.raises(ValueError, match="contiguous"):
+        KS.stem_conv_cuda(x.transpose(2, 3), w, b)
+    with pytest.raises(ValueError, match="C in"):
+        KS.stem_conv_cuda(x, w[:24].contiguous(), b[:24].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        KS.stem_conv_cuda(x, w.cpu(), b)

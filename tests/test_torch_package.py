@@ -1,7 +1,7 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package (nor cv2 or PIL), serves and trains without them, runs on the card
-unless the caller asks for the CPU, and refuses the serving options it has
-not ported."""
+package (nor cv2 or PIL), serves (2D, int8 and 3D) and trains without them,
+runs on the card unless the caller asks for the CPU, and refuses the serving
+options it has not ported."""
 
 import ast
 import os
@@ -40,6 +40,10 @@ for int8 in (False, True):
     res = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu").predict(
         np.full((48, 64, 3), 128, np.uint8), imgsz=64, int8=int8)
     assert len(res) == 1 and res[0].boxes.data.shape[1] == 6
+# 3D serving (the fused stem's twin, the sparse head)
+res = yolov10_3d_torch.YOLOv10("yolov10n_3D.yaml", device="cpu").predict(
+    np.full((40, 200, 3), 128, np.uint8), imgsz=[192, 64], conf=0.0)
+assert len(res) == 1 and res[0].boxes3d.data.shape == (50, 16)
 # the training path: device augmentation of random tiles, then one train step
 import torch
 from yolov10_3d_torch.data import dataset
@@ -106,15 +110,16 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 
 @pytest.mark.parametrize("option", ["int8", "spd_serving"])
 def test_unported_serving_options_raise(option):
-    """spd_serving is not ported, nor int8's scope 'all' (grouped and
-    depthwise convs; int8 serving itself runs scope k3deep): asking for them
-    is an error, not a silent float32 or k3deep run."""
+    """int8's scope 'all' (grouped and depthwise convs; int8 serving itself
+    runs scope k3deep) is not ported, nor any spd_serving other than True
+    (the fused stem) and False, such as the JAX package's spd_stem 'all'
+    rewrite: asking for them is an error, not a silent k3deep or plain run."""
     model = YOLOv10("yolov10n.yaml", device="cpu")
     with pytest.raises(NotImplementedError, match=option):
         if option == "int8":
             model.model(torch.zeros((1, 3, 64, 64)), int8=Int8Config(scope="all"))
         else:
-            model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, **{option: True})
+            model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, **{option: "all"})
 
 
 def test_checkpoints_and_unknown_sources_raise():

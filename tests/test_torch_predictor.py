@@ -7,7 +7,9 @@ the port (strict), calibrated there on the served images
 0.5 and top-k order is decided by rounding) and copied back into the JAX
 tree. Both sides then serve a uniform batch (device letterbox) and a
 mixed-shape list (host letterbox) at conf 0.01 and the default max_det 50,
-JAX with spd_serving=False.
+with spd_serving False on both sides and, in a second test, True on both
+sides (the fused stem kernel's twin here, the space-to-depth packed stem
+there).
 
 Bars: score error at most 1e-4 and box error at most 0.1 px, over the
 detections whose score is more than 1e-4 clear of the selection boundaries
@@ -73,12 +75,24 @@ def test_predict_matches_jax(pair, request_name):
     jm, port, requests = pair
     imgs, batch = requests[request_name]
     want = jm.predict(imgs, imgsz=IMGSZ, batch=batch, conf=CONF, spd_serving=False)
-    got = port.predict(imgs, imgsz=IMGSZ, batch=batch, conf=CONF)
+    got = port.predict(imgs, imgsz=IMGSZ, batch=batch, conf=CONF, spd_serving=False)
     assert [r.orig_shape for r in got] == [im.shape[:2] for im in imgs]
     stats = compare_results(want, got, conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL)
     # most detections are separated, so the comparison is not vacuous
     assert stats["n_compared"] >= 0.5 * (stats["n_ref"] + stats["n_got"]), stats
     assert stats["max_score_err"] <= SCORE_TOL and stats["max_box_err"] <= BOX_TOL
+
+
+@pytest.mark.parametrize("request_name", ["uniform", "mixed"])
+def test_predict_spd_serving_matches_jax(pair, request_name):
+    """The default serving route on both sides: the port's fused stem (its
+    twin on the CPU, BatchNorm folded) against JAX's packed stem."""
+    jm, port, requests = pair
+    imgs, batch = requests[request_name]
+    want = jm.predict(imgs, imgsz=IMGSZ, batch=batch, conf=CONF, spd_serving=True)
+    got = port.predict(imgs, imgsz=IMGSZ, batch=batch, conf=CONF, spd_serving=True)
+    stats = compare_results(want, got, conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL)
+    assert stats["n_compared"] >= 0.5 * (stats["n_ref"] + stats["n_got"]), stats
 
 
 def test_calibrated_scores_are_spread(pair):

@@ -1,10 +1,11 @@
 """Configuration: the model YAMLs, dataset YAMLs and the defaults the port reads.
 
-The model YAMLs under ``models/v10`` are copies of the JAX package's. The
-machines the port runs on need not have PyYAML, so ``load_yaml`` reads the
-small subset those files and dataset YAMLs use: top-level scalars, one level
-of nested mapping (``scales``, ``names``) and block sequences of scalars or
-flow lists (``backbone``/``head``).
+The model YAMLs under ``models/v10`` and ``models/v10-3D`` are copies of the
+JAX package's. The machines the port runs on need not have PyYAML, so
+``load_yaml`` reads the small subset those files and dataset YAMLs use:
+top-level scalars, flow mappings of scalars (the 3D head's ``channels``),
+one level of nested mapping (``scales``, ``names``) and block sequences of
+scalars or flow lists (``backbone``/``head``).
 """
 
 from __future__ import annotations
@@ -16,9 +17,9 @@ from typing import Any, Dict, List, Optional, Tuple
 CFG_DIR = Path(__file__).resolve().parent
 
 # The cfg/default.yaml keys the Predictor and the trainer read, with the JAX
-# defaults. spd_serving is a TPU stem layout, on by default in the JAX
-# package, off here (the Predictor raises on it). The trainer raises on the
-# training options it has not ported (engine/trainer.py).
+# defaults. spd_serving (on, as in the JAX package) serves layer 0 through
+# the fused stem kernel (nn/modules.py Conv.fused_stem). The trainer raises
+# on the training options it has not ported (engine/trainer.py).
 DEFAULTS: Dict[str, Any] = {
     # predict
     "conf": None,
@@ -26,7 +27,7 @@ DEFAULTS: Dict[str, Any] = {
     "imgsz": [960, 640],
     "classes": None,
     "int8": False,
-    "spd_serving": False,
+    "spd_serving": True,
     # train
     "model": None,
     "data": None,
@@ -104,9 +105,10 @@ def resolve_model_cfg(name: str) -> Path:
     p = Path(name)
     if p.exists():
         return p
-    cand = CFG_DIR / "models" / "v10" / f"{p.stem}.yaml"
-    if cand.exists():
-        return cand
+    for family in ("v10", "v10-3D"):
+        cand = CFG_DIR / "models" / family / f"{p.stem}.yaml"
+        if cand.exists():
+            return cand
     raise FileNotFoundError(f"model config not found: {name}")
 
 
@@ -161,6 +163,18 @@ def _flow(text: str, i: int = 0) -> Tuple[Any, int]:
             raise ValueError(f"expected ',' or ']' at {text[i:]!r}")
 
 
+def _flow_map(text: str) -> Dict[Any, Any]:
+    """Parse a flow mapping of scalars ``{a: 1, b: c}``."""
+    body = text[1:-1].strip()
+    out: Dict[Any, Any] = {}
+    for item in filter(None, (t.strip() for t in body.split(","))):
+        k, sep, v = item.partition(":")
+        if not sep or any(ch in item for ch in "[]{}"):
+            raise ValueError(f"unsupported flow mapping item {item!r} in {text!r}")
+        out[_scalar(k)] = _scalar(v)
+    return out
+
+
 def _value(text: str) -> Any:
     text = text.strip()
     if text.startswith("["):
@@ -168,6 +182,10 @@ def _value(text: str) -> Any:
         if text[end:].strip():
             raise ValueError(f"trailing text after flow sequence: {text!r}")
         return val
+    if text.startswith("{"):
+        if not text.endswith("}"):
+            raise ValueError(f"unterminated flow mapping: {text!r}")
+        return _flow_map(text)
     return _scalar(text)
 
 

@@ -5,7 +5,9 @@ the ``YOLOv10`` new-from-YAML constructor, ``predict`` and ``train``).
 weights; ``.predict(source, **kwargs)`` serves it, in int8 with
 ``int8=True``; ``.train(data=..., device_aug=True, val=False, save=False)``
 trains a fresh model of the same YAML on a dataset (2D detection) and then
-serves the trained EMA weights. Checkpoint loading is not ported yet.
+serves the trained EMA weights. A v10-3D YAML (``yolov10s_3D.yaml``) makes a
+``detect3d`` model, whose Results carry ``boxes3d``; its training is not
+ported yet, nor is checkpoint loading.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ class YOLOv10:
         self.device = resolve_device(device)
         self.model, self.spec = build_model(resolve_model_cfg(model), nc=nc, fast_eval=True,
                                             device=self.device, seed=seed)
+        self.task = "detect3d" if self.spec.head_module == "v10Detect3d" else "detect"
         self.names = {i: f"class{i}" for i in range(self.spec.nc)}
         self.trainer = None
 
@@ -58,6 +61,9 @@ class YOLOv10:
         """Train a fresh model of this YAML with the dataset's nc on this
         facade's device (the JAX ``YOLOv10.train``, 2D detection with device
         augmentation); afterwards the facade serves the EMA weights."""
+        if self.task != "detect":
+            raise NotImplementedError(f"training the {self.task} task is not ported "
+                                      "(engine/trainer3d.py, ROADMAP queue 1, item 9)")
         args = get_cfg({"model": self.model_cfg, "device": str(self.device), **kwargs})
         self.trainer = DetectionTrainer(args)
         state = self.trainer.train()

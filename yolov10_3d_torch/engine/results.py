@@ -1,4 +1,5 @@
-"""Results containers (port of ``yolov10_3d_tpu/engine/results.py``, boxes only)."""
+"""Results containers (port of ``yolov10_3d_tpu/engine/results.py``: 2D and 3D
+boxes)."""
 
 from __future__ import annotations
 
@@ -31,6 +32,36 @@ class Boxes:
         return len(self.data)
 
 
+class Boxes3D(Boxes):
+    """3D detections: the 2D columns, then the projected centre, 3D size,
+    heading, position and depth spread.
+
+    data: (n, 6 + 10) = x1, y1, x2, y2, conf, cls, cx3d, cy3d, h, w, l, ry,
+    x, y, z, dep_sigma. As in the JAX Predictor, the projected centre is in
+    the model input's pixels, and ry, x, y, z are 0 (filled by 3D
+    evaluation, not served)."""
+
+    @property
+    def center_3d_img(self):
+        return self.data[:, 6:8]
+
+    @property
+    def size_3d(self):
+        return self.data[:, 8:11]
+
+    @property
+    def ry(self):
+        return self.data[:, 11]
+
+    @property
+    def xyz(self):
+        return self.data[:, 12:15]
+
+    @property
+    def depth_sigma(self):
+        return self.data[:, 15]
+
+
 class Results:
     """Per-image inference result."""
 
@@ -40,6 +71,7 @@ class Results:
         path: str = "",
         names: Optional[Dict[int, str]] = None,
         boxes: Optional[np.ndarray] = None,
+        boxes3d: Optional[np.ndarray] = None,
         speed: Optional[Dict[str, float]] = None,
     ):
         self.orig_img = orig_img
@@ -47,6 +79,7 @@ class Results:
         self.path = path
         self.names = names or {}
         self.boxes = Boxes(boxes, self.orig_shape) if boxes is not None else None
+        self.boxes3d = Boxes3D(boxes3d, self.orig_shape) if boxes3d is not None else None
         self.speed = speed or {}
 
     def __len__(self):

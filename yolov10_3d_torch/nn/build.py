@@ -1,5 +1,6 @@
 """YAML -> model compiler for the YOLOv10 family (port of
-``yolov10_3d_tpu/nn/build.py``, cut to the modules the v10 YAMLs use).
+``yolov10_3d_tpu/nn/build.py``, cut to the modules the v10 and v10-3D YAMLs
+use).
 
 ``parse_model_yaml`` produces the same static ``ModelSpec`` as the JAX
 package; ``YOLOModel`` instantiates the layers as ``model.{i}`` (so the JAX
@@ -23,10 +24,15 @@ from torch import nn
 from ..cfg import load_yaml
 from ..device import resolve_device
 from . import heads as H
+from . import heads3d as H3
 from . import modules as M
 from .quant import Int8Config, plan_int8
 
-HEAD_MODULES = {"v10Detect"}
+HEAD_MODULES = {"v10Detect", "v10Detect3d"}
+# top-level YAML keys of the 3D head's options (the JAX parser's extras)
+HEAD3D_KEYS = ("dsconv", "channels", "use_predecessors", "detach_predecessors", "deform",
+               "common_head", "num_scales", "half_channels", "fgdm_predictor",
+               "kernel_size_1", "kernel_size_2")
 # Modules following the (c1, c2, ...) channel convention
 CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "SCDown", "C2fCIB"}
 # Modules whose repeat count n is absorbed as an inner arg
@@ -57,6 +63,7 @@ class ModelSpec:
     head_index: int
     head_module: str
     strides: Tuple[int, ...]    # detection strides, e.g. (8, 16, 32)
+    yaml_extras: Tuple[Tuple[str, Any], ...] = ()  # 3D head config keys
 
 
 def _freeze(x):
@@ -94,6 +101,7 @@ def parse_model_yaml(
         if scale is None:
             scale = next(iter(scales))
         depth, width, max_channels = scales[scale]
+    extras = {k: d.get(k) for k in HEAD3D_KEYS if k in d}
 
     ch_list = [ch]
     layers = []
@@ -176,10 +184,11 @@ def parse_model_yaml(
         head_index=head_index,
         head_module=head_module,
         strides=head_strides,
+        yaml_extras=tuple(sorted((k, _freeze(v)) for k, v in extras.items())),
     )
 
 
-def _build_module(spec: LayerSpec, c1: int) -> nn.Module:
+def _build_module(spec: LayerSpec, c1: int, extras: Dict[str, Any]) -> nn.Module:
     a = spec.args
     if spec.module == "Conv":
         k = a[1] if len(a) > 1 else 1
@@ -209,6 +218,8 @@ def _build_module(spec: LayerSpec, c1: int) -> nn.Module:
         return M.Concat(1)
     if spec.module == "v10Detect":
         return H.V10Detect(nc=a[0], ch=a[1])
+    if spec.module == "v10Detect3d":
+        return H3.V10Detect3d(nc=a[0], ch=a[1], cfg=extras)
     raise ValueError(spec.module)
 
 
@@ -219,6 +230,10 @@ class YOLOModel(nn.Module):
     ``forward(x, fast_eval=...)`` overrides it per call. ``forward(x,
     int8=Int8Config(...))`` runs the call in int8 (``nn/quant.py``); the
     plans of the input sizes served so far are kept in ``int8_plans``.
+    ``stem=True`` runs layer 0 as the fused stem kernel (``Conv.fused_stem``,
+    the Predictor's ``spd_serving``), outside the int8 plan; ``sparse=True``
+    runs a 3D head's one-to-one regression on its top-K patches. Both are
+    serving routes: eval only, chosen per call.
     """
 
     def __init__(self, spec: ModelSpec, fast_eval: bool = False, ch: int = 3):
@@ -227,6 +242,7 @@ class YOLOModel(nn.Module):
         self.fast_eval = fast_eval
         chans = []
         mods = []
+        extras = dict(spec.yaml_extras)
         for s in spec.layers:
             if s.i == 0:
                 c1 = ch
@@ -235,9 +251,9 @@ class YOLOModel(nn.Module):
             else:
                 c1 = chans[s.f[0]]
             mod = (
-                _build_module(s, c1)
+                _build_module(s, c1, extras)
                 if s.n == 1
-                else nn.Sequential(*(_build_module(s, c1 if j == 0 else s.c2)
+                else nn.Sequential(*(_build_module(s, c1 if j == 0 else s.c2, extras)
                                      for j in range(s.n)))
             )
             mods.append(mod)
@@ -246,11 +262,14 @@ class YOLOModel(nn.Module):
         self.int8_plans: Dict[tuple, Any] = {}
 
     def forward(self, x: torch.Tensor, fast_eval: Optional[bool] = None,
-                int8: Optional[Int8Config] = None):
+                int8: Optional[Int8Config] = None, stem: bool = False, sparse: bool = False):
         """x: (B, 3, H, W) normalised image. Returns the head output."""
         fast = self.fast_eval if fast_eval is None else fast_eval
         one2many = self.training or not fast
-        plan = plan_int8(self, tuple(x.shape[-2:]), int8, one2many) if int8 is not None else None
+        plan = (plan_int8(self, tuple(x.shape[-2:]), int8, one2many, stem)
+                if int8 is not None else None)
+        if sparse and self.spec.head_module != "v10Detect3d":
+            raise ValueError(f"sparse serving is a v10Detect3d route, not {self.spec.head_module}")
         saved: Dict[int, torch.Tensor] = {}
         out = x
         for spec, layer in zip(self.spec.layers, self.model):
@@ -260,8 +279,12 @@ class YOLOModel(nn.Module):
                 return saved[j if j >= 0 else spec.i + j]
 
             inp = [_lookup(j) for j in spec.f] if isinstance(spec.f, tuple) else _lookup(spec.f)
-            if spec.module in HEAD_MODULES:
+            if spec.module == "v10Detect3d":  # float only: plan_int8 refuses it
+                out = layer(inp, one2many=one2many, sparse=sparse)
+            elif spec.module in HEAD_MODULES:
                 out = layer(inp, one2many=one2many, plan=plan)
+            elif stem and spec.i == 0:
+                out = layer.fused_stem(inp)
             else:
                 out = M.run(layer, inp, plan)
             if spec.i in self.spec.save:

@@ -1,0 +1,174 @@
+"""Monocular-3D detection head (port of ``yolov10_3d_tpu/nn/heads3d.py``
+``V10Detect3d``), NCHW.
+
+Eight decoupled regression branches per scale (cls, o2d, s2d, o3d, s3d, hd,
+dep, dep_un), each [Conv(k1), Conv(k2), 1x1 conv], held twice: the one-to-one
+set under the branch names and the one-to-many set as ``o2m_heads.{j}``.
+Child names follow the JAX tree, so its weights load with ``strict=True``.
+The head returns raw per-scale maps (B, nc + 35, H, W); the decode lives in
+``ops/postprocess.py`` ``decode_detect3d``.
+
+``sparse=True`` (serving) runs the one-to-one regression branches only at
+each scale's top-``SPARSE_K`` anchors by max class logit, the JAX package's
+``_sparse_forward_feat``: one patch per candidate covering the receptive
+field of conv2's centre, conv1 of the seven branches as one VALID conv on
+the patches (BatchNorm folded to an affine), conv2 at the centre as one
+batched contraction, the 1x1 convs, and a scatter into zero maps. The
+detections equal the dense forward's: the candidates' values differ only by
+float reassociation, and the decode's top-k can only pick candidate anchors.
+A scale runs sparse only when 2 * K * k2^2 < H * W.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .modules import Conv, run
+
+OUTPUT_CHANNELS = {"cls": None, "o2d": 2, "s2d": 2, "o3d": 2, "s3d": 3, "hd": 24, "dep": 1,
+                   "dep_un": 1}  # cls: nc
+BRANCHES = tuple(OUTPUT_CHANNELS)
+SPARSE_K = 50  # per-scale candidates of the sparse path (the reference's top-50)
+
+# YAML options of the 3D head that the port does not build yet, each with
+# the ROADMAP item that ports it; the shipped YAMLs set them all off.
+UNPORTED_OPTIONS = {
+    "dsconv": "queue 1, item 10a (depthwise-separable branches)",
+    "deform": "queue 1, item 13 (DCNv2, ops/deform.py)",
+    "use_predecessors": "queue 1, item 10a (predecessor chaining)",
+    "common_head": "queue 1, item 10a (shared common conv)",
+    "half_channels": "queue 1, item 10a (half-width conv2)",
+    "fgdm_predictor": "queue 1, item 10 (DepthPredictor, heads3d.py:413)",
+}
+
+
+def _branch(c_in: int, mid: int, out: int, k1: int, k2: int) -> nn.Sequential:
+    return nn.Sequential(Conv(c_in, mid, k1), Conv(mid, mid, k2), nn.Conv2d(mid, out, 1))
+
+
+class V10Detect3d(nn.Module):
+    """Raw per-scale maps out. ``cfg`` holds the YAML's head options
+    (``channels``, ``num_scales``, ``kernel_size_1/2`` and the flags)."""
+
+    def __init__(self, nc: int, ch: Sequence[int], cfg: Dict = None):
+        super().__init__()
+        cfg = dict(cfg or {})
+        for key, item in UNPORTED_OPTIONS.items():
+            if cfg.get(key):
+                raise NotImplementedError(f"v10Detect3d option {key}={cfg[key]!r} is not ported "
+                                          f"(ROADMAP {item})")
+        self.nc = nc
+        self.k1 = int(cfg.get("kernel_size_1") or 3)
+        self.k2 = int(cfg.get("kernel_size_2") or 3)
+        self.nl = int(cfg.get("num_scales") or len(ch))
+        channels = dict(cfg.get("channels") or {})
+        ch = list(ch[: self.nl])
+        out_ch = {**OUTPUT_CHANNELS, "cls": nc}
+
+        def branch(name):
+            mid = int(channels.get(f"{name}_c", 128))
+            return nn.ModuleList(_branch(c, mid, out_ch[name], self.k1, self.k2) for c in ch)
+
+        for name in BRANCHES:
+            self.add_module(name, branch(name))
+        self.o2m_heads = nn.ModuleList(branch(name) for name in BRANCHES)
+
+    def o2o_heads(self) -> List[nn.ModuleList]:
+        return [getattr(self, name) for name in BRANCHES]
+
+    def _forward_feat(self, xs, heads) -> List[torch.Tensor]:
+        """All eight branches densely at every scale."""
+        return [torch.cat([run(h[i], x, None) for h in heads], 1) for i, x in enumerate(xs)]
+
+    def _sparse_forward_feat(self, xs, heads) -> List[torch.Tensor]:
+        ys = []
+        for i, x in enumerate(xs):
+            B, _, H, W = x.shape
+            cls_map = run(heads[0][i], x, None)  # dense: it drives the top-k
+            K = min(SPARSE_K, H * W)
+            if 2 * K * self.k2 * self.k2 >= H * W:
+                ys.append(torch.cat([cls_map] + [run(h[i], x, None) for h in heads[1:]], 1))
+                continue
+            _, idx = cls_map.amax(1).flatten(1).topk(K, dim=1)  # (B, K)
+            reg = self.patch_regression(x, [h[i] for h in heads[1:]], idx)
+            dense = torch.zeros((B, reg.shape[-1], H * W), dtype=reg.dtype, device=reg.device)
+            dense.scatter_(2, idx[:, None, :].expand(-1, reg.shape[-1], -1), reg.transpose(1, 2))
+            ys.append(torch.cat([cls_map, dense.reshape(B, -1, H, W)], 1))
+        return ys
+
+    def patch_regression(self, x: torch.Tensor, regs: Sequence[nn.Sequential],
+                         idx: torch.Tensor) -> torch.Tensor:
+        """The regression branches ``regs`` of one scale at the anchors
+        ``idx`` (B, K) of the map ``x`` (B, C, H, W), from one patch per
+        anchor: (B, K, sum of the branches' outputs)."""
+        k1, k2 = self.k1, self.k2
+        pad = k1 // 2 + k2 // 2
+        P = 2 * pad + 1
+        B, C, H, W = x.shape
+        K = idx.shape[1]
+        yi, xi = idx // W, idx % W
+        Hp, Wp = H + 2 * pad, W + 2 * pad
+        # window rows and cols in padded coordinates: centre (yi + pad) + d - pad
+        d = torch.arange(P, device=x.device)
+        rows = yi[:, :, None, None] + d[:, None]  # (B, K, P, 1)
+        flat = (rows * Wp + xi[:, :, None, None] + d).reshape(B, 1, -1)
+        xpad = F.pad(x, (pad, pad, pad, pad)).reshape(B, C, Hp * Wp)
+        patches = xpad.gather(2, flat.expand(B, C, -1)).reshape(B, C, K, P, P)
+        patches = patches.transpose(1, 2).reshape(B * K, C, P, P)
+
+        w1 = torch.cat([r[0].conv.weight for r in regs])
+        a1, b1 = (torch.cat(t) for t in zip(*(_affine(r[0].bn) for r in regs)))
+        h1 = F.conv2d(patches, w1)  # VALID: (B*K, sum mid, k2, k2)
+        h1 = F.silu(h1 * a1[:, None, None] + b1[:, None, None])
+        # the dense conv2 zero-pads conv1's output map: zero the window
+        # positions that fall outside the map, as the border anchors need
+        du = torch.arange(k2, device=x.device) - k2 // 2
+        r_ok = ((yi[:, :, None] + du) >= 0) & ((yi[:, :, None] + du) < H)
+        c_ok = ((xi[:, :, None] + du) >= 0) & ((xi[:, :, None] + du) < W)
+        inmap = (r_ok[:, :, :, None] & c_ok[:, :, None, :]).reshape(B * K, 1, k2, k2)
+        h1 = torch.where(inmap, h1, 0.0)
+
+        mids = [r[0].conv.out_channels for r in regs]
+        w2s = [r[1].conv.weight for r in regs]  # (mid2, mid, k2, k2)
+        ab2 = [_affine(r[1].bn) for r in regs]
+        if len(set(mids)) == 1 and len({w.shape[0] for w in w2s}) == 1:
+            # uniform branch widths (the shipped configs): one contraction
+            g = len(regs)
+            z = torch.einsum("pgmyx,gnmyx->pgn", h1.reshape(B * K, g, mids[0], k2, k2),
+                             torch.stack(w2s))
+            a2 = torch.stack([a for a, _ in ab2])
+            b2 = torch.stack([b for _, b in ab2])
+            h2s = F.silu(z * a2 + b2).unbind(1)  # g x (B*K, mid2)
+        else:
+            h2s = [F.silu(torch.einsum("pmyx,nmyx->pn", h, w2) * a2 + b2)
+                   for h, w2, (a2, b2) in zip(h1.split(mids, 1), w2s, ab2)]
+        outs = [h @ r[2].weight.flatten(1).t() + r[2].bias for h, r in zip(h2s, regs)]
+        return torch.cat(outs, -1).reshape(B, K, -1)
+
+    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True,
+                sparse: bool = False) -> Dict[str, List[torch.Tensor]]:
+        """``one2many=False``: the serving output {"one2one": maps}; with
+        ``sparse`` the one-to-one regression branches run on the top-K
+        patches (eval only)."""
+        xs = list(xs[: self.nl])
+        # the one-to-one branches train on detached features (JAX's stop_gradient)
+        xs_det = [x.detach() for x in xs]
+        if sparse:
+            if self.training:
+                raise ValueError("the sparse 3D head serves eval only")
+            one2one = self._sparse_forward_feat(xs_det, self.o2o_heads())
+        else:
+            one2one = self._forward_feat(xs_det, self.o2o_heads())
+        if not one2many:
+            return {"one2one": one2one}
+        return {"one2many": self._forward_feat(xs, list(self.o2m_heads)), "one2one": one2one}
+
+
+def _affine(bn: nn.BatchNorm2d):
+    """Eval BatchNorm as y = x * a + b (float32)."""
+    a = bn.weight * torch.rsqrt(bn.running_var + bn.eps)
+    return a, bn.bias - bn.running_mean * a

@@ -15,6 +15,10 @@ Every forward takes ``plan``, the int8 plan of the call (``nn/quant.py``), or
 None for float32. A ``Conv`` the plan routes to a fused kernel returns int8
 NHWC codes; only the blocks that hold such a producer (Bottleneck, SPPF,
 PSA and the head's box branches) ever see them.
+
+``Conv.fused_stem`` is the serving route of layer 0 (``spd_serving``): the
+whole Conv + BatchNorm + SiLU in one launch of the stem kernel
+(``kernels/stem.py``), with the BatchNorm folded into the weights.
 """
 
 from __future__ import annotations
@@ -24,6 +28,8 @@ from typing import Optional, Sequence
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..kernels.stem import fold_bn, stem_conv
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum == 1 - flax keep-fraction (0.97)
@@ -50,7 +56,8 @@ def run(m: nn.Module, x, plan):
 
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU; ``g`` groups (depthwise at g == c1).
-    ``int8_cache`` holds the int8 weights of int8 serving (``nn/quant.py``)."""
+    ``int8_cache`` holds the int8 weights of int8 serving (``nn/quant.py``),
+    ``stem_cache`` the folded weights of ``fused_stem``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
@@ -60,12 +67,35 @@ class Conv(nn.Module):
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.Identity()
         self.int8_cache = None
+        self.stem_cache = None
 
     def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
         route = plan.route(self, x) if plan is not None else None
         if route is not None:
             return plan.run(self, x, route)
         return self.act(self.bn(self.conv(x)))
+
+    def fused_stem(self, x: torch.Tensor) -> torch.Tensor:
+        """The eval forward of a 3 -> C, 3x3 stride-2 stem with SiLU as one
+        stem-kernel launch (the twin on the CPU). The folded weights are
+        computed once and kept while the parameters and statistics stay the
+        same tensors at the same versions (``load_state_dict``, calibration
+        and ``.to`` all change a pointer or a version)."""
+        c = self.conv
+        if self.training:
+            raise RuntimeError("the fused stem serves eval only: training normalises with "
+                               "batch statistics")
+        if not (c.in_channels == 3 and c.kernel_size == (3, 3) and c.stride == (2, 2)
+                and c.padding == (1, 1) and c.dilation == (1, 1) and c.groups == 1
+                and isinstance(self.act, nn.SiLU)):
+            raise ValueError("the fused stem needs a 3-channel 3x3 stride-2 pad-1 Conv with SiLU")
+        bn = self.bn
+        ts = (c.weight, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+        key = tuple((t.data_ptr(), t._version) for t in ts)
+        if self.stem_cache is None or self.stem_cache[0] != key:
+            self.stem_cache = (key, *fold_bn(c.weight, bn))
+        _, w, b = self.stem_cache
+        return stem_conv(x.contiguous(), w, b)
 
 
 class Bottleneck(nn.Module):

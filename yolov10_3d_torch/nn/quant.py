@@ -227,16 +227,21 @@ def _producer_pairs(model: nn.Module):
 
 
 def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
-              one2many: bool = False) -> Int8Plan:
+              one2many: bool = False, stem: bool = False) -> Int8Plan:
     """The int8 plan of a ``YOLOModel`` for an (H, W) input, cached on the
     model. Every conv of a YOLOv10 layer sees the layer's input size (the
     strided convs come first in their blocks); the head's convs see their
-    level's."""
+    level's. ``stem=True`` (the fused stem route of ``spd_serving``) leaves
+    layer 0 out of the int8 convs, as the JAX package's space-to-depth stem
+    takes it out of its int8 gate."""
+    if model.spec.head_module != "v10Detect":
+        raise NotImplementedError(f"int8 serving of {model.spec.head_module} is not ported "
+                                  "(the JAX Predictor serves the 3D head in float)")
     H, W = hw
     stride = max(model.spec.strides) if model.spec.strides else 32
     if H % stride or W % stride:
         raise ValueError(f"int8 input {H}x{W} must be a multiple of the stride {stride}")
-    key = (H, W, cfg, one2many)
+    key = (H, W, cfg, one2many, stem)
     plan = model.int8_plans.get(key)
     if plan is not None:
         return plan
@@ -255,7 +260,8 @@ def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
         f0 = s.f if isinstance(s.f, int) else s.f[0]
         st = 1 if s.i == 0 else spec.layers[f0 if f0 >= 0 else s.i + f0].stride
         sizes.update((c, (H // st) * (W // st)) for c in layer.modules() if isinstance(c, M.Conv))
-    routes = {c: "int8_conv_f32" for c, n in sizes.items() if gated(c, n, cfg)}
+    routes = {c: "int8_conv_f32" for c, n in sizes.items()
+              if gated(c, n, cfg) and not (stem and c is model.model[0])}
     for p, c in _producer_pairs(model):
         fused = _fusable(p, c, routes, cfg)
         if fused:

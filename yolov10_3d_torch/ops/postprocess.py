@@ -1,9 +1,11 @@
 """NMS-free decode + top-k postprocess (port of
-``yolov10_3d_tpu/ops/postprocess.py``, the v10 2D subset).
+``yolov10_3d_tpu/ops/postprocess.py``, the v10 2D and 3D subset).
 
 Feature maps are NCHW; the public layouts are the JAX package's: the decode
-returns (B, A, 4 + nc) with anchors per scale H x W row-major, which is what
-NCHW ``flatten(2)`` gives.
+returns (B, A, 4 + nc) (2D) or (B, A, nc + 35) (3D) with anchors per scale
+H x W row-major, which is what NCHW ``flatten(2)`` gives. The 2D decode runs
+in kernel K1 on the card; the 3D decode is plain PyTorch, as it is plain XLA
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels.decode import REG_MAX, decode_detect_flat
+from .boxes import make_anchors
 
 
 def flatten_feats(feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
@@ -62,6 +65,47 @@ def v10_postprocess(
         top_scores = F.pad(top_scores, (0, pad), value=-1.0)
         labels = F.pad(labels, (0, pad))
     return boxes, top_scores, labels
+
+
+def decode_detect3d(feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int
+                    ) -> torch.Tensor:
+    """Raw v10Detect3d maps -> (B, A, nc + 35): class logits (no sigmoid),
+    the 2D box as xyxy input pixels ((anchor + o2d) * stride -/+ s2d *
+    stride / 2), the projected 3D centre in pixels ((anchor + o3d) * stride),
+    then s3d (3), hd (24), dep (1) and dep_un (1) as the head gives them."""
+    x, shapes = flatten_feats(feats)
+    x = x.float()
+    anchors, stride = make_anchors(shapes, strides, 0.5, device=x.device)
+    cls, o2d, s2d, rest = x[..., :nc], x[..., nc : nc + 2], x[..., nc + 2 : nc + 4], x[..., nc + 4 :]
+    s2d_px = s2d * stride
+    c2d_px = (o2d + anchors) * stride
+    bbox = torch.cat([c2d_px - s2d_px / 2, c2d_px + s2d_px / 2], -1)
+    center3d = (rest[..., :2] + anchors) * stride
+    return torch.cat([cls, bbox, center3d, rest[..., 2:]], -1)
+
+
+def v10_3d_postprocess(preds: torch.Tensor, max_det: int, nc: int = 3
+                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The two-stage top-k of ``v10_postprocess`` over (B, A, nc + R) 3D
+    predictions. Returns (reg (B, max_det, R), raw class scores (B, max_det),
+    labels (B, max_det)), padded with score -1e9 when fewer than max_det
+    pairs exist."""
+    scores, reg = preds[..., :nc], preds[..., nc:]
+    R = reg.shape[-1]
+    k1 = min(max_det, preds.shape[1])
+    _, idx = scores.amax(-1).topk(k1, dim=1)
+    reg = reg.gather(1, idx[..., None].expand(-1, -1, R))
+    scores = scores.gather(1, idx[..., None].expand(-1, -1, nc))
+    k2 = min(max_det, k1 * nc)
+    top_scores, flat_idx = scores.reshape(scores.shape[0], -1).topk(k2, dim=1)
+    labels = flat_idx % nc
+    reg = reg.gather(1, (flat_idx // nc)[..., None].expand(-1, -1, R))
+    if k2 < max_det:
+        pad = max_det - k2
+        reg = F.pad(reg, (0, 0, 0, pad))
+        top_scores = F.pad(top_scores, (0, pad), value=-1e9)
+        labels = F.pad(labels, (0, pad))
+    return reg, top_scores, labels
 
 
 def v10_detections(

@@ -6,23 +6,31 @@ by layer, so every class score sits at 0.5 and top-k order is decided by
 rounding. ``calibrate`` sets each BatchNorm's running statistics from its
 input on a calibration batch and rescales the head's output convs (DFL bin j
 centred at -j/2, so boxes span a few strides as a trained model's do, rather
-than the frame; class logits between -2 and +2), which spreads the scores the
-way a trained model's are spread. A random net is chaotic, so the calibration
-batch is the images that are then served (``smooth_images`` makes them: pixel
-noise would make the served scores hinge on resize details).
+than the frame; class logits between -2 and +2; for the 3D head each
+regression branch to the mean and spread of ``HEAD3D_TARGETS``), which
+spreads the scores the way a trained model's are spread. A random net is
+chaotic, so the calibration batch is the images that are then served
+(``smooth_images`` makes them: pixel noise would make the served scores
+hinge on resize details).
 ``match_detections`` pairs detections by class and box and compares those
 clear of the selection boundaries, where the selection cannot flip.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from ..data.preprocess import resize_linear
+from ..nn.heads3d import BRANCHES, V10Detect3d
+
+# 3D regression branches after calibration: (mean, std) of every channel.
+# Offsets within a cell, 2D sizes of a few strides, depths of tens of metres.
+HEAD3D_TARGETS = {"o2d": (0.0, 0.5), "s2d": (4.0, 1.0), "o3d": (0.0, 0.5), "s3d": (0.0, 0.5),
+                  "hd": (0.0, 1.0), "dep": (20.0, 5.0), "dep_un": (0.0, 1.0)}
 
 
 @torch.no_grad()
@@ -48,7 +56,12 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
     to 17 levels), and head scales fitted to the float outputs would
     saturate the int8 scores. The BatchNorm statistics still come from the
     float forward: an int8 conv applies its BatchNorm in the kernel, where
-    no hook sees it."""
+    no hook sees it.
+
+    Both forwards run the plain route (no fused stem, a dense 3D head): the
+    serving routes fold the BatchNorms away, where no hook sees them. The
+    fused stem's folded weights are rebuilt when next served (they are keyed
+    on the tensors' versions); the sparse head folds on every call."""
     model.eval()
 
     def set_stats(bn, inp):
@@ -65,17 +78,25 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
             h.remove()
 
     head = model.model[model.spec.head_index]
-    outs = []
-    for name in ("cv2", "cv3", "one2one_cv2", "one2one_cv3"):
-        for seq in getattr(head, name):
-            conv = seq[-1]
-            is_cls = name.endswith("cv3")
-            if is_cls:
-                target = torch.full((conv.out_channels,), cls_mean, device=conv.weight.device)
-            else:  # 4 sides x reg_max bins
-                bins = torch.arange(conv.out_channels, device=conv.weight.device)
-                target = -0.5 * (bins % (conv.out_channels // 4)).float()
-            outs.append((conv, target, is_cls))
+    outs = []  # (output conv, target mean per channel, target std; None: class logits)
+    if isinstance(head, V10Detect3d):
+        for j, name in enumerate(BRANCHES):
+            mean, std = HEAD3D_TARGETS.get(name, (cls_mean, None))
+            for seq in (*getattr(head, name), *head.o2m_heads[j]):
+                conv = seq[-1]
+                outs.append((conv, torch.full((conv.out_channels,), mean,
+                                              device=conv.weight.device), std))
+    else:
+        for name in ("cv2", "cv3", "one2one_cv2", "one2one_cv3"):
+            for seq in getattr(head, name):
+                conv = seq[-1]
+                if name.endswith("cv3"):
+                    target, std = torch.full((conv.out_channels,), cls_mean,
+                                             device=conv.weight.device), None
+                else:  # 4 sides x reg_max bins
+                    bins = torch.arange(conv.out_channels, device=conv.weight.device)
+                    target, std = -0.5 * (bins % (conv.out_channels // 4)).float(), 1.0
+                outs.append((conv, target, std))
     seen = {}
     hooks = [conv.register_forward_hook(lambda mod, i, o: seen.__setitem__(mod, o))
              for conv, _, _ in outs]
@@ -84,14 +105,14 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
     finally:
         for h in hooks:
             h.remove()
-    for conv, target, is_cls in outs:
+    for conv, target, std in outs:
         y = seen[conv]
         mu = y.mean((0, 2, 3))
-        if is_cls:  # one scale for all classes: the batch max -> cls_max
+        if std is None:  # class logits, one scale for all classes: the batch max -> cls_max
             sd = ((y - mu[:, None, None]).amax() / (cls_max - cls_mean)).clamp_min(1e-6)
             sd = sd.expand_as(mu)
         else:
-            sd = y.std((0, 2, 3)).clamp_min(1e-6)
+            sd = y.std((0, 2, 3)).clamp_min(1e-6) / std
         conv.weight.div_(sd[:, None, None, None])
         conv.bias.copy_((conv.bias - mu) / sd + target)
     return model
@@ -119,18 +140,24 @@ def _clear_of_cutoffs(scores: np.ndarray, conf: float, tol: float) -> np.ndarray
 
 
 def match_detections(
-    ref: np.ndarray, got: np.ndarray, conf: float, score_tol: float, box_tol: float
+    ref: np.ndarray, got: np.ndarray, conf: float, score_tol: float, box_tol: float,
+    cols: Optional[Dict[str, Tuple[slice, float]]] = None,
 ) -> Dict[str, float]:
-    """Compare two (n, 6) [x1, y1, x2, y2, score, cls] lists of one image.
+    """Compare two (n, 6 + m) [x1, y1, x2, y2, score, cls, ...] lists of one
+    image.
 
     Every entry of either list that is clear of the selection boundaries must
     have a partner in the other with the same class, the nearest box within
     ``box_tol`` px (max over the four coordinates) and the score within
-    ``score_tol``. Pairing is by (class, box), the stand-in for (class,
-    anchor), never by rank, so ties in score do not matter. Raises
-    AssertionError otherwise. Returns the counts and the largest errors."""
+    ``score_tol``; and, for each ``cols`` entry name -> (columns, bar), those
+    columns within their bar (the 3D columns of ``Boxes3D``). Pairing is by
+    (class, box), the stand-in for (class, anchor), never by rank, so ties in
+    score do not matter. Raises AssertionError otherwise. Returns the counts
+    and the largest errors."""
+    cols = cols or {}
     stats = {"n_ref": len(ref), "n_got": len(got), "n_compared": 0,
-             "max_score_err": 0.0, "max_box_err": 0.0}
+             "max_score_err": 0.0, "max_box_err": 0.0,
+             **{f"max_{name}_err": 0.0 for name in cols}}
     for a, b, name in ((ref, got, "ref"), (got, ref, "got")):
         for i in np.flatnonzero(_clear_of_cutoffs(a[:, 4], conf, score_tol)):
             same = b[b[:, 5] == a[i, 5]]
@@ -145,6 +172,12 @@ def match_detections(
                     f"box err {box_err[j]:.3g} (bar {box_tol}), "
                     f"score err {score_err:.3g} (bar {score_tol})"
                 )
+            for cname, (sl, tol) in cols.items():
+                err = float(np.abs(same[j, sl] - a[i, sl]).max())
+                if err > tol:
+                    raise AssertionError(f"{name}[{i}] {a[i].tolist()} vs {same[j].tolist()}: "
+                                         f"{cname} err {err:.3g} (bar {tol})")
+                stats[f"max_{cname}_err"] = max(stats[f"max_{cname}_err"], err)
             stats["n_compared"] += 1
             stats["max_score_err"] = max(stats["max_score_err"], score_err)
             stats["max_box_err"] = max(stats["max_box_err"], float(box_err[j]))
@@ -152,17 +185,18 @@ def match_detections(
 
 
 def compare_results(ref: Sequence, got: Sequence, conf: float, score_tol: float,
-                    box_tol: float) -> Dict[str, float]:
-    """``match_detections`` over two lists of Results; summed counts, max errors."""
+                    box_tol: float, cols: Optional[Dict[str, Tuple[slice, float]]] = None
+                    ) -> Dict[str, float]:
+    """``match_detections`` over two lists of Results; summed counts, max
+    errors. With ``cols`` the rows compared are ``boxes3d.data``."""
     if len(ref) != len(got):
         raise AssertionError(f"{len(ref)} vs {len(got)} results")
-    total = {"n_ref": 0, "n_got": 0, "n_compared": 0, "max_score_err": 0.0,
-             "max_box_err": 0.0}
+    total: Dict[str, float] = {"n_ref": 0, "n_got": 0, "n_compared": 0, "max_score_err": 0.0,
+                               "max_box_err": 0.0}
     for r, g in zip(ref, got):
-        s = match_detections(np.asarray(r.boxes.data, np.float64),
-                             np.asarray(g.boxes.data, np.float64), conf, score_tol, box_tol)
-        for k in ("n_ref", "n_got", "n_compared"):
-            total[k] += s[k]
-        for k in ("max_score_err", "max_box_err"):
-            total[k] = max(total[k], s[k])
+        a, b = (x.boxes3d.data if cols else x.boxes.data for x in (r, g))
+        s = match_detections(np.asarray(a, np.float64), np.asarray(b, np.float64), conf,
+                             score_tol, box_tol, cols)
+        for k, v in s.items():
+            total[k] = total.get(k, 0) + v if k.startswith("n_") else max(total.get(k, 0.0), v)
     return total

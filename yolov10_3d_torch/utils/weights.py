@@ -1,6 +1,6 @@
 """JAX parameter tree -> the port's state_dict (the port's own copy of
 ``yolov10_3d_tpu/utils/torch_export.py`` ``flax_to_torch_state_dict``, cut
-to the YOLOv10 family).
+to the YOLOv10 and YOLOv10-3D families).
 
 Input: the flax ``{'params', 'batch_stats'}`` tree as nested mappings of
 numpy arrays (or anything ``np.asarray`` takes). A flax path joined with
@@ -11,7 +11,10 @@ re-merged against ``_ATOMS`` per path segment.
 Layouts: kernel (kH, kW, I/g, O) -> weight (O, I/g, kH, kW); BN scale/bias ->
 weight/bias; batch_stats mean/var -> running_mean/running_var, plus
 ``num_batches_tracked``. The DFL decode has no parameters in the port, so no
-``dfl.conv.weight`` is emitted.
+``dfl.conv.weight`` is emitted. The 3D head's one-to-one branches are the
+attributes ``cls`` ... ``dep_un`` and its one-to-many ones ``o2m_heads.{j}``;
+the port registers each module once, so the ``o2o_heads.{j}`` alias keys of
+the reference's state_dict are not emitted either.
 """
 
 from __future__ import annotations
@@ -21,8 +24,8 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-# attribute names with underscores in the v10 modules
-_ATOMS = {"one2one_cv2", "one2one_cv3"}
+# attribute names with underscores in the v10 and v10-3D modules
+_ATOMS = {"one2one_cv2", "one2one_cv3", "dep_un", "o2m_heads"}
 _ATOM_TOKENS = sorted({tuple(a.split("_")) for a in _ATOMS}, key=len, reverse=True)
 
 
