@@ -16,6 +16,14 @@ Phases, each fatal on failure:
                 The fused stem (stem_conv): float32 at B=1 and B=32 at 640x640
                 and B=1 at 384x1280, bf16 at B=32, odd sizes with C 16 and 80,
                 each bit for bit against its twin, beside cuDNN's conv + SiLU.
+  3b. int8-layers - every distinct gated-conv shape of YOLOv10-S's int8 plan
+                at 640x640 on the two wgmma routes (K3, int8_conv_f32), at
+                batch 1 and 8: bit for bit against the twin, device ms, bound
+                and share of bound; the sum over one forward's 41 launches
+                (printed again after [serve] beside the int8 requests'
+                medians); two yardsticks the port never calls: torch._int_mm
+                on a 1x1 shape (the GEMM alone) and cuDNN's fp16
+                channels-last conv on a 3x3 shape (a float16 route's cost).
   4. serving  - YOLOv10-S (full width, nc=80, seeded random weights) answers
                 three float32 predict requests at 640x640 (batch 1, a uniform
                 batch of 8 HD frames and a mixed-shape list) and two int8 ones
@@ -61,6 +69,12 @@ Each path (serving, serve3d, train) is driven with the launch counts set to
 0 just before it and read just after. The last three lines are the card line, one
 JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
 Imports no JAX.
+
+    python3 chip_smoke.py --int8-sweep [--package-root DIR]
+
+runs the card line, the build of csrc/int8_conv.cu and phase 3b only, with
+the ``yolov10_3d_torch`` package found under DIR (default: this checkout),
+so that two checkouts' int8 convs can be timed in one call on one card.
 """
 
 from __future__ import annotations
@@ -241,14 +255,14 @@ def check_k1(B: int) -> dict:
     return r
 
 
-def _check_int8(name: str, B: int, x_shape, w_shape, call, twin, macs: int):
-    """One int8 kernel against its twin on the same CUDA tensors, bit for
-    bit; device times of both, the eager call's time and the bound. Returns
-    (the numbers, the input buffers, the weights)."""
+def _int8_inputs(seed: int, x_shape, w_shape):
+    """Seeded int8 input buffers (more than twice the L2 cache in all, so
+    that a graph of one launch per buffer reads them cold), int8 weights
+    and a realistic epilogue (deq as sx * sw, BatchNorm rows)."""
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(B)
-    n_buf = -(-L2_COLD_BYTES // math.prod(x_shape))  # int8 inputs > 2x the L2 cache
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_buf = -(-L2_COLD_BYTES // math.prod(x_shape))
     xs = [torch.randint(-127, 128, x_shape, generator=g, device="cuda", dtype=torch.int8)
           for _ in range(n_buf)]
     w = torch.randint(-127, 128, w_shape, generator=g, device="cuda", dtype=torch.int8)
@@ -258,6 +272,27 @@ def _check_int8(name: str, B: int, x_shape, w_shape, call, twin, macs: int):
     ep = torch.stack([deq, 0.2 * torch.randn(N, generator=g, device="cuda"),
                       0.5 + torch.rand(N, generator=g, device="cuda"),
                       0.2 * torch.randn(N, generator=g, device="cuda")]).contiguous()
+    return xs, w, ep
+
+
+def _int8_bound(x, w, ep, out, macs: int):
+    """(bound ms, what bounds it, MB moved) of one int8 conv call: each
+    input read once and the output written once at the HBM rate, or 2 x
+    macs int8 operations at the tensor cores' rate."""
+    nbytes = x.numel() + w.numel() + ep.numel() * 4 + out.numel() * out.element_size()
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations", nbytes / 1e6
+
+
+def _check_int8(name: str, B: int, x_shape, w_shape, call, twin, macs: int):
+    """One int8 kernel against its twin on the same CUDA tensors, bit for
+    bit; device times of both, the eager call's time and the bound. Returns
+    (the numbers, the input buffers, the weights)."""
+    import torch
+
+    xs, w, ep = _int8_inputs(B, x_shape, w_shape)
+    n_buf = len(xs)
     got = call(xs[0], w, ep)
     ref = twin(xs[0], w, ep)
     torch.cuda.synchronize()
@@ -267,18 +302,15 @@ def _check_int8(name: str, B: int, x_shape, w_shape, call, twin, macs: int):
     ms = time_device([lambda x=x: call(x, w, ep) for x in xs])
     plain_ms = time_device([lambda x=x: twin(x, w, ep) for x in xs], replays=2)
     call_ms = time_cuda(lambda: call(xs[0], w, ep), 200)
-    nbytes = xs[0].numel() + w.numel() + ep.numel() * 4 + got.numel() * got.element_size()
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = 2 * macs / INT8_OPS_PER_S * 1e3
+    bound, bound_by, mb = _int8_bound(xs[0], w, ep, got, macs)
     r = {
         "shape": [list(x_shape), list(w_shape)], "max_abs_err": err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
         "library_ms": None, "eager_call_ms": call_ms,
     }
     print(f"[{name}] B={B} x{list(x_shape)} w{list(w_shape)}: bit-exact vs twin | kernel "
           f"{ms:.4f} ms (device, graph replay, {n_buf} input buffers) | twin {plain_ms:.4f} ms "
-          f"| bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"| bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {mb:.2f} MB, "
           f"{2 * macs / 1e9:.3f} G int8 ops) | eager call {call_ms:.4f} ms")
     return r, xs, w
 
@@ -316,7 +348,8 @@ def check_k3(B: int) -> dict:
                           lambda x, w, ep: int8_conv3x3_fused_cuda(x, w, ep, inv),
                           lambda x, w, ep: int8_conv3x3_fused_torch(x, w, ep, inv),
                           B * 6400 * 64 * 9 * 128)
-    print(f"[k3] B={B}: library_ms null: PyTorch has no int8 convolution on CUDA")
+    print(f"[k3] B={B}: library_ms null: PyTorch has no int8 convolution on CUDA"
+          f"{k_loop_reads(B * 6400, 64, 9 * 128, r['ms'])}")
     return r
 
 
@@ -328,7 +361,8 @@ def check_conv_f32(B: int) -> dict:
                           lambda x, w, ep: int8_conv_f32_cuda(x, w, ep, 2, 1, True),
                           lambda x, w, ep: int8_conv_f32_torch(x, w, ep, 2, 1, True),
                           B * 1600 * 128 * 9 * 128)
-    print(f"[int8_conv_f32] B={B}: library_ms null: PyTorch has no int8 convolution on CUDA")
+    print(f"[int8_conv_f32] B={B}: library_ms null: PyTorch has no int8 convolution on CUDA"
+          f"{k_loop_reads(B * 1600, 128, 9 * 128, r['ms'])}")
     return r
 
 
@@ -434,6 +468,123 @@ def phase_kernels():
         "hsv_jitter": (check_k4(1), check_k4(16)),
         "stem_conv": stem,
     }
+
+
+def int8_plan_shapes(imgsz: int = IMGSZ) -> list:
+    """The distinct gated-conv shapes of YOLOv10-S's int8 plan at imgsz x
+    imgsz (the fused stem out of it) on the two wgmma routes, in forward
+    order: (route, H, W, K padded to 4, N, ks, stride, pad, act, count)."""
+    from torch import nn
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.nn.quant import Int8Config, plan_int8
+
+    model = YOLOv10("yolov10s.yaml", device="cpu", seed=0).model
+    plan = plan_int8(model, (imgsz, imgsz), Int8Config(), stem=True)
+    counts = {}
+    for conv, route in plan.routes.items():
+        if route == "int8_mm_fused":
+            continue
+        c = conv.conv
+        h = math.isqrt(plan.hw[conv])
+        key = (route, h, h, -(-c.in_channels // 4) * 4, c.out_channels, c.kernel_size[0],
+               c.stride[0], c.padding[0], isinstance(conv.act, nn.SiLU))
+        counts[key] = counts.get(key, 0) + 1
+    return [(*k, n) for k, n in counts.items()]
+
+
+def k_loop_reads(M: int, N: int, Krow: int, ms: float) -> str:
+    """The bytes the wgmma kernel's K loop fetches from L2 for an implicit
+    GEMM (M, N, Krow) at its tile, and the rate at ``ms``: every N-tile
+    gathers the im2col rows of its M-tile (out-of-image taps read nothing
+    but are counted), every M-tile the filters of its N-tile. '' for a
+    checkout whose kernels have no tiles (before the wgmma kernels)."""
+    import torch
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    if not hasattr(K8, "conv_tiles"):
+        return ""
+    t = K8.conv_tiles(M, N, Krow, torch.cuda.get_device_properties(0).multi_processor_count)
+    a, b = M * Krow * -(-N // t.bn) / 1e6, N * Krow * -(-M // t.bm) / 1e6
+    return (f" | tile {t.bm}x{t.bn}x{t.stages}, K loop reads {a:.1f} MB im2col + {b:.1f} MB "
+            f"weights from L2, {(a + b) / ms / 1e3:.2f} TB/s")
+
+
+def _sweep_one(route, B, H, W, K, N, ks, stride, pad, act) -> dict:
+    """One int8 conv shape: the kernel bit for bit against its twin on the
+    same CUDA tensors, its device time over inputs larger than the L2 cache
+    in all, and its bound."""
+    import torch
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    xs, w, ep = _int8_inputs(B * H + N, (B, H, W, K), (N, ks, ks, K))
+    inv = 127 / 8
+    if route == "int8_conv3x3_fused":
+        call = lambda x: K8.int8_conv3x3_fused_cuda(x, w, ep, inv)  # noqa: E731
+        twin = lambda x: K8.int8_conv3x3_fused_torch(x, w, ep, inv)  # noqa: E731
+    else:
+        call = lambda x: K8.int8_conv_f32_cuda(x, w, ep, stride, pad, act)  # noqa: E731
+        twin = lambda x: K8.int8_conv_f32_torch(x, w, ep, stride, pad, act)  # noqa: E731
+    got, ref = call(xs[0]), twin(xs[0])
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
+        raise AssertionError(f"{route} B={B} {H}x{W} {K}->{N} k{ks} s{stride}: kernel "
+                             "differs from its twin")
+    ms = time_device([lambda x=x: call(x) for x in xs])
+    Ho, Wo = (H + 2 * pad - ks) // stride + 1, (W + 2 * pad - ks) // stride + 1
+    M, Krow = B * Ho * Wo, ks * ks * K
+    bound, bound_by, _ = _int8_bound(xs[0], w, ep, got, M * N * Krow)
+    return {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+            "l2": k_loop_reads(M, N, Krow, ms)}
+
+
+def phase_int8_layers(card: str) -> dict:
+    """Every distinct K3 / int8_conv_f32 shape of YOLOv10-S's int8 plan at
+    640, at batch 1 and 8; returns the per-forward sums by batch (ms,
+    bound ms and the launches summed over)."""
+    import torch
+    import torch.nn.functional as F
+
+    shapes = int8_plan_shapes()
+    n_convs = sum(s[-1] for s in shapes)
+    print(f"[int8-layers] YOLOv10-S int8 plan at {IMGSZ}x{IMGSZ}: {len(shapes)} distinct "
+          f"shapes, {n_convs} launches a forward on K3 and int8_conv_f32 ({card})")
+    sums = {}
+    for B in (1, 8):
+        total = bound = 0.0
+        for route, H, W, K, N, ks, stride, pad, act, count in shapes:
+            r = _sweep_one(route, B, H, W, K, N, ks, stride, pad, act)
+            total += count * r["ms"]
+            bound += count * r["bound_ms"]
+            name = "k3" if route == "int8_conv3x3_fused" else "int8_conv_f32"
+            print(f"[int8-layers] B={B} {name} {H}x{W} {K}->{N} k{ks} s{stride} p{pad} "
+                  f"act={int(act)} x{count}: bit-exact vs twin | kernel {r['ms']:.4f} ms | bound "
+                  f"{r['bound_ms']:.5f} ms ({r['bound_by']}) | share of bound "
+                  f"{r['bound_ms'] / r['ms']:.3f}{r['l2']}")
+        sums[B] = {"ms": total, "bound_ms": bound, "launches": n_convs}
+        print(f"[int8-layers] B={B} sum over the {n_convs} launches of a forward: "
+              f"{total:.4f} ms (bound {bound:.4f} ms, share {bound / total:.3f})")
+
+    # yardsticks, never called by the port; library_ms stays null for both
+    g = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randint(-127, 128, (8 * 400, 1024), generator=g, device="cuda", dtype=torch.int8)
+    b = torch.randint(-127, 128, (512, 1024), generator=g, device="cuda", dtype=torch.int8).t()
+    try:
+        mm = f"{time_device([lambda: torch._int_mm(a, b)]):.4f} ms"
+    except RuntimeError as e:  # a yardstick only: its failure is reported, not fatal
+        mm = f"not measured ({str(e).splitlines()[0]})"
+    x = torch.randn((8, 128, 80, 80), generator=g, device="cuda").half()
+    x = x.contiguous(memory_format=torch.channels_last)
+    wf = torch.randn((128, 128, 3, 3), generator=g, device="cuda").half()
+    wf = wf.contiguous(memory_format=torch.channels_last)
+    conv = time_device([lambda: F.conv2d(x, wf, None, 2, 1)])
+    print(f"[int8-layers] yardsticks at B=8 (reference only, not called by the port): "
+          f"torch._int_mm (3200, 1024) x (1024, 512), the GEMM of a 20x20 1x1 conv 1024->512 "
+          f"alone, int32 out: {mm}; cuDNN fp16 channels-last conv2d, layer 17 (3x3 s2, "
+          f"80x80x128 -> 40x40x128), no epilogue: {conv:.4f} ms")
+    return sums
 
 
 def _check_results(results, shapes):
@@ -707,7 +858,7 @@ def phase_serving(card: str):
           f"{d['first']}; {d['head']}; one2one maps max abs diff {d['maps']:.3g}, against "
           f"{d['effect']:.3g} between GPU int8 and GPU float32 (the quantization's effect)")
     print(f"[serve] main-path launches: {launches}")
-    return launches
+    return launches, {name: statistics.median(t) for name, t in times.items()}
 
 
 def _check_results3d(results, shapes, max_det: int):
@@ -1215,8 +1366,26 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+def int8_sweep_only(argv) -> int:
+    """``--int8-sweep [--package-root DIR]``: phase 3b alone, with the
+    package under DIR."""
+    root = Path(argv[argv.index("--package-root") + 1]) if "--package-root" in argv \
+        else Path(__file__).resolve().parent
+    sys.path.insert(0, str(root.resolve()))
+    card = phase_card()
+    from yolov10_3d_torch.kernels import _build
+
+    _build.lib_path("int8_conv").unlink(missing_ok=True)
+    print(f"[build] int8_conv under {root}: {_build.build(['int8_conv'])['int8_conv']:.1f} s")
+    phase_int8_layers(card)
+    print(card_line())
+    return 0
+
+
 def main() -> int:
     t0 = time.perf_counter()
+    if "--int8-sweep" in sys.argv:
+        return int8_sweep_only(sys.argv)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     card = phase_card()
     import torch
@@ -1225,7 +1394,12 @@ def main() -> int:
 
     phase_build()
     kern = phase_kernels()
-    serving = phase_serving(card)
+    sweep = phase_int8_layers(card)
+    serving, medians = phase_serving(card)
+    print(f"[int8-layers] per forward, the {sweep[1]['launches']} K3 and "
+          f"int8_conv_f32 launches: B=1 {sweep[1]['ms']:.4f} ms, B=8 {sweep[8]['ms']:.4f} ms "
+          f"of device time | request medians: b1_640_int8 {medians['b1_640_int8']:.2f} ms, "
+          f"uniform_b8_int8 {medians['uniform_b8_int8']:.2f} ms")
     serve3d = phase_serve3d(card)
     failed = []
     try:  # the train phase runs even when the lockstep misses a bar; both are fatal

@@ -146,11 +146,22 @@ def test_int8_mm_fused_matches_twin(cuda_device, M, K, N):
     assert torch.equal(got, want)
 
 
+# K3's shapes: YOLOv10-S's int8 plan at 640 (every distinct K3 conv at B=1,
+# the PERF shape at B=32), then ragged M and N and K = 4, 16, 36 (the
+# 4-byte gather), images narrower than the filter's reach, and shapes
+# whose tile choice (kernels/int8.py conv_tiles) reaches every K3 tile.
+K3_CASES = [(1, 80, 80, 128, 64), (2, 7, 5, 16, 24), (3, 1, 9, 4, 70),
+            (1, 160, 160, 32, 32), (1, 80, 80, 64, 64), (1, 40, 40, 128, 128),
+            (1, 40, 40, 256, 64), (1, 20, 20, 512, 64), (32, 80, 80, 128, 64),
+            (2, 20, 20, 256, 80), (1, 9, 13, 36, 40), (32, 40, 40, 128, 128),
+            (2, 80, 80, 64, 64)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W,K,N", [(1, 80, 80, 128, 64), (2, 7, 5, 16, 24), (3, 1, 9, 4, 70)])
+@pytest.mark.parametrize("B,H,W,K,N", K3_CASES)
 def test_int8_conv3x3_fused_matches_twin(cuda_device, B, H, W, K, N):
-    """K3 against its twin, bit for bit, including images narrower than the
-    filter's reach and tiles cut by the image edge."""
+    """K3 against its twin, bit for bit, at the int8 plan's shapes, with
+    ragged tiles at the image edge, in M and in N."""
     x, w, ep = _int8_case(H * W, (B, H, W, K), (N, 3, 3, K), cuda_device)
     got = K8.int8_conv3x3_fused(x, w, ep, INV)
     want = K8.int8_conv3x3_fused_torch(x, w, ep, INV)
@@ -158,12 +169,30 @@ def test_int8_conv3x3_fused_matches_twin(cuda_device, B, H, W, K, N):
     assert torch.equal(got, want)
 
 
+# (B, H, W, K, N, ks, stride, pad, act): odd sizes with K = 36 and a ragged
+# N = 72; every distinct int8_conv_f32 conv of YOLOv10-S's int8 plan at 640
+# at B=1 and the PERF shape (layer 17) at B=32; the unfused stem (K = 4),
+# K = 16 at stride 2 without padding, and a 1x1 with N = 32.
+F32_CASES = [(2, 19, 23, 36, 72, 3, 2, 1, True), (2, 19, 23, 36, 72, 3, 1, 1, False),
+             (2, 19, 23, 36, 72, 1, 1, 0, True), (2, 19, 23, 36, 72, 1, 2, 0, False),
+             (2, 19, 23, 36, 72, 3, 1, 0, True),
+             (1, 320, 320, 32, 64, 3, 2, 1, True), (1, 160, 160, 64, 128, 3, 2, 1, True),
+             (1, 80, 80, 128, 128, 3, 2, 1, True), (1, 160, 160, 32, 32, 3, 1, 1, True),
+             (1, 80, 80, 64, 64, 3, 1, 1, True), (1, 40, 40, 128, 128, 3, 1, 1, True),
+             (1, 40, 40, 64, 64, 3, 1, 1, False), (1, 20, 20, 64, 64, 3, 1, 1, True),
+             (1, 20, 20, 128, 128, 1, 1, 0, True), (1, 20, 20, 256, 256, 1, 1, 0, False),
+             (1, 20, 20, 256, 512, 1, 1, 0, True), (1, 20, 20, 512, 128, 1, 1, 0, True),
+             (1, 20, 20, 512, 256, 1, 1, 0, True), (1, 20, 20, 512, 512, 1, 1, 0, False),
+             (1, 20, 20, 768, 512, 1, 1, 0, True), (1, 20, 20, 1024, 512, 1, 1, 0, True),
+             (32, 80, 80, 128, 128, 3, 2, 1, True), (1, 64, 64, 4, 32, 3, 2, 1, True),
+             (2, 33, 17, 16, 48, 3, 2, 0, True), (1, 20, 20, 64, 32, 1, 1, 0, True)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("ks,stride,pad,act", [(3, 2, 1, True), (3, 1, 1, False), (1, 1, 0, True),
-                                               (1, 2, 0, False), (3, 1, 0, True)])
-def test_int8_conv_f32_matches_twin(cuda_device, ks, stride, pad, act):
+@pytest.mark.parametrize("B,H,W,K,N,ks,stride,pad,act", F32_CASES)
+def test_int8_conv_f32_matches_twin(cuda_device, B, H, W, K, N, ks, stride, pad, act):
     """The float-epilogue conv against its twin, bit for bit, on NCHW f32."""
-    x, w, ep = _int8_case(ks * 10 + stride, (2, 19, 23, 36), (72, ks, ks, 36), cuda_device)
+    x, w, ep = _int8_case(ks * 10 + stride, (B, H, W, K), (N, ks, ks, K), cuda_device)
     got = K8.int8_conv_f32(x, w, ep, stride, pad, act)
     want = K8.int8_conv_f32_torch(x, w, ep, stride, pad, act)
     torch.cuda.synchronize()

@@ -14,9 +14,12 @@ CUDA tensor and takes the twin for a CPU tensor, nothing else:
   (``nn/modules.py`` ``int8_conv`` followed by BatchNorm and the
   activation), 1x1 or 3x3 at stride 1 or 2, float32 NCHW out.
 
-Weights are (N, kh, kw, K): each filter's bytes are contiguous, which is
-what the kernels' 4-byte dot products read. K is a multiple of 4 (the
-caller pads channels with zeros). ``ep`` is a (4, N) float32 tensor of
+Weights are (N, kh, kw, K): each filter's bytes are contiguous, so both
+operands of the implicit GEMM are contiguous along the reduction, as the
+tensor cores' int8 products (K3, ``int8_conv_f32``) and K2's 4-byte dot
+products read them. K is a multiple of 4 (the caller pads channels with
+zeros). ``conv_tiles`` chooses the output tile of K3 and ``int8_conv_f32``
+per call. ``ep`` is a (4, N) float32 tensor of
 per-channel rows (deq, mean, mul, beta); the epilogue is
 ``((acc * deq - mean) * mul) + beta``, each step rounded to float32, and
 the Pallas kernels' ``acc * scale + bias`` is ``affine_epilogue(scale,
@@ -29,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +43,47 @@ from ._build import load
 LIB = "int8_conv"
 INT32_SAFE_K = (2**31 - 1) // (127 * 127)  # longest reduction whose int32 sum cannot overflow
 _GRID_Y = 65535
+K2_TILE_N = 64  # K2's output channels per block
+SMS = 132  # streaming multiprocessors of an H100 SXM
+SMEM_MAX = 232448  # shared memory one block may opt into (227 KB)
+BK = 128  # bytes of the reduction per stage of the wgmma kernels' ring
+# The tiles (rows, columns, ring stages) that csrc/int8_conv.cu compiles for
+# K3 and int8_conv_f32, largest first. Rows are output pixels (64 per
+# warpgroup), columns output channels (a wgmma N).
+TILES = ((128, 128, 3), (128, 64, 4), (64, 64, 4), (128, 32, 4), (64, 32, 4))
+
+
+class ConvTiles(NamedTuple):
+    bm: int  # output pixels per block
+    bn: int  # output channels per block
+    stages: int  # depth of the cp.async ring
+    k_tiles: int  # stages of BK bytes the K loop walks
+
+
+def conv_tiles(M: int, N: int, Krow: int, sms: int = SMS) -> ConvTiles:
+    """The tile of K3 or ``int8_conv_f32`` for an implicit GEMM of M output
+    pixels, N output channels and a reduction of Krow bytes on a card of
+    ``sms`` SMs: the largest tile whose grid gives every SM a block, else
+    (a grid smaller than the card, the 20x20 layers at batch 1) the one
+    with the most blocks, since each block's K loop then takes the same
+    time whatever its width. The columns never exceed N rounded up to a
+    wgmma N."""
+    if M <= 0 or N <= 0 or Krow <= 0:
+        raise ValueError(f"empty GEMM M={M} N={N} Krow={Krow}")
+    cap = 32 if N <= 32 else 64 if N <= 64 else 128
+    fits = [t for t in TILES if t[1] <= cap]
+    blocks = lambda t: -(-M // t[0]) * -(-N // t[1])  # noqa: E731
+    bm, bn, stages = next((t for t in fits if blocks(t) >= sms), max(fits, key=blocks))
+    return ConvTiles(bm, bn, stages, -(-Krow // BK))
+
+
+def conv_smem_bytes(t: ConvTiles, f32_out: bool) -> int:
+    """Dynamic shared memory of the tile's kernel (``smem_bytes`` in
+    csrc/int8_conv.cu): the ring or the staged output tile, whichever is
+    larger, plus 1024 bytes to align the ring for the 128-byte swizzle."""
+    ring = t.stages * (t.bm + t.bn) * BK
+    staged = t.bn * (t.bm + 4) * 4 if f32_out else t.bm * (t.bn + 16)
+    return max(ring, staged) + 1024
 
 
 def affine_epilogue(scale: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
@@ -82,7 +127,9 @@ def int8_conv_f32_torch(x, w, ep, stride: int, pad: int, act: bool) -> torch.Ten
 
 
 # -------------------------------------------------------------- wrappers
-def _check(name, x, w, ep, dims: int):
+def _check(name, x, w, ep, dims: int, tile_n: int = 32):
+    """Device, type, layout and shape checks; ``tile_n`` (at most the
+    kernel's output channels per block) bounds the grid's y extent."""
     if not (x.is_cuda and w.is_cuda and ep.is_cuda):
         raise ValueError(f"{name} needs CUDA tensors, got {x.device}, {w.device}, {ep.device}")
     if x.dtype != torch.int8 or w.dtype != torch.int8 or ep.dtype != torch.float32:
@@ -100,9 +147,14 @@ def _check(name, x, w, ep, dims: int):
         raise ValueError(f"{name}: reduction of {w[0].numel()} > {INT32_SAFE_K} may overflow int32")
     if ep.shape != (4, N):
         raise ValueError(f"{name}: ep must be (4, {N}), got {tuple(ep.shape)}")
-    if -(-N // 64) > _GRID_Y or x.numel() // K * N >= 2**31:
+    if -(-N // tile_n) > _GRID_Y or x.numel() // K * N >= 2**31:
         raise ValueError(f"{name}: x {tuple(x.shape)} with N={N} exceeds the kernel's "
                          "grid or its 32-bit pixel index")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -111,8 +163,8 @@ def _fn(name: str):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
         "k2_int8_mm_fused": [p, p, p, f, p, i, i, i, p],
-        "k3_int8_conv3x3_fused": [p, p, p, f, p, i, i, i, i, i, p],
-        "int8_conv_f32": [p, p, p, i, p, i, i, i, i, i, i, i, i, p],
+        "k3_int8_conv3x3_fused": [p, p, p, f, p, i, i, i, i, i, i, i, i, p],
+        "int8_conv_f32": [p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -129,7 +181,7 @@ def _launch(name: str, key: str, x: torch.Tensor, *args) -> None:
 
 def int8_mm_fused_cuda(x, w, ep, inv: float) -> torch.Tensor:
     """Launch K2 on the current stream: x (M, K), w (N, K) -> int8 (M, N)."""
-    _check("int8_mm_fused", x, w, ep, 2)
+    _check("int8_mm_fused", x, w, ep, 2, K2_TILE_N)
     if w.dim() != 2:
         raise ValueError(f"int8_mm_fused: w must be (N, K), got {tuple(w.shape)}")
     (M, K), N = x.shape, w.shape[0]
@@ -146,9 +198,10 @@ def int8_conv3x3_fused_cuda(x, w, ep, inv: float) -> torch.Tensor:
     if w.dim() != 4 or w.shape[1:3] != (3, 3):
         raise ValueError(f"int8_conv3x3_fused: w must be (N, 3, 3, K), got {tuple(w.shape)}")
     (B, H, W, K), N = x.shape, w.shape[0]
+    t = conv_tiles(B * H * W, N, 9 * K, _sm_count(x.device))
     out = torch.empty((B, H, W, N), dtype=torch.int8, device=x.device)
     _launch("k3_int8_conv3x3_fused", "int8_conv3x3_fused", x, x.data_ptr(), w.data_ptr(),
-            ep.data_ptr(), float(inv), out.data_ptr(), B, H, W, K, N)
+            ep.data_ptr(), float(inv), out.data_ptr(), B, H, W, K, N, t.bm, t.bn, t.stages)
     return out
 
 
@@ -164,9 +217,10 @@ def int8_conv_f32_cuda(x, w, ep, stride: int, pad: int, act: bool) -> torch.Tens
     Ho, Wo = (H + 2 * pad - ks) // stride + 1, (W + 2 * pad - ks) // stride + 1
     if Ho <= 0 or Wo <= 0:
         raise ValueError(f"int8_conv_f32: empty output for a {H}x{W} input")
+    t = conv_tiles(B * Ho * Wo, N, ks * ks * K, _sm_count(x.device))
     out = torch.empty((B, N, Ho, Wo), dtype=torch.float32, device=x.device)
     _launch("int8_conv_f32", "int8_conv_f32", x, x.data_ptr(), w.data_ptr(), ep.data_ptr(),
-            int(act), out.data_ptr(), B, H, W, K, N, ks, stride, pad)
+            int(act), out.data_ptr(), B, H, W, K, N, ks, stride, pad, t.bm, t.bn, t.stages)
     return out
 
 
