@@ -16,6 +16,9 @@ Phases, each fatal on failure:
                 The fused stem (stem_conv): float32 at B=1 and B=32 at 640x640
                 and B=1 at 384x1280, bf16 at B=32, odd sizes with C 16 and 80,
                 each bit for bit against its twin, beside cuDNN's conv + SiLU.
+                K1 reads the per-scale maps in place, bit for bit against its
+                twin on their concatenation; the concatenation is timed too.
+                Each line prints the share of the bound (bound / kernel ms).
   3b. int8-layers - every distinct gated-conv shape of YOLOv10-S's int8 plan
                 at 640x640 on the two wgmma routes (K3, int8_conv_f32), at
                 batch 1 and 8: bit for bit against the twin, device ms, bound
@@ -40,7 +43,11 @@ Phases, each fatal on failure:
                 kernels' twins on the card (score 1e-2, box 1 px), and every
                 gated conv must match the CPU int8 path given the same input (a
                 free-running CPU run is chaotic in int8: see
-                int8_layers_vs_cpu); the free-running gap is printed.
+                int8_layers_vs_cpu); the free-running gap is printed. One
+                float32 request is profiled: its device operations, and no
+                flatten-concatenation of the head maps before K1. The port's
+                top-k (ties to the lowest index) is timed beside torch.topk
+                at v10_postprocess's shapes, B=1 and 8 (a yardstick).
   4b. serve3d - YOLOv10-S-3D (full width, nc=3, seeded random weights
                 calibrated on the served frames) answers KITTI-sized requests
                 at 384x1280 (375x1242 uint8 frames): one frame and eight at
@@ -70,11 +77,13 @@ Each path (serving, serve3d, train) is driven with the launch counts set to
 JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
 Imports no JAX.
 
-    python3 chip_smoke.py --int8-sweep [--package-root DIR]
+    python3 chip_smoke.py --sweep stem,k1,int8,serve [--package-root DIR]
 
-runs the card line, the build of csrc/int8_conv.cu and phase 3b only, with
-the ``yolov10_3d_torch`` package found under DIR (default: this checkout),
-so that two checkouts' int8 convs can be timed in one call on one card.
+runs the card line, the build of the named kernels and their timings only
+(the stem and K1 as in phase 3, the int8 convs as in phase 3b, "serve" the
+device kernels of one float32 request), with the ``yolov10_3d_torch``
+package found under DIR (default: this checkout), so that two checkouts'
+kernels can be timed in one call on one card.
 """
 
 from __future__ import annotations
@@ -205,10 +214,12 @@ def phase_card():
     return line
 
 
-def phase_build():
+def phase_build(names=None):
+    """Build ``names`` (default: every source under csrc/) anew, print the
+    build times and ptxas' registers and spills per kernel."""
     from yolov10_3d_torch.kernels import _build
 
-    names = sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
+    names = names or sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu"))
     for n in names:  # build from the sources every run: the time is real
         _build.lib_path(n).unlink(missing_ok=True)
     secs = _build.build(names)
@@ -221,37 +232,57 @@ def phase_build():
 
 
 def check_k1(B: int) -> dict:
+    """K1 at YOLOv10's 640x640 head shapes: the kernel on the per-scale maps
+    as the serving path hands them over (separate NCHW tensors read in
+    place; a checkout without that entry, on their concatenation, which its
+    serving path launched first), held to the twin on the concatenation.
+    Device times of the kernel, the twin and that concatenation; the bound."""
     import torch
 
-    from yolov10_3d_torch.kernels.decode import decode_detect_cuda, decode_detect_torch
+    from yolov10_3d_torch.kernels import decode as KD
 
     nc, shapes, strides = 80, [(80, 80), (40, 40), (20, 20)], (8, 16, 32)
     A = sum(h * w for h, w in shapes)
     g = torch.Generator(device="cuda").manual_seed(B)
     n_buf = -(-L2_COLD_BYTES // (B * (64 + nc) * A * 4))  # inputs > 2x the L2 cache
-    xs = [torch.randn((B, 64 + nc, A), generator=g, device="cuda") for _ in range(n_buf)]
-    got = decode_detect_cuda(xs[0], shapes, strides, nc)
-    ref = decode_detect_torch(xs[0], shapes, strides, nc)
+    maps = [[torch.randn((B, 64 + nc, h, w), generator=g, device="cuda") for h, w in shapes]
+            for _ in range(n_buf)]
+    cat = lambda m: torch.cat([f.flatten(2) for f in m], 2)  # noqa: E731
+    flats = [cat(m) for m in maps]
+    in_place = hasattr(KD, "decode_detect_maps_cuda")
+    if in_place:
+        call = lambda m, x: KD.decode_detect_maps_cuda(m, strides, nc)  # noqa: E731
+    else:
+        call = lambda m, x: KD.decode_detect_cuda(x, shapes, strides, nc)  # noqa: E731
+    got = call(maps[0], flats[0])
+    ref = KD.decode_detect_torch(flats[0], shapes, strides, nc)
     torch.cuda.synchronize()
     # the bar of tests/test_pallas_kernels.py (TPU kernel vs its XLA twin)
     torch.testing.assert_close(got[..., :4], ref[..., :4], rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(got[..., 4:], ref[..., 4:], rtol=1e-5, atol=1e-6)
     err = float((got - ref).abs().max())
-    ms = time_device([lambda x=x: decode_detect_cuda(x, shapes, strides, nc) for x in xs])
-    plain_ms = time_device([lambda x=x: decode_detect_torch(x, shapes, strides, nc) for x in xs])
-    call_ms = time_cuda(lambda: decode_detect_cuda(xs[0], shapes, strides, nc), 200)
-    nbytes = xs[0].numel() * 4 + got.numel() * 4
+    exact = torch.equal(got, ref)
+    ms = time_device([lambda m=m, x=x: call(m, x) for m, x in zip(maps, flats)])
+    plain_ms = time_device([lambda x=x: KD.decode_detect_torch(x, shapes, strides, nc)
+                            for x in flats])
+    cat_ms = time_device([lambda m=m: cat(m) for m in maps])
+    call_ms = time_cuda(lambda: call(maps[0], flats[0]), 200)
+    nbytes = flats[0].numel() * 4 + got.numel() * 4
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = B * A * K1_OPS_PER_ANCHOR(nc) / F32_FLOPS_PER_S * 1e3
     r = {
         "shape": [B, 64 + nc, A], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": None, "eager_call_ms": call_ms,
+        "library_ms": None, "eager_call_ms": call_ms, "concat_ms": cat_ms,
     }
-    print(f"[k1] B={B}: max_abs_err {err:.3g} | kernel {ms:.4f} ms (device, graph replay, "
-          f"{n_buf} input buffers) | twin {plain_ms:.4f} ms | bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}, {nbytes / 1e6:.1f} MB) | eager call {call_ms:.4f} ms "
-          f"| library_ms: null (no single PyTorch call computes this)")
+    print(f"[k1] B={B} ({'per-scale maps in place' if in_place else 'concatenated input'}): "
+          f"max_abs_err {err:.3g} ({'bit-exact' if exact else 'not bit-exact'} vs twin) | "
+          f"kernel {ms:.4f} ms (device, graph replay, {n_buf} input buffers) | bound "
+          f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {nbytes / 1e6:.1f} MB), share "
+          f"{r['bound_ms'] / ms:.3f} | twin {plain_ms:.4f} ms | the flatten-concatenation "
+          f"{cat_ms:.4f} ms ({'not launched' if in_place else 'launched'} by the serving path) "
+          f"| eager call {call_ms:.4f} ms | library_ms: null (no single PyTorch call computes "
+          f"this)")
     return r
 
 
@@ -447,11 +478,42 @@ def check_stem(B: int, H: int, W: int, C: int = 32, bf16: bool = False) -> dict:
     }
     print(f"[stem] B={B} {H}x{W} C={C} {str(dtype).split('.')[-1]}: bit-exact vs twin | kernel "
           f"{ms:.4f} ms (device, graph replay, {n_buf} input buffers) | twin {plain_ms:.4f} ms "
-          f"| bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.2f} MB, "
+          f"| bound {r['bound_ms']:.4f} ms, share {r['bound_ms'] / ms:.3f} "
+          f"({r['bound_by']}: {nbytes / 1e6:.2f} MB, "
           f"{2 * 27 * C * B * Ho * Wo / 1e9:.3f} GFLOP) | library (two calls: cuDNN conv2d + "
           f"silu, TF32 off) {lib_ms:.4f} ms, conv2d alone {conv_ms:.4f} ms | eager call "
           f"{call_ms:.4f} ms")
     return r
+
+
+def check_stem_extremes() -> None:
+    """The stem's SiLU over every binade, bit for bit against the twin:
+    weights that pass the centre tap of input channel 0 through, so that
+    y = silu(x) for x of random sign, exponent (subnormal to 2^127) and
+    mantissa; the kernel's fast division path and its __fdiv_rn fallback
+    both run."""
+    import torch
+
+    from yolov10_3d_torch.kernels.stem import stem_conv_cuda, stem_conv_torch
+
+    g = torch.Generator().manual_seed(1)
+    n = 2 * 3 * 256 * 256
+    bits = ((torch.randint(0, 2, (n,), generator=g) << 31)
+            | (torch.randint(0, 254, (n,), generator=g) << 23)
+            | torch.randint(0, 1 << 23, (n,), generator=g))
+    x = bits.to(torch.int32).view(torch.float32).reshape(2, 3, 256, 256).cuda()
+    w = torch.zeros((32, 3, 3, 3), device="cuda")
+    w[:, 0, 1, 1] = 1.0
+    b = torch.zeros(32, device="cuda")
+    for dtype in (torch.float32, torch.bfloat16):
+        got = stem_conv_cuda(x.to(dtype), w, b)
+        want = stem_conv_torch(x.to(dtype), w, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"stem SiLU over every binade ({dtype}): "
+                                 f"{int((got != want).sum())} values differ from the twin")
+    print(f"[stem] SiLU over every binade ({n // 3} values through the centre tap, float32 "
+          f"and bf16): bit-exact vs twin")
 
 
 def phase_kernels():
@@ -460,6 +522,7 @@ def phase_kernels():
     check_stem(32, IMGSZ, IMGSZ, bf16=True)  # the TPU kernel's dtype contract
     check_stem(2, 375, 1241, C=16)  # odd sizes, YOLOv10-N's width
     check_stem(3, 333, 517, C=80)  # odd sizes, YOLOv10-X's width
+    check_stem_extremes()
     return {
         "decode_detect": (check_k1(1), check_k1(32)),
         "int8_mm_fused": (check_k2(1), check_k2(32)),
@@ -703,6 +766,81 @@ def int8_drift(gpu8, cpu8, x) -> dict:
             "effect": gap(g8, g32)}
 
 
+def request_kernels(model=None) -> dict:
+    """The device operations of one float32 b1_640 request (torch.profiler),
+    the concatenation kernels among them, and the flatten-concatenations of
+    the head maps (``torch.cat`` of 3-D (B, 4*16 + nc, H*W) maps, which the
+    decode took before K1 read the maps in place), counted by a spy on
+    ``torch.cat``. ``model``: a YOLOv10-S on the card (default: seeded
+    random weights)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.utils.parity import smooth_images
+
+    model = model or YOLOv10("yolov10s.yaml", device="cuda", seed=0)
+    img = smooth_images(np.random.default_rng(0), [(640, 640)])
+    for _ in range(2):
+        model.predict(img, imgsz=IMGSZ, conf=CONF)
+    torch.cuda.synchronize()
+    no = 64 + model.spec.nc
+    flat_cats, real_cat = [], torch.cat
+
+    def spy(tensors, *args, **kwargs):
+        if all(t.dim() == 3 and t.shape[1] == no for t in tensors):
+            flat_cats.append(len(tensors))
+        return real_cat(tensors, *args, **kwargs)
+
+    torch.cat = spy
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            model.predict(img, imgsz=IMGSZ, conf=CONF)
+            torch.cuda.synchronize()
+    finally:
+        torch.cat = real_cat
+    ops = {}
+    for e in prof.key_averages():
+        if e.device_type.name == "CUDA":
+            ops[e.key] = ops.get(e.key, 0) + e.count
+    count = lambda *frags: sum(n for k, n in ops.items()  # noqa: E731
+                               if any(f in k.lower() for f in frags))
+    r = {"device_ops": sum(ops.values()), "concat_kernels": count("cat"),
+         "topk_kernels": count("sort", "radix", "topk", "select"),
+         "flatten_concats": len(flat_cats)}
+    print(f"[serve] one b1_640 float32 request: {r['device_ops']} device operations "
+          f"(torch.profiler: kernels and copies), {r['concat_kernels']} of them concatenation "
+          f"kernels, {r['topk_kernels']} sort or select kernels (the top-k); "
+          f"flatten-concatenations of the head maps before the decode: {r['flatten_concats']}")
+    return r
+
+
+def topk_yardstick() -> None:
+    """Device ms of the port's top-k (ops/topk.py, ties to the lowest index)
+    beside torch.topk on the same tensors, at v10_postprocess's two
+    selections at 640x640 (300 of 8400 anchors, then 300 of 300 x 80
+    pairs), B=1 and 8, scores rounded to 0.01 so that ties occur. A printed
+    yardstick: the port never calls torch.topk."""
+    import torch
+
+    from yolov10_3d_torch.ops.topk import topk_lowest_index
+
+    for B in (1, 8):
+        g = torch.Generator(device="cuda").manual_seed(B)
+        parts = []
+        for n in (8400, 300 * 80):
+            s = torch.round(torch.rand((B, n), generator=g, device="cuda"), decimals=2)
+            try:
+                sel = time_device([lambda: topk_lowest_index(s, 300)], replays=50)
+                ref = time_device([lambda: torch.topk(s, 300, dim=1)], replays=50)
+                parts.append(f"({B}, {n}) k=300: topk_lowest_index {sel:.4f} ms, torch.topk "
+                             f"{ref:.4f} ms")
+            except RuntimeError as e:  # a yardstick only: its failure is reported, not fatal
+                parts.append(f"({B}, {n}): not measured ({str(e).splitlines()[0]})")
+        print("[serve] top-k, device ms: " + "; ".join(parts))
+
+
 def phase_serving(card: str):
     import numpy as np
     import torch
@@ -858,6 +996,9 @@ def phase_serving(card: str):
           f"{d['first']}; {d['head']}; one2one maps max abs diff {d['maps']:.3g}, against "
           f"{d['effect']:.3g} between GPU int8 and GPU float32 (the quantization's effect)")
     print(f"[serve] main-path launches: {launches}")
+    if request_kernels(gpu)["flatten_concats"] != 0:
+        raise AssertionError("the 2D decode concatenated the head maps before K1")
+    topk_yardstick()
     return launches, {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -1366,26 +1507,45 @@ def phase_train(card: str) -> dict:
     return launches
 
 
-def int8_sweep_only(argv) -> int:
-    """``--int8-sweep [--package-root DIR]``: phase 3b alone, with the
-    package under DIR."""
+SWEEPS = {"int8": "int8_conv", "stem": "stem_conv", "k1": "decode_detect"}
+
+
+def sweep_only(argv) -> int:
+    """``--sweep NAMES [--package-root DIR]``: the card line, the build of
+    the named kernels' sources with their registers and spills, and their
+    timings alone, with the ``yolov10_3d_torch`` package found under DIR. NAMES is a comma-separated
+    subset of int8 (phase 3b), stem (the stem at 640x640, B=1 and 32, beside
+    cuDNN) and k1 (B=1 and 32), so that two checkouts' kernels are timed in
+    one call on one card; "serve" adds the device kernels of one float32
+    request (which builds every source)."""
+    names = argv[argv.index("--sweep") + 1].split(",")
+    unknown = set(names) - set(SWEEPS) - {"serve"}
+    if unknown:
+        raise SystemExit(f"--sweep takes {sorted(SWEEPS)} and serve, got {sorted(unknown)}")
     root = Path(argv[argv.index("--package-root") + 1]) if "--package-root" in argv \
         else Path(__file__).resolve().parent
     sys.path.insert(0, str(root.resolve()))
     card = phase_card()
-    from yolov10_3d_torch.kernels import _build
-
-    _build.lib_path("int8_conv").unlink(missing_ok=True)
-    print(f"[build] int8_conv under {root}: {_build.build(['int8_conv'])['int8_conv']:.1f} s")
-    phase_int8_layers(card)
+    print(f"[sweep] {','.join(names)} with the package under {root}")
+    phase_build(None if "serve" in names else [SWEEPS[n] for n in names])
+    if "stem" in names:
+        check_stem(1, IMGSZ, IMGSZ)
+        check_stem(32, IMGSZ, IMGSZ)
+    if "k1" in names:
+        check_k1(1)
+        check_k1(32)
+    if "int8" in names:
+        phase_int8_layers(card)
+    if "serve" in names:
+        request_kernels()
     print(card_line())
     return 0
 
 
 def main() -> int:
     t0 = time.perf_counter()
-    if "--int8-sweep" in sys.argv:
-        return int8_sweep_only(sys.argv)
+    if "--sweep" in sys.argv:
+        return sweep_only(sys.argv)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     card = phase_card()
     import torch

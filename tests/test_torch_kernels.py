@@ -5,6 +5,8 @@ absent: ``python -m pytest --noconftest tests/test_torch_kernels.py``.
 The tests that launch a kernel are marked ``cuda`` and skip without a GPU.
 """
 
+import math
+
 import pytest
 import torch
 
@@ -13,8 +15,10 @@ from yolov10_3d_torch.kernels import hsv as K4
 from yolov10_3d_torch.kernels import int8 as K8
 from yolov10_3d_torch.kernels import stem as KS
 from yolov10_3d_torch.kernels.decode import (
-    decode_detect_cuda, decode_detect_flat, decode_detect_torch,
+    decode_detect_cuda, decode_detect_flat, decode_detect_maps, decode_detect_maps_cuda,
+    decode_detect_torch,
 )
+from yolov10_3d_torch.ops.topk import topk_lowest_index
 
 NC, REG_MAX = 80, 16
 STRIDES = (8, 16, 32)
@@ -79,6 +83,92 @@ def test_decode_kernel_checks_inputs(cuda_device):
         decode_detect_cuda(x.transpose(1, 2), SMALL, STRIDES, NC)
     with pytest.raises(ValueError, match="cover"):
         decode_detect_cuda(x, FULL, STRIDES, NC)
+
+
+def test_decode_maps_refuses_cpu_tensors():
+    """The per-scale entry: the wrapper takes CUDA maps only; the dispatcher
+    takes the twin on the concatenation for CPU maps and launches nothing."""
+    feats = [torch.randn((2, 4 * REG_MAX + NC, h, w)) for h, w in SMALL]
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_detect_maps_cuda(feats, STRIDES, NC)
+    with pytest.raises(ValueError, match="unsupported device"):
+        decode_detect_maps([f.to("meta") for f in feats], STRIDES, NC)
+    before = launch_counts["decode_detect"]
+    got = decode_detect_maps(feats, STRIDES, NC)
+    assert launch_counts["decode_detect"] == before
+    want = decode_detect_torch(torch.cat([f.flatten(2) for f in feats], 2), SMALL, STRIDES, NC)
+    assert torch.equal(got, want)
+
+
+def _separate_maps(seed, B, shapes, nc, device):
+    """Seeded per-scale maps, each its own allocation with a spacer between:
+    non-adjacent in memory, as the head returns them."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    feats, spacers = [], []
+    for h, w in shapes:
+        feats.append(torch.randn((B, 4 * REG_MAX + nc, h, w), generator=g, device=device) * 3)
+        spacers.append(torch.empty(1000, device=device))
+    return feats
+
+
+# (B, scales, nc): 1 to 4 scales; nc 80, 3, 1 (4 + nc not a multiple of 4:
+# the scalar store path) and 20; A not a multiple of the 32-anchor tile; the
+# tile of anchors 32..63 straddling scales (35 + 12 anchors, 63 + 30); the
+# serving shapes at B=1 and 32.
+K1_MAP_CASES = [(1, [(7, 9)], 80), (2, [(5, 7), (3, 4)], 3), (3, [(9, 7), (5, 6)], 1),
+                (1, FULL, NC), (32, FULL, NC), (2, [(16, 16), (8, 8), (4, 4), (2, 2)], 20),
+                (4, [(48, 40), (24, 20), (12, 10)], 80)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,shapes,nc", K1_MAP_CASES)
+def test_decode_maps_kernel_matches_twin(cuda_device, B, shapes, nc):
+    """K1 reading separate per-scale maps in place, bit for bit against the
+    twin on their concatenation; the concatenated entry on the same data
+    gives the same bits."""
+    strides = (8, 16, 32, 64)[: len(shapes)]
+    feats = _separate_maps(B + nc, B, shapes, nc, cuda_device)
+    x = torch.cat([f.flatten(2) for f in feats], 2)
+    before = launch_counts["decode_detect"]
+    got = decode_detect_maps(feats, strides, nc)
+    assert launch_counts["decode_detect"] == before + 1
+    flat = decode_detect_cuda(x, shapes, strides, nc)
+    want = decode_detect_torch(x, shapes, strides, nc)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (B, x.shape[2], 4 + nc)
+    assert torch.equal(got, want), float((got - want).abs().max())
+    assert torch.equal(flat, want)
+
+
+@pytest.mark.cuda
+def test_decode_maps_kernel_checks_inputs(cuda_device):
+    feats = _separate_maps(0, 1, SMALL, NC, cuda_device)
+    with pytest.raises(TypeError):
+        decode_detect_maps_cuda([f.half() for f in feats], STRIDES, NC)
+    with pytest.raises(ValueError, match="contiguous"):
+        decode_detect_maps_cuda([f.transpose(2, 3) for f in feats], STRIDES, NC)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode_detect_maps_cuda([feats[0].cpu()] + feats[1:], STRIDES, NC)
+    with pytest.raises(ValueError, match="differ"):
+        decode_detect_maps_cuda([feats[0][:, :100].contiguous()] + feats[1:], STRIDES, NC)
+    with pytest.raises(ValueError, match="4\\*16"):
+        decode_detect_maps_cuda(feats, STRIDES, NC - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,k", [(8400, 300), (24000, 300), (77, 77)])
+def test_topk_tie_order_on_card_matches_cpu(cuda_device, n, k):
+    """The port's top-k gives the same indices on the card as on the CPU for
+    tied, rounded and saturated scores: ties to the lowest index."""
+    g = torch.Generator().manual_seed(n)
+    rounded = torch.round(torch.rand((2, n), generator=g), decimals=2)
+    saturated = torch.where(torch.rand((2, n), generator=g) < 0.3, 1.0, rounded)
+    for x in (rounded, saturated, torch.full((2, n), 0.5)):
+        vc, ic = topk_lowest_index(x, k)
+        vg, ig = topk_lowest_index(x.to(cuda_device), k)
+        torch.cuda.synchronize()
+        assert torch.equal(vg.cpu(), vc) and torch.equal(ig.cpu(), ic)
+    assert torch.equal(ic, torch.arange(k).expand(2, k))  # all tied: 0, 1, 2, ...
 
 
 # ------------------------------------------------------------ int8 kernels
@@ -277,11 +367,15 @@ def test_stem_kernel_refuses_cpu_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,H,W,C", [(1, 640, 640, 32), (2, 384, 1280, 32), (2, 37, 53, 16),
-                                     (3, 33, 65, 80), (1, 1, 1, 48), (2, 130, 7, 64)])
+                                     (3, 33, 65, 80), (1, 1, 1, 48), (2, 130, 7, 64),
+                                     (32, 640, 640, 32), (3, 161, 329, 48), (1, 50, 200, 80),
+                                     (3, 99, 255, 16), (1, 640, 640, 64), (2, 75, 130, 80)])
 def test_stem_conv_matches_twin(cuda_device, B, H, W, C):
     """The stem kernel against its twin on the same CUDA tensors, float32,
-    bit for bit: YOLOv10-S's stem at 640x640 and at the KITTI 384x1280, the
-    other widths and odd sizes (ragged tiles, a one-pixel image)."""
+    bit for bit: YOLOv10-S's stem at 640x640 (B 1 and 32) and at the KITTI
+    384x1280, the other widths and odd sizes (ragged 64-column tiles with 16-
+    byte stores, Wo = 100, and with value-by-value stores, Wo = 165, 128, 65;
+    a one-pixel image)."""
     x, w, b = _stem_case(B * H + C, B, H, W, C, cuda_device)
     before = launch_counts["stem_conv"]
     got = KS.stem_conv(x, w, b)
@@ -293,7 +387,8 @@ def test_stem_conv_matches_twin(cuda_device, B, H, W, C):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,H,W,C", [(4, 640, 640, 32), (2, 17, 31, 80)])
+@pytest.mark.parametrize("B,H,W,C", [(4, 640, 640, 32), (2, 17, 31, 80), (3, 37, 53, 16),
+                                     (1, 64, 200, 48), (2, 33, 65, 64)])
 def test_stem_conv_bf16_matches_twin(cuda_device, B, H, W, C):
     """bf16 in and out, float32 weights and sums: equal to the twin's float32
     result rounded once to bf16."""
@@ -303,6 +398,35 @@ def test_stem_conv_bf16_matches_twin(cuda_device, B, H, W, C):
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == torch.bfloat16
     assert torch.equal(got, want), float((got.float() - want.float()).abs().max())
+
+
+def every_binade(shape, seed):
+    """Float32 values of random sign, exponent and mantissa: every binade
+    from the subnormals to 2^127 about equally often (finite in bf16 too)."""
+    g = torch.Generator().manual_seed(seed)
+    n = math.prod(shape)
+    bits = ((torch.randint(0, 2, (n,), generator=g) << 31)
+            | (torch.randint(0, 254, (n,), generator=g) << 23)
+            | torch.randint(0, 1 << 23, (n,), generator=g))
+    return bits.to(torch.int32).view(torch.float32).reshape(shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stem_conv_silu_extremes_match_twin(cuda_device, dtype):
+    """The SiLU over every binade, bit for bit: the weights pass the centre
+    tap of input channel 0 through (y = silu(x[:, 0, 2i, 2j]), the other
+    taps add zeros), so the kernel's division takes its fast path for the
+    ordinary values and __fdiv_rn for the tiny, huge and very negative ones
+    (1 + exp(-v) overflows below -88.7)."""
+    x = every_binade((2, 3, 256, 256), 1).to(dtype).to(cuda_device)
+    w = torch.zeros((32, 3, 3, 3), device=cuda_device)
+    w[:, 0, 1, 1] = 1.0
+    b = torch.zeros(32, device=cuda_device)
+    got = KS.stem_conv_cuda(x, w, b)
+    want = KS.stem_conv_torch(x, w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 @pytest.mark.cuda

@@ -77,8 +77,8 @@ def _check(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> None:
     if tuple(b.shape) != (C,) or not b.is_contiguous():
         raise ValueError(f"b must be a contiguous ({C},) tensor, got {tuple(b.shape)}")
     B, _, H, W = x.shape
-    if not (1 <= B <= 65535 and H >= 1 and W >= 1 and B * C * H * W < 2**40):
-        raise ValueError(f"shape {tuple(x.shape)} is empty or exceeds the kernel's grid")
+    if not (B >= 1 and H >= 1 and W >= 1 and B * C * H * W < 2**40):
+        raise ValueError(f"shape {tuple(x.shape)} is empty or exceeds the kernel's indexing")
 
 
 @functools.lru_cache(maxsize=None)

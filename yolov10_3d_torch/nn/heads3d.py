@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.topk import topk_lowest_index
 from .modules import Conv, run
 
 OUTPUT_CHANNELS = {"cls": None, "o2d": 2, "s2d": 2, "o3d": 2, "s3d": 3, "hd": 24, "dep": 1,
@@ -44,6 +45,14 @@ UNPORTED_OPTIONS = {
     "half_channels": "queue 1, item 10a (half-width conv2)",
     "fgdm_predictor": "queue 1, item 10 (DepthPredictor, heads3d.py:413)",
 }
+
+
+def candidates(cls_map: torch.Tensor, k: int) -> torch.Tensor:
+    """The sparse path's anchors of one scale: the flat H x W indices (B, k)
+    of the top-``k`` max class logits of ``cls_map`` (B, nc, H, W), ties to
+    the lowest index as ``jax.lax.top_k`` (the decode's top-k follows the
+    same rule, so it picks only candidates)."""
+    return topk_lowest_index(cls_map.amax(1).flatten(1), k)[1]
 
 
 def _branch(c_in: int, mid: int, out: int, k1: int, k2: int) -> nn.Sequential:
@@ -93,7 +102,7 @@ class V10Detect3d(nn.Module):
             if 2 * K * self.k2 * self.k2 >= H * W:
                 ys.append(torch.cat([cls_map] + [run(h[i], x, None) for h in heads[1:]], 1))
                 continue
-            _, idx = cls_map.amax(1).flatten(1).topk(K, dim=1)  # (B, K)
+            idx = candidates(cls_map, K)  # (B, K)
             reg = self.patch_regression(x, [h[i] for h in heads[1:]], idx)
             dense = torch.zeros((B, reg.shape[-1], H * W), dtype=reg.dtype, device=reg.device)
             dense.scatter_(2, idx[:, None, :].expand(-1, reg.shape[-1], -1), reg.transpose(1, 2))

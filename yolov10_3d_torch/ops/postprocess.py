@@ -15,29 +15,25 @@ from typing import Dict, List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.decode import REG_MAX, decode_detect_flat
+from ..kernels.decode import REG_MAX, decode_detect_maps
 from .boxes import make_anchors
+from .topk import topk_lowest_index
 
 
 def flatten_feats(feats: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, List[Tuple[int, int]]]:
     """[(B, C, H, W)...] -> (B, sum(H*W), C), plus per-scale (H, W)."""
-    x, shapes = _flatten_channel_major(feats)
-    return x.transpose(1, 2), shapes
-
-
-def _flatten_channel_major(feats):
     shapes = [(f.shape[2], f.shape[3]) for f in feats]
-    return torch.cat([f.flatten(2) for f in feats], 2), shapes
+    return torch.cat([f.flatten(2) for f in feats], 2).transpose(1, 2), shapes
 
 
 def decode_detect(
     feats: Sequence[torch.Tensor], strides: Sequence[int], nc: int, reg_max: int = REG_MAX
 ) -> torch.Tensor:
     """Raw per-scale head maps -> (B, A, 4 + nc): xyxy boxes in input pixels +
-    sigmoid class scores. CUDA maps go through kernel K1; CPU maps through
-    its plain twin."""
-    x, shapes = _flatten_channel_major(feats)  # (B, C, A), contiguous
-    return decode_detect_flat(x, shapes, strides[: len(shapes)], nc, reg_max)
+    sigmoid class scores. CUDA maps go through kernel K1, which reads them in
+    place; CPU maps through its plain twin."""
+    feats = [f.contiguous() for f in feats]
+    return decode_detect_maps(feats, strides[: len(feats)], nc, reg_max)
 
 
 def v10_postprocess(
@@ -50,13 +46,13 @@ def v10_postprocess(
     boxes, scores = preds[..., :4], preds[..., 4:]
     A = preds.shape[1]
     k1 = min(max_det, A)  # small inputs can have fewer anchors than max_det
-    _, idx = scores.amax(-1).topk(k1, dim=1)  # (B, k1)
+    _, idx = topk_lowest_index(scores.amax(-1), k1)  # (B, k1)
     boxes = boxes.gather(1, idx[..., None].expand(-1, -1, 4))
     scores = scores.gather(1, idx[..., None].expand(-1, -1, nc))  # (B, k1, nc)
 
     flat = scores.reshape(scores.shape[0], -1)  # (B, k1*nc)
     k2 = min(max_det, k1 * nc)
-    top_scores, flat_idx = flat.topk(k2, dim=1)
+    top_scores, flat_idx = topk_lowest_index(flat, k2)
     labels = flat_idx % nc
     boxes = boxes.gather(1, (flat_idx // nc)[..., None].expand(-1, -1, 4))
     if k2 < max_det:  # pad to the fixed max_det layout
@@ -93,11 +89,11 @@ def v10_3d_postprocess(preds: torch.Tensor, max_det: int, nc: int = 3
     scores, reg = preds[..., :nc], preds[..., nc:]
     R = reg.shape[-1]
     k1 = min(max_det, preds.shape[1])
-    _, idx = scores.amax(-1).topk(k1, dim=1)
+    _, idx = topk_lowest_index(scores.amax(-1), k1)
     reg = reg.gather(1, idx[..., None].expand(-1, -1, R))
     scores = scores.gather(1, idx[..., None].expand(-1, -1, nc))
     k2 = min(max_det, k1 * nc)
-    top_scores, flat_idx = scores.reshape(scores.shape[0], -1).topk(k2, dim=1)
+    top_scores, flat_idx = topk_lowest_index(scores.reshape(scores.shape[0], -1), k2)
     labels = flat_idx % nc
     reg = reg.gather(1, (flat_idx // nc)[..., None].expand(-1, -1, R))
     if k2 < max_det:
