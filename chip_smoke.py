@@ -18,11 +18,13 @@ Phases, each fatal on failure:
                 each bit for bit against its twin, beside cuDNN's conv + SiLU.
                 K1 reads the per-scale maps in place, bit for bit against its
                 twin on their concatenation; the concatenation is timed too.
+                K2 at both of its sites (SPPF.cv1, PSA ffn.0) at B=1, 8 and
+                32, beside torch._int_mm on the same GEMM (a yardstick).
                 Each line prints the share of the bound (bound / kernel ms).
   3b. int8-layers - every distinct gated-conv shape of YOLOv10-S's int8 plan
-                at 640x640 on the two wgmma routes (K3, int8_conv_f32), at
+                at 640x640 on its three routes (K2, K3, int8_conv_f32), at
                 batch 1 and 8: bit for bit against the twin, device ms, bound
-                and share of bound; the sum over one forward's 41 launches
+                and share of bound; the sum over one forward's 43 launches
                 (printed again after [serve] beside the int8 requests'
                 medians); two yardsticks the port never calls: torch._int_mm
                 on a 1x1 shape (the GEMM alone) and cuDNN's fp16
@@ -57,7 +59,12 @@ Phases, each fatal on failure:
                 weights (TF32 off): score 1e-4, 2D box and projected 3D centre
                 0.1 px, s3d and dep_un 1e-3 (the CPU's own float32 error on
                 these frames is printed beside them); and on the card the
-                sparse head must match the dense one.
+                sparse head must match the dense one. Then kitti_b8 once more
+                on a second net calibrated to BatchNorm std 0.5 (the 2D
+                requests'): the card's dense one2one maps (unfused stem, and
+                the served fused stem) must lie, branch by branch, within
+                twice the distance of the CPU float32 run of the same route
+                from a float64 run of the same weights and input.
   5. train-lockstep - one train step of YOLOv10-S (nc=80, seeded weights, the
                 trainer's head init) at 640x640, batch 2, on one augmented
                 batch with fixed draws, SGD, float32 with TF32 off, on the GPU
@@ -77,11 +84,12 @@ Each path (serving, serve3d, train) is driven with the launch counts set to
 JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
 Imports no JAX.
 
-    python3 chip_smoke.py --sweep stem,k1,int8,serve [--package-root DIR]
+    python3 chip_smoke.py --sweep stem,k1,int8,k2tiles,serve [--package-root DIR]
 
 runs the card line, the build of the named kernels and their timings only
-(the stem and K1 as in phase 3, the int8 convs as in phase 3b, "serve" the
-device kernels of one float32 request), with the ``yolov10_3d_torch``
+(the stem and K1 as in phase 3, the int8 convs as in phase 3b and K2 as in
+phase 3, "k2tiles" every tile K2 compiles, "serve" the device kernels of
+one float32 request), with the ``yolov10_3d_torch``
 package found under DIR (default: this checkout), so that two checkouts'
 kernels can be timed in one call on one card.
 """
@@ -146,7 +154,8 @@ REG_TOL_3D = 1e-3  # s3d and dep_un, raw head outputs of order 1 (tests/test_tor
 # requests' 0.5: at 0.5 a random YOLOv10-S-3D amplifies float32 rounding on
 # these KITTI frames to 5.7e-5 in score and 6e-3 in the regression maps on
 # the CPU alone (against float64), the size of the bars; at 0.25 to 3.4e-6
-# and 8.4e-5. float32_gap_3d prints that floor beside each comparison.
+# and 8.4e-5. float32_gap_3d prints that floor beside each comparison. At
+# 0.5, std05_vs_float64 holds the card to float64 relative to that floor.
 BN_STD_3D = 0.25
 
 
@@ -346,26 +355,75 @@ def _check_int8(name: str, B: int, x_shape, w_shape, call, twin, macs: int):
     return r, xs, w
 
 
-def check_k2(B: int) -> dict:
-    """K2 at SPPF.cv1 of YOLOv10-S at 640: (B*400, 512) x (256, 512)."""
+# K2's two sites in YOLOv10-S at 640 (20x20 maps, M = 400 B): (K, N)
+K2_SITES = {"sppf_cv1": (512, 256), "psa_ffn0": (256, 512)}
+
+
+def check_k2(B: int, site: str = "sppf_cv1") -> dict:
+    """K2 at one of its sites, (B*400, K) x (N, K), bit for bit against the
+    twin; device times of the kernel and the twin beside the bound, and of
+    torch._int_mm on the same GEMM (int32 out, no epilogue: a yardstick the
+    port never calls)."""
     import torch
 
-    from yolov10_3d_torch.kernels.int8 import int8_mm_fused_cuda, int8_mm_fused_torch
+    from yolov10_3d_torch.kernels import int8 as K8
 
-    M, K, N = B * 400, 512, 256
-    inv = 127 / 8
-    r, xs, w = _check_int8("k2", B, (M, K), (N, K),
-                           lambda x, w, ep: int8_mm_fused_cuda(x, w, ep, inv),
-                           lambda x, w, ep: int8_mm_fused_torch(x, w, ep, inv), M * N * K)
-    # reference only: cuBLASLt's int8 GEMM alone, without the fused epilogue
+    (K, N), M, inv = K2_SITES[site], B * 400, 127 / 8
+    r, xs, w = _check_int8(f"k2 {site}", B, (M, K), (N, K),
+                           lambda x, w, ep: K8.int8_mm_fused_cuda(x, w, ep, inv),
+                           lambda x, w, ep: K8.int8_mm_fused_torch(x, w, ep, inv), M * N * K)
     wt = w.t()
     try:
-        int_mm = f"{time_device([lambda x=x: torch._int_mm(x, wt) for x in xs]):.4f} ms"
+        r["int_mm_ms"] = time_device([lambda x=x: torch._int_mm(x, wt) for x in xs])
+        int_mm = f"{r['int_mm_ms']:.4f} ms"
     except RuntimeError as e:  # a yardstick only: its failure is reported, not fatal
-        int_mm = f"not measured ({str(e).splitlines()[0]})"
-    print(f"[k2] B={B}: torch._int_mm (GEMM alone, int32 out) {int_mm}; library_ms "
-          f"null: no single PyTorch call computes the fused function")
+        r["int_mm_ms"], int_mm = None, f"not measured ({str(e).splitlines()[0]})"
+    tile = ""
+    if hasattr(K8, "mm_tiles"):
+        t = K8.mm_tiles(M, N, K, torch.cuda.get_device_properties(0).multi_processor_count)
+        tile = f"tile {t.bm}x{t.bn}x{t.stages}, grid {t.grid}; "
+    print(f"[k2 {site}] B={B}: {tile}share of bound {r['bound_ms'] / r['ms']:.3f}; "
+          f"torch._int_mm (GEMM alone, int32 out) {int_mm}; library_ms null: no single "
+          f"PyTorch call computes the fused function")
     return r
+
+
+def k2_sites() -> dict:
+    """K2 at both sites at batch 1, 8 and 32: {(site, B): numbers}."""
+    return {(site, B): check_k2(B, site) for site in K2_SITES for B in (1, 8, 32)}
+
+
+def k2_tile_sweep() -> None:
+    """Every tile K2 compiles, at both sites and batch 1, 8 and 32, bit for
+    bit against the twin: device ms with a grid of one block per tile and,
+    where the tiles outnumber the SMs, with the persistent grid of one block
+    per SM. Marks the tile mm_tiles picks."""
+    import torch
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    inv = 127 / 8
+    for site, (K, N) in K2_SITES.items():
+        for B in (1, 8, 32):
+            M, kt = B * 400, -(-K // K8.BK)
+            xs, w, ep = _int8_inputs(B + N, (M, K), (N, K))
+            want = K8.int8_mm_fused_torch(xs[0], w, ep, inv)
+            tiles = []
+            for bm, bn, st in K8.MM_TILES:
+                count = -(-M // bm) * -(-N // bn)
+                tiles += [K8.MmTiles(bm, bn, st, g, kt) for g in sorted({count, min(count, sms)})]
+            pick, parts = K8.mm_tiles(M, N, K, sms), []
+            for t in tiles:
+                got = K8._mm_launch(xs[0], w, ep, inv, t)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(f"k2 {site} B={B} tile {t}: differs from the twin")
+                ms = time_device([lambda x=x, t=t: K8._mm_launch(x, w, ep, inv, t) for x in xs])
+                parts.append(f"{t.bm}x{t.bn}x{t.stages}/{t.grid}{'*' if t == pick else ''} "
+                             f"{ms:.4f}")
+            print(f"[k2-tiles] {site} B={B} (M={M}, K={K}, N={N}), tile/grid ms (* mm_tiles): "
+                  + ", ".join(parts))
 
 
 def check_k3(B: int) -> dict:
@@ -523,9 +581,12 @@ def phase_kernels():
     check_stem(2, 375, 1241, C=16)  # odd sizes, YOLOv10-N's width
     check_stem(3, 333, 517, C=80)  # odd sizes, YOLOv10-X's width
     check_stem_extremes()
+    k2 = k2_sites()
+    keys = ("ms", "plain_ms", "bound_ms", "int_mm_ms")
+    sites = [{"site": site, "B": B, **{k: r[k] for k in keys}} for (site, B), r in k2.items()]
     return {
         "decode_detect": (check_k1(1), check_k1(32)),
-        "int8_mm_fused": (check_k2(1), check_k2(32)),
+        "int8_mm_fused": ({**k2[("sppf_cv1", 1)], "sites": sites}, k2[("sppf_cv1", 32)]),
         "int8_conv3x3_fused": (check_k3(1), check_k3(32)),
         "int8_conv_f32": (check_conv_f32(1), check_conv_f32(32)),
         "hsv_jitter": (check_k4(1), check_k4(16)),
@@ -535,8 +596,8 @@ def phase_kernels():
 
 def int8_plan_shapes(imgsz: int = IMGSZ) -> list:
     """The distinct gated-conv shapes of YOLOv10-S's int8 plan at imgsz x
-    imgsz (the fused stem out of it) on the two wgmma routes, in forward
-    order: (route, H, W, K padded to 4, N, ks, stride, pad, act, count)."""
+    imgsz (the fused stem out of it) on its three routes, in forward order:
+    (route, H, W, K padded to 4, N, ks, stride, pad, act, count)."""
     from torch import nn
 
     from yolov10_3d_torch import YOLOv10
@@ -546,8 +607,6 @@ def int8_plan_shapes(imgsz: int = IMGSZ) -> list:
     plan = plan_int8(model, (imgsz, imgsz), Int8Config(), stem=True)
     counts = {}
     for conv, route in plan.routes.items():
-        if route == "int8_mm_fused":
-            continue
         c = conv.conv
         h = math.isqrt(plan.hw[conv])
         key = (route, h, h, -(-c.in_channels // 4) * 4, c.out_channels, c.kernel_size[0],
@@ -582,14 +641,19 @@ def _sweep_one(route, B, H, W, K, N, ks, stride, pad, act) -> dict:
 
     from yolov10_3d_torch.kernels import int8 as K8
 
-    xs, w, ep = _int8_inputs(B * H + N, (B, H, W, K), (N, ks, ks, K))
     inv = 127 / 8
-    if route == "int8_conv3x3_fused":
-        call = lambda x: K8.int8_conv3x3_fused_cuda(x, w, ep, inv)  # noqa: E731
-        twin = lambda x: K8.int8_conv3x3_fused_torch(x, w, ep, inv)  # noqa: E731
+    if route == "int8_mm_fused":  # a 1x1 stride-1 conv as (B H W, K) x (N, K)
+        xs, w, ep = _int8_inputs(B * H + N, (B * H * W, K), (N, K))
+        call = lambda x: K8.int8_mm_fused_cuda(x, w, ep, inv)  # noqa: E731
+        twin = lambda x: K8.int8_mm_fused_torch(x, w, ep, inv)  # noqa: E731
     else:
-        call = lambda x: K8.int8_conv_f32_cuda(x, w, ep, stride, pad, act)  # noqa: E731
-        twin = lambda x: K8.int8_conv_f32_torch(x, w, ep, stride, pad, act)  # noqa: E731
+        xs, w, ep = _int8_inputs(B * H + N, (B, H, W, K), (N, ks, ks, K))
+        if route == "int8_conv3x3_fused":
+            call = lambda x: K8.int8_conv3x3_fused_cuda(x, w, ep, inv)  # noqa: E731
+            twin = lambda x: K8.int8_conv3x3_fused_torch(x, w, ep, inv)  # noqa: E731
+        else:
+            call = lambda x: K8.int8_conv_f32_cuda(x, w, ep, stride, pad, act)  # noqa: E731
+            twin = lambda x: K8.int8_conv_f32_torch(x, w, ep, stride, pad, act)  # noqa: E731
     got, ref = call(xs[0]), twin(xs[0])
     torch.cuda.synchronize()
     if got.shape != ref.shape or got.dtype != ref.dtype or not torch.equal(got, ref):
@@ -599,13 +663,13 @@ def _sweep_one(route, B, H, W, K, N, ks, stride, pad, act) -> dict:
     Ho, Wo = (H + 2 * pad - ks) // stride + 1, (W + 2 * pad - ks) // stride + 1
     M, Krow = B * Ho * Wo, ks * ks * K
     bound, bound_by, _ = _int8_bound(xs[0], w, ep, got, M * N * Krow)
-    return {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
-            "l2": k_loop_reads(M, N, Krow, ms)}
+    l2 = "" if route == "int8_mm_fused" else k_loop_reads(M, N, Krow, ms)
+    return {"ms": ms, "bound_ms": bound, "bound_by": bound_by, "l2": l2}
 
 
 def phase_int8_layers(card: str) -> dict:
-    """Every distinct K3 / int8_conv_f32 shape of YOLOv10-S's int8 plan at
-    640, at batch 1 and 8; returns the per-forward sums by batch (ms,
+    """Every distinct K2 / K3 / int8_conv_f32 shape of YOLOv10-S's int8 plan
+    at 640, at batch 1 and 8; returns the per-forward sums by batch (ms,
     bound ms and the launches summed over)."""
     import torch
     import torch.nn.functional as F
@@ -613,7 +677,7 @@ def phase_int8_layers(card: str) -> dict:
     shapes = int8_plan_shapes()
     n_convs = sum(s[-1] for s in shapes)
     print(f"[int8-layers] YOLOv10-S int8 plan at {IMGSZ}x{IMGSZ}: {len(shapes)} distinct "
-          f"shapes, {n_convs} launches a forward on K3 and int8_conv_f32 ({card})")
+          f"shapes, {n_convs} launches a forward on K2, K3 and int8_conv_f32 ({card})")
     sums = {}
     for B in (1, 8):
         total = bound = 0.0
@@ -621,7 +685,7 @@ def phase_int8_layers(card: str) -> dict:
             r = _sweep_one(route, B, H, W, K, N, ks, stride, pad, act)
             total += count * r["ms"]
             bound += count * r["bound_ms"]
-            name = "k3" if route == "int8_conv3x3_fused" else "int8_conv_f32"
+            name = {"int8_mm_fused": "k2", "int8_conv3x3_fused": "k3"}.get(route, route)
             print(f"[int8-layers] B={B} {name} {H}x{W} {K}->{N} k{ks} s{stride} p{pad} "
                   f"act={int(act)} x{count}: bit-exact vs twin | kernel {r['ms']:.4f} ms | bound "
                   f"{r['bound_ms']:.5f} ms ({r['bound_by']}) | share of bound "
@@ -1050,25 +1114,80 @@ def sparse_vs_dense_on_card(model, x, nc: int) -> dict:
     return {"fills": fills, "maps": worst, "detections": reg_err}
 
 
+def branch_gaps_3d(maps, ref, nc: int) -> dict:
+    """Max abs distance of 3D one2one head maps from ``ref`` per branch (over
+    the batch and the scales): the score after the sigmoid, then each
+    regression branch of OUTPUT_CHANNELS."""
+    from yolov10_3d_torch.nn.heads3d import OUTPUT_CHANNELS
+
+    gap = lambda a, b: max(float((p.cpu().double() - q).abs().max())  # noqa: E731
+                           for p, q in zip(a, b))
+    gaps = {"score": gap([p[:, :nc].sigmoid() for p in maps], [q[:, :nc].sigmoid() for q in ref])}
+    c0 = nc
+    for name, n in list(OUTPUT_CHANNELS.items())[1:]:
+        gaps[name] = gap([p[:, c0:c0 + n] for p in maps], [q[:, c0:c0 + n] for q in ref])
+        c0 += n
+    return gaps
+
+
 def float32_gap_3d(cpu, x) -> dict:
     """How far the CPU's float32 head maps of ``x`` lie from a float64 run of
     the same weights, per 3D branch (max abs over the batch): the float
     noise floor of a GPU-vs-CPU comparison on this random net."""
     import torch
 
-    from yolov10_3d_torch.nn.heads3d import OUTPUT_CHANNELS
-
     m64 = copy.deepcopy(cpu.model).double()
     with torch.inference_mode():
         a = cpu.model(x, fast_eval=True)["one2one"]
         b = m64(x.double(), fast_eval=True)["one2one"]
-    c0 = cpu.spec.nc
-    gaps = {"score": max(float((p[:, :c0].sigmoid() - q[:, :c0].sigmoid()).abs().max())
-                         for p, q in zip(a, b))}
-    for name, n in list(OUTPUT_CHANNELS.items())[1:]:
-        gaps[name] = max(float((p[:, c0:c0 + n] - q[:, c0:c0 + n]).abs().max())
-                         for p, q in zip(a, b))
-        c0 += n
+    return branch_gaps_3d(a, b, cpu.spec.nc)
+
+
+def std05_vs_float64(frames, x, imgsz) -> dict:
+    """``kitti_b8`` on a second YOLOv10-S-3D calibrated to the 2D requests'
+    BatchNorm std 0.5, where float32 rounding grows to the size of the
+    absolute bars: served once on the card (one stem launch, finite 3D
+    rows); then the card's dense one2one maps, with the unfused stem and
+    with the fused one (the served route, BatchNorm folded), each held to a
+    float64 CPU run of the same weights and input, per branch within twice
+    the distance of the CPU's float32 run of the same route."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts
+    from yolov10_3d_torch.utils.parity import calibrate
+
+    gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+    calibrate(gpu.model, x, bn_std=0.5)
+    before = dict(launch_counts)
+    res = gpu.predict(frames, imgsz=imgsz, batch=8, conf=CONF, max_det=50)
+    got = {k: launch_counts[k] - before[k] for k in launch_counts}
+    if got != {k: int(k == "stem_conv") for k in launch_counts}:
+        raise AssertionError(f"kitti_b8 at BatchNorm std 0.5: launches {got}")
+    _check_results3d(res, [im.shape[:2] for im in frames], 50)
+    cpu = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    t0 = time.perf_counter()
+    xc = x.cpu()
+    with torch.inference_mode():
+        ref = copy.deepcopy(cpu.model).double()(xc.double(), fast_eval=True)["one2one"]
+        gaps = {}
+        for stem in (False, True):
+            card = gpu.model(x, fast_eval=True, stem=stem)["one2one"]
+            own = cpu.model(xc, fast_eval=True, stem=stem)["one2one"]
+            gaps[stem] = (branch_gaps_3d(card, ref, gpu.spec.nc),
+                          branch_gaps_3d(own, ref, gpu.spec.nc))
+    over = []
+    for stem, (g, c) in gaps.items():
+        route = "fused stem" if stem else "unfused stem"
+        print(f"[serve3d] kitti_b8 at BatchNorm std 0.5, {route}: dense one2one maps vs a "
+              f"float64 CPU run of the same weights (max abs; bar: 2x the CPU float32 run's): "
+              + ", ".join(f"{k} GPU {g[k]:.3g} / CPU {c[k]:.3g}" for k in c))
+        over += [f"{k} ({route})" for k in c if not g[k] <= 2 * c[k]]
+    print(f"[serve3d] std 0.5 references took {time.perf_counter() - t0:.1f} s")
+    if over:
+        raise AssertionError(f"kitti_b8 at BatchNorm std 0.5: the GPU is further from float64 "
+                             f"than twice the CPU's float32 run in {over}")
     return gaps
 
 
@@ -1154,6 +1273,7 @@ def phase_serve3d(card: str):
               f"{stats['max_center3d_err']:.3g} px (bar {BOX_TOL}), s3d "
               f"{stats['max_s3d_err']:.3g}, dep_un {stats['max_dep_un_err']:.3g} (bar "
               f"{REG_TOL_3D}); reference took {ref_s:.1f} s")
+    std05_vs_float64(frames, x, imgsz)
     print(f"[serve3d] main-path launches: {launches}")
     return launches
 
@@ -1507,17 +1627,20 @@ def phase_train(card: str) -> dict:
     return launches
 
 
-SWEEPS = {"int8": "int8_conv", "stem": "stem_conv", "k1": "decode_detect"}
+SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "stem": "stem_conv",
+          "k1": "decode_detect"}
 
 
 def sweep_only(argv) -> int:
     """``--sweep NAMES [--package-root DIR]``: the card line, the build of
     the named kernels' sources with their registers and spills, and their
     timings alone, with the ``yolov10_3d_torch`` package found under DIR. NAMES is a comma-separated
-    subset of int8 (phase 3b), stem (the stem at 640x640, B=1 and 32, beside
-    cuDNN) and k1 (B=1 and 32), so that two checkouts' kernels are timed in
-    one call on one card; "serve" adds the device kernels of one float32
-    request (which builds every source)."""
+    subset of int8 (phase 3b, then K2 at both sites at B=1, 8 and 32 beside
+    torch._int_mm), k2tiles (every tile K2 compiles at those six shapes),
+    stem (the stem at 640x640, B=1 and 32, beside cuDNN) and k1 (B=1 and
+    32), so that two checkouts' kernels are timed in one call on one card;
+    "serve" adds the device kernels of one float32 request (which builds
+    every source)."""
     names = argv[argv.index("--sweep") + 1].split(",")
     unknown = set(names) - set(SWEEPS) - {"serve"}
     if unknown:
@@ -1527,7 +1650,7 @@ def sweep_only(argv) -> int:
     sys.path.insert(0, str(root.resolve()))
     card = phase_card()
     print(f"[sweep] {','.join(names)} with the package under {root}")
-    phase_build(None if "serve" in names else [SWEEPS[n] for n in names])
+    phase_build(None if "serve" in names else sorted({SWEEPS[n] for n in names}))
     if "stem" in names:
         check_stem(1, IMGSZ, IMGSZ)
         check_stem(32, IMGSZ, IMGSZ)
@@ -1536,6 +1659,9 @@ def sweep_only(argv) -> int:
         check_k1(32)
     if "int8" in names:
         phase_int8_layers(card)
+        k2_sites()
+    if "k2tiles" in names:
+        k2_tile_sweep()
     if "serve" in names:
         request_kernels()
     print(card_line())
@@ -1556,7 +1682,7 @@ def main() -> int:
     kern = phase_kernels()
     sweep = phase_int8_layers(card)
     serving, medians = phase_serving(card)
-    print(f"[int8-layers] per forward, the {sweep[1]['launches']} K3 and "
+    print(f"[int8-layers] per forward, the {sweep[1]['launches']} K2, K3 and "
           f"int8_conv_f32 launches: B=1 {sweep[1]['ms']:.4f} ms, B=8 {sweep[8]['ms']:.4f} ms "
           f"of device time | request medians: b1_640_int8 {medians['b1_640_int8']:.2f} ms, "
           f"uniform_b8_int8 {medians['uniform_b8_int8']:.2f} ms")

@@ -30,7 +30,9 @@ Bars, and what this CPU run measured:
   int8 gate, and the port's fused stem outside its int8 plan).
 """
 
+import importlib.util
 from collections.abc import Mapping
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -77,17 +79,43 @@ def _k_inputs(seed, xs, ws, lo=-127, hi=128):
     return xq, wq, scale, bias, ep
 
 
-@pytest.mark.parametrize("M,K,N,bm,bn", [(64, 32, 48, 32, 16), (96, 64, 40, 32, 16)])
+@pytest.mark.parametrize("M,K,N,bm,bn", [(64, 32, 48, 32, 16), (96, 64, 40, 32, 16),
+                                         (80, 32, 128, 16, 64)])
 def test_k2_twin_matches_pallas(M, K, N, bm, bn):
     """K2's twin against ``int8_mm_fused`` in interpret mode, bit for bit, at
-    the shape of tests/test_pallas_kernels.py and at an N that is not a
-    multiple of the requested block."""
+    the shape of tests/test_pallas_kernels.py, at an N that is not a
+    multiple of the requested block, and in PSA ffn.0's orientation (K < N,
+    256 -> 512 in YOLOv10-S)."""
     xq, wq, scale, bias, ep = _k_inputs(1, (M, K), (K, N))
     want = np.asarray(pallas_k2(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
                                 jnp.asarray(bias), jnp.asarray(np.float32(17.0)),
                                 block_m=bm, block_n=bn, interpret=True))
     got = K8.int8_mm_fused(torch.from_numpy(xq), torch.from_numpy(wq.T.copy()), ep, 17.0)
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _tool(name: str):
+    """A script of tools/ (a folder of scripts, not a package), by path."""
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parents[1] / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("B,H,W,K,N", [(2, 5, 7, 64, 48), (1, 4, 4, 32, 96)])
+def test_k2_twin_matches_t3_reference(B, H, W, K, N):
+    """K2's twin against T3's plain XLA reference (``tools/int8_experiments.py``
+    ``conv_int8_flow``: the 1x1 int8 conv, int32 sums, the epilogue left to
+    XLA's fusion; T3 ``pallas_int8_mm`` computes it in one kernel), jitted
+    on the CPU, at 1x1 shapes with K > N and K < N: bit for bit."""
+    flow = jax.jit(_tool("int8_experiments").conv_int8_flow)
+    xq, wq, scale, bias, ep = _k_inputs(3, (B, H, W, K), (1, 1, K, N))
+    want = np.asarray(flow(jnp.asarray(xq), jnp.asarray(wq), jnp.asarray(scale),
+                           jnp.asarray(bias), np.float32(17.0)))
+    got = K8.int8_mm_fused(torch.from_numpy(xq.reshape(-1, K)),
+                           torch.from_numpy(wq.reshape(K, N).T.copy()), ep, 17.0)
+    np.testing.assert_array_equal(got.numpy(), want.reshape(-1, N))
 
 
 @pytest.mark.parametrize("B,H,W,K,N,bn", [(2, 8, 10, 16, 24, 8), (1, 5, 7, 8, 20, 8)])

@@ -222,11 +222,25 @@ def test_int8_twins_accumulate_exactly():
     torch.testing.assert_close(got, want.float(), rtol=0, atol=0)
 
 
+# K2's shapes: both of its sites in YOLOv10-S at 640 (SPPF.cv1 512 -> 256,
+# PSA ffn.0 256 -> 512) at B=1, 8 and 32; ragged M and N; K = 4 and 36
+# (zero columns up to a multiple of 16), 32 and 48 (less than one 128-byte
+# stage), 1040 (a reduction longer than the ring: slots refilled mid-tile).
+K2_CASES = [(400, 512, 256), (97, 32, 40), (1, 4, 3), (6400, 128, 200),
+            (3200, 512, 256), (12800, 512, 256), (400, 256, 512), (3200, 256, 512),
+            (12800, 256, 512), (1000, 96, 300), (130, 36, 70), (70, 48, 90), (33, 32, 17),
+            (700, 1040, 130)]
+# K2_CASES on which mm_tiles picks each tile K2 compiles (kernels/int8.py
+# MM_TILES), on a card of 132 SMs
+K2_TILE_CASES = [(12800, 512, 256), (3200, 256, 512), (3200, 512, 256), (400, 512, 256)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M,K,N", [(400, 512, 256), (97, 32, 40), (1, 4, 3), (6400, 128, 200)])
+@pytest.mark.parametrize("M,K,N", K2_CASES)
 def test_int8_mm_fused_matches_twin(cuda_device, M, K, N):
-    """K2 against its twin, bit for bit: SPPF.cv1's shape at 640 and
-    ragged M and N (not multiples of the 64-wide tiles or of 4)."""
+    """K2 against its twin, bit for bit, one launch per call: both sites at
+    B=1, 8 and 32, ragged M and N (not multiples of the tiles or of 4), K
+    not a multiple of 16 or shorter than a stage, and every compiled tile."""
     x, w, ep = _int8_case(M + N, (M, K), (N, K), cuda_device)
     before = launch_counts["int8_mm_fused"]
     got = K8.int8_mm_fused(x, w, ep, INV)
@@ -234,6 +248,46 @@ def test_int8_mm_fused_matches_twin(cuda_device, M, K, N):
     want = K8.int8_mm_fused_torch(x, w, ep, INV)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_mm_fused_extremes(cuda_device):
+    """K2's epilogue off its fast paths, bit for bit against the twin: sums
+    of +-127 * 127 over K = 1024 (|acc| up to 2^24: the plain int-to-float
+    conversion), deq from 2^-40 to 2^40 across the columns (SiLU inputs
+    whose 1 + exp(-y) overflows past 2^100: the IEEE division), and a
+    scale that spreads the codes over the whole int8 range."""
+    M, K, N = 256, 1024, 96
+    g = torch.Generator().manual_seed(11)
+    x = (torch.randint(0, 2, (M, K), generator=g) * 254 - 127).to(torch.int8)
+    x[: M // 2] = 127  # rows of equal signs: the largest sums
+    w = (torch.randint(0, 2, (N, K), generator=g) * 254 - 127).to(torch.int8)
+    w[::4] = 127
+    w[1::4] = -127
+    deq = 2.0 ** torch.linspace(-40, 40, N)
+    ep = torch.stack([deq, torch.zeros(N), torch.ones(N), torch.randn(N, generator=g)]).float()
+    x, w, ep = x.to(cuda_device), w.to(cuda_device), ep.to(cuda_device)
+    for inv in (INV, 1e-6, 1e6):
+        got = K8.int8_mm_fused(x, w, ep, inv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, K8.int8_mm_fused_torch(x, w, ep, inv)), inv
+
+
+@pytest.mark.cuda
+def test_int8_mm_fused_unaligned_rows(cuda_device):
+    """x and w whose first byte is not 16-byte aligned (views into larger
+    buffers) take the copy with zero columns, and still equal the twin."""
+    M, K, N = 300, 64, 96
+    x, w, ep = _int8_case(7, (M, K), (N, K), cuda_device)
+    xb = torch.empty(M * K + 4, dtype=torch.int8, device=cuda_device)
+    wb = torch.empty(N * K + 8, dtype=torch.int8, device=cuda_device)
+    xv, wv = xb[4:].view(M, K), wb[8:].view(N, K)
+    xv.copy_(x)
+    wv.copy_(w)
+    assert xv.data_ptr() % 16 and wv.data_ptr() % 16
+    got = K8.int8_mm_fused(xv, wv, ep, INV)
+    torch.cuda.synchronize()
+    assert torch.equal(got, K8.int8_mm_fused_torch(x, w, ep, INV))
 
 
 # K3's shapes: YOLOv10-S's int8 plan at 640 (every distinct K3 conv at B=1,

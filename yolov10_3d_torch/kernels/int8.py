@@ -15,11 +15,12 @@ CUDA tensor and takes the twin for a CPU tensor, nothing else:
   activation), 1x1 or 3x3 at stride 1 or 2, float32 NCHW out.
 
 Weights are (N, kh, kw, K): each filter's bytes are contiguous, so both
-operands of the implicit GEMM are contiguous along the reduction, as the
-tensor cores' int8 products (K3, ``int8_conv_f32``) and K2's 4-byte dot
-products read them. K is a multiple of 4 (the caller pads channels with
-zeros). ``conv_tiles`` chooses the output tile of K3 and ``int8_conv_f32``
-per call. ``ep`` is a (4, N) float32 tensor of
+operands of the GEMM are contiguous along the reduction, as the tensor
+cores' int8 products read them. K is a multiple of 4 (the caller pads
+channels with zeros); K2's tensor maps take rows of a multiple of 16 bytes,
+and its wrapper pads other K with zero columns, which change no sum.
+``conv_tiles`` chooses the output tile of K3 and ``int8_conv_f32`` per
+call, ``mm_tiles`` K2's tile and grid. ``ep`` is a (4, N) float32 tensor of
 per-channel rows (deq, mean, mul, beta); the epilogue is
 ``((acc * deq - mean) * mul) + beta``, each step rounded to float32, and
 the Pallas kernels' ``acc * scale + bias`` is ``affine_epilogue(scale,
@@ -32,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -43,7 +44,6 @@ from ._build import load
 LIB = "int8_conv"
 INT32_SAFE_K = (2**31 - 1) // (127 * 127)  # longest reduction whose int32 sum cannot overflow
 _GRID_Y = 65535
-K2_TILE_N = 64  # K2's output channels per block
 SMS = 132  # streaming multiprocessors of an H100 SXM
 SMEM_MAX = 232448  # shared memory one block may opt into (227 KB)
 BK = 128  # bytes of the reduction per stage of the wgmma kernels' ring
@@ -51,6 +51,10 @@ BK = 128  # bytes of the reduction per stage of the wgmma kernels' ring
 # K3 and int8_conv_f32, largest first. Rows are output pixels (64 per
 # warpgroup), columns output channels (a wgmma N).
 TILES = ((128, 128, 3), (128, 64, 4), (64, 64, 4), (128, 32, 4), (64, 32, 4))
+# The tiles (rows, columns, ring stages) that csrc/int8_conv.cu compiles for
+# K2 (mm_dispatch there), largest first.
+MM_TILES = ((128, 256, 3), (64, 128, 4), (64, 64, 4), (64, 32, 4))
+SMEM_SM = 233472  # shared memory of one SM (228 KB); a resident block takes 1 KB more
 
 
 class ConvTiles(NamedTuple):
@@ -75,6 +79,45 @@ def conv_tiles(M: int, N: int, Krow: int, sms: int = SMS) -> ConvTiles:
     blocks = lambda t: -(-M // t[0]) * -(-N // t[1])  # noqa: E731
     bm, bn, stages = next((t for t in fits if blocks(t) >= sms), max(fits, key=blocks))
     return ConvTiles(bm, bn, stages, -(-Krow // BK))
+
+
+class MmTiles(NamedTuple):
+    bm: int  # rows of x per tile
+    bn: int  # rows of w (output channels) per tile
+    stages: int  # slots of the TMA ring
+    grid: int  # blocks: one per tile, or one per SM walking the tiles
+    k_tiles: int  # stages of BK bytes a tile's reduction takes
+
+
+def mm_smem_bytes(t) -> int:
+    """Dynamic shared memory of K2's tile ``t`` (bm, bn, stages, ...), as
+    ``mm_smem_bytes`` in csrc/int8_conv.cu: the ring, the staged output
+    tile, the tile's epilogue constants, one 8-byte mbarrier per slot, and
+    1024 bytes to align the ring."""
+    bm, bn, stages = t[:3]
+    return stages * (bm + bn) * BK + bm * (bn + 16) + 16 * bn + 8 * stages + 1024
+
+
+def mm_tiles(M: int, N: int, K: int, sms: int = SMS) -> MmTiles:
+    """K2's tile and grid for x (M, K) times w (N, K) on a card of ``sms``
+    SMs. Among the tiles whose count fits one wave of resident blocks
+    (``sms`` times the blocks an SM holds by shared memory), each block
+    taking one tile: the largest that gives every SM a block, else the one
+    with the most tiles. Where none fits (batch 32 at N = 512), the largest
+    tile on a persistent grid of one block per SM, each block walking its
+    tiles with the next tile's loads in flight during the epilogue. The
+    columns never exceed N rounded up to a wgmma N."""
+    if M <= 0 or N <= 0 or K <= 0:
+        raise ValueError(f"empty GEMM M={M} N={N} K={K}")
+    fits = [t for t in MM_TILES if t[1] <= max(32, 1 << (N - 1).bit_length())]
+    count = lambda t: -(-M // t[0]) * -(-N // t[1])  # noqa: E731
+    one_wave = [t for t in fits if count(t) <= sms * (SMEM_SM // (mm_smem_bytes(t) + 1024))]
+    if not one_wave:
+        bm, bn, stages = fits[0]
+        return MmTiles(bm, bn, stages, sms, -(-K // BK))
+    full = [t for t in one_wave if count(t) >= sms]
+    bm, bn, stages = full[0] if full else max(one_wave, key=count)
+    return MmTiles(bm, bn, stages, count((bm, bn)), -(-K // BK))
 
 
 def conv_smem_bytes(t: ConvTiles, f32_out: bool) -> int:
@@ -127,9 +170,10 @@ def int8_conv_f32_torch(x, w, ep, stride: int, pad: int, act: bool) -> torch.Ten
 
 
 # -------------------------------------------------------------- wrappers
-def _check(name, x, w, ep, dims: int, tile_n: int = 32):
+def _check(name, x, w, ep, dims: int, tile_n: Optional[int] = 32):
     """Device, type, layout and shape checks; ``tile_n`` (at most the
-    kernel's output channels per block) bounds the grid's y extent."""
+    kernel's output channels per block) bounds the grid's y extent, None
+    for K2's one-dimensional grid."""
     if not (x.is_cuda and w.is_cuda and ep.is_cuda):
         raise ValueError(f"{name} needs CUDA tensors, got {x.device}, {w.device}, {ep.device}")
     if x.dtype != torch.int8 or w.dtype != torch.int8 or ep.dtype != torch.float32:
@@ -147,7 +191,7 @@ def _check(name, x, w, ep, dims: int, tile_n: int = 32):
         raise ValueError(f"{name}: reduction of {w[0].numel()} > {INT32_SAFE_K} may overflow int32")
     if ep.shape != (4, N):
         raise ValueError(f"{name}: ep must be (4, {N}), got {tuple(ep.shape)}")
-    if -(-N // tile_n) > _GRID_Y or x.numel() // K * N >= 2**31:
+    if (tile_n and -(-N // tile_n) > _GRID_Y) or x.numel() // K * N >= 2**31:
         raise ValueError(f"{name}: x {tuple(x.shape)} with N={N} exceeds the kernel's "
                          "grid or its 32-bit pixel index")
 
@@ -162,7 +206,7 @@ def _fn(name: str):
     fn = getattr(load(LIB), name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
-        "k2_int8_mm_fused": [p, p, p, f, p, i, i, i, p],
+        "k2_int8_mm_fused": [p, p, p, f, p, i, i, i, i, i, i, i, p],
         "k3_int8_conv3x3_fused": [p, p, p, f, p, i, i, i, i, i, i, i, i, p],
         "int8_conv_f32": [p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, p],
     }[name]
@@ -181,13 +225,32 @@ def _launch(name: str, key: str, x: torch.Tensor, *args) -> None:
 
 def int8_mm_fused_cuda(x, w, ep, inv: float) -> torch.Tensor:
     """Launch K2 on the current stream: x (M, K), w (N, K) -> int8 (M, N)."""
-    _check("int8_mm_fused", x, w, ep, 2, K2_TILE_N)
+    _check("int8_mm_fused", x, w, ep, 2, None)
     if w.dim() != 2:
         raise ValueError(f"int8_mm_fused: w must be (N, K), got {tuple(w.shape)}")
     (M, K), N = x.shape, w.shape[0]
+    return _mm_launch(x, w, ep, inv, mm_tiles(M, N, K, _sm_count(x.device)))
+
+
+def _zero_columns(a: torch.Tensor, kp: int) -> torch.Tensor:
+    out = a.new_zeros((a.shape[0], kp))
+    out[:, : a.shape[1]] = a
+    return out
+
+
+def _mm_launch(x, w, ep, inv: float, t: MmTiles) -> torch.Tensor:
+    """K2 at tile ``t``. Its tensor maps take 16-byte aligned rows of a
+    multiple of 16 bytes; x and w of another K (or alignment) are copied
+    with zero columns up to the next multiple of 16 (off the main path,
+    whose K are 256 and 512)."""
+    K = x.shape[1]
+    if K % 16 or x.data_ptr() % 16 or w.data_ptr() % 16:
+        kp = -(-K // 16) * 16
+        x, w = _zero_columns(x, kp), _zero_columns(w, kp)
+    (M, K), N = x.shape, w.shape[0]
     out = torch.empty((M, N), dtype=torch.int8, device=x.device)
     _launch("k2_int8_mm_fused", "int8_mm_fused", x, x.data_ptr(), w.data_ptr(),
-            ep.data_ptr(), float(inv), out.data_ptr(), M, K, N)
+            ep.data_ptr(), float(inv), out.data_ptr(), M, K, N, t.bm, t.bn, t.stages, t.grid)
     return out
 
 
