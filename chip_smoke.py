@@ -65,6 +65,25 @@ Phases, each fatal on failure:
                 the served fused stem) must lie, branch by branch, within
                 twice the distance of the CPU float32 run of the same route
                 from a float64 run of the same weights and input.
+  4c. val3d  - KITTI AP40 validation, YOLOv10("yolov10s_3D.yaml").val(...), on a
+                synthetic KITTI tree the script writes to a temporary directory:
+                16 frames of 375x1242 PNGs (smooth background, painted
+                objects), labels of the three classes at every difficulty
+                and a DontCare row each, KITTI's P2 calibration. The net is
+                [serve3d]'s, calibrated on these frames, its one2many head set
+                near the one2one head (a trained net's, so the depth fusion
+                finds clusters). Two runs at 1280x384, batch 8: max_det 50 (the
+                sparse head) and use_o2m_depth (the dense head and the
+                one2many depth fusion). Each is held to the same call on the
+                CPU (same weights, TF32 off): the KITTI rows of every image,
+                before the text formatting, the same count and classes, score
+                1e-4 + 1e-3 max(1, |ln score|) of the score (the score is
+                sigmoid * exp(-dep_un)), 2D box 0.1 px, sizes and depth 1e-3
+                relative, angles 1e-3 where the heading bin agrees (differing
+                bins counted). Prints both AP40 tables, the rotated IoU's
+                route, the hand kernels' launches (the path runs none: cuDNN
+                convs, the plain 3D decode and top-k) and images/s split into
+                loader, device, host rows and evaluator.
   5. train-lockstep - one train step of YOLOv10-S (nc=80, seeded weights, the
                 trainer's head init) at 640x640, batch 2, on one augmented
                 batch with fixed draws, SGD, float32 with TF32 off, on the GPU
@@ -79,7 +98,7 @@ Phases, each fatal on failure:
                 then a shorter float32 run (amp=False). K4 must launch once
                 per step; the epoch's loss means must be finite.
 
-Each path (serving, serve3d, train) is driven with the launch counts set to
+Each path (serving, serve3d, val3d, train) is driven with the launch counts set to
 0 just before it and read just after. The last three lines are the card line, one
 JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
 Imports no JAX.
@@ -157,6 +176,9 @@ REG_TOL_3D = 1e-3  # s3d and dep_un, raw head outputs of order 1 (tests/test_tor
 # and 8.4e-5. float32_gap_3d prints that floor beside each comparison. At
 # 0.5, std05_vs_float64 holds the card to float64 relative to that floor.
 BN_STD_3D = 0.25
+VAL3D_FRAMES = 16
+KITTI_P2 = ("7.215377e+02 0.000000e+00 6.095593e+02 4.485728e+01 0.000000e+00 7.215377e+02 "
+            "1.728540e+02 2.163791e-01 0.000000e+00 0.000000e+00 1.000000e+00 2.745884e-03")
 
 
 def card_line() -> str:
@@ -1278,6 +1300,133 @@ def phase_serve3d(card: str):
     return launches
 
 
+def kitti_tree(root: Path, n: int = VAL3D_FRAMES, seed: int = 0) -> Path:
+    """A KITTI tree of ``n`` 375x1242 PNG frames (smooth background, one
+    painted box per object), labels of the three classes at each difficulty
+    (easy, moderate, hard, and an occlusion 3 that KITTI ignores) with a
+    DontCare row a frame, KITTI's P2 calibration and ImageSets/val.txt.
+    Returns its data YAML."""
+    import numpy as np
+
+    from yolov10_3d_torch.utils.parity import smooth_images
+
+    rng = np.random.default_rng(seed)
+    for sub in ("image_2", "label_2", "calib"):
+        (root / "training" / sub).mkdir(parents=True)
+    (root / "ImageSets").mkdir()
+    fu, cu, cv = 721.5377, 609.5593, 172.854
+    dims = {"Car": (1.53, 1.63, 3.88), "Pedestrian": (1.76, 0.66, 0.84),
+            "Cyclist": (1.74, 0.6, 1.76)}
+    levels = [(0.0, 0), (0.2, 1), (0.4, 2), (0.0, 3)]  # (truncation, occlusion)
+    for i, img in enumerate(smooth_images(rng, [(375, 1242)] * n)):
+        lines = []
+        for j, name in enumerate(("Car", "Pedestrian", "Cyclist", "Car", "Pedestrian", "Car")):
+            h, w, l = dims[name]
+            z, x, ry = rng.uniform(8, 45), rng.uniform(-10, 10), rng.uniform(-math.pi, math.pi)
+            u, v = fu * x / z + cu, fu * (1.65 - h / 2) / z + cv
+            bw, bh = fu * max(l, w) / z, fu * h / z
+            x1, y1 = max(u - bw / 2, 0), max(v - bh / 2, 0)
+            x2, y2 = min(u + bw / 2, 1241), min(v + bh / 2, 374)
+            if x2 - x1 < 8 or y2 - y1 < 8:
+                continue
+            img[int(y1):int(y2), int(x1):int(x2)] = rng.integers(0, 256, 3)
+            trunc, occ = levels[(i + j) % 4]
+            alpha = ry - math.atan2(u - cu, fu)
+            lines.append(f"{name} {trunc:.2f} {occ} {alpha:.2f} {x1:.2f} {y1:.2f} {x2:.2f} "
+                         f"{y2:.2f} {h:.2f} {w:.2f} {l:.2f} {x:.2f} 1.65 {z:.2f} {ry:.2f}")
+        dx = rng.uniform(0, 1100)
+        lines.append(f"DontCare -1 -1 -10 {dx:.2f} 160.00 {dx + 120:.2f} 200.00 -1 -1 -1 "
+                     "-1000 -1000 -1000 -10")
+        write_png(root / "training" / "image_2" / f"{i:06d}.png", img)
+        (root / "training" / "label_2" / f"{i:06d}.txt").write_text("\n".join(lines) + "\n")
+        (root / "training" / "calib" / f"{i:06d}.txt").write_text(
+            f"P2: {KITTI_P2}\nR0_rect: 1 0 0 0 1 0 0 0 1\n"
+            "Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+    (root / "ImageSets" / "val.txt").write_text("".join(f"{i:06d}\n" for i in range(n)))
+    yaml_path = root / "kitti_val.yaml"
+    yaml_path.write_text(f"path: {root}\nval: ImageSets/val.txt\n"
+                         "names:\n  0: Car\n  1: Pedestrian\n  2: Cyclist\n")
+    return yaml_path
+
+
+def phase_val3d(card: str) -> dict:
+    """KITTI AP40 validation of YOLOv10-S-3D on the card, on both routes,
+    each held to the same call on the CPU; the launches and times of each."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data.kitti import KITTIDataset
+    from yolov10_3d_torch.eval.kitti_eval import iou_route
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.native import build_error
+    from yolov10_3d_torch.utils.parity import calibrate, compare_kitti_rows, o2m_near_o2o
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = kitti_tree(Path(tmp) / "kitti")
+        ds = KITTIDataset(data.parent, "val")
+        frames = np.stack([ds[i]["img"] for i in range(len(ds))])
+        print(f"[val3d] synthetic KITTI tree: {len(ds)} frames 375x1242 written and read back in "
+              f"{time.perf_counter() - t0:.1f} s; rotated IoU route: {iou_route()}"
+              + (f" (native build failed: {build_error()})" if build_error() else ""))
+        gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+        x = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2).float().div(255.0).contiguous()
+        calibrate(gpu.model, x, bn_std=BN_STD_3D)
+        o2m_near_o2o(gpu.model)
+        del x
+        cpu = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+        cpu.model.load_state_dict(gpu.model.state_dict())
+        common = dict(data=str(data), batch=8)
+        gpu.val(**common, save_dir=f"{tmp}/warmup")  # cuDNN's first calls, the native build
+        torch.cuda.synchronize()
+        out = {}
+        for route, kw in (("sparse", {"max_det": 50}), ("o2m", {"use_o2m_depth": True})):
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            got = gpu.val(**common, save_dir=f"{tmp}/gpu_{route}", **kw)
+            wall = time.perf_counter() - t0
+            launches = dict(launch_counts)
+            v = gpu.validator
+            if any(launches.values()):
+                raise AssertionError(f"val3d {route}: hand kernels launched {launches}; the "
+                                     "validator's path runs none")
+            t0 = time.perf_counter()
+            want = cpu.val(**common, save_dir=f"{tmp}/cpu_{route}", **kw)
+            ref_s = time.perf_counter() - t0
+            c = cpu.validator
+            stats = compare_kitti_rows(c.results, v.results, SCORE_TOL, BOX_TOL, REG_TOL_3D,
+                                       REG_TOL_3D, c.bins, v.bins)
+            if list(got) != list(want) or stats["n_rows"] == 0:
+                raise AssertionError(f"val3d {route}: metric keys {list(got)} vs {list(want)}, "
+                                     f"{stats['n_rows']} rows")
+            t = v.timings
+            print(f"[val3d] {route} ({v.route(kw.get('max_det', 50), route == 'o2m')}): "
+                  f"{t['images']} frames, {stats['n_rows']} KITTI rows | vs CPU: score "
+                  f"{stats['max_score_err']:.3g} ({stats['max_score_rel_err']:.3g} relative; bar "
+                  f"{SCORE_TOL} + {REG_TOL_3D} max(1, |ln s|) of the score s), box {stats['max_box_err']:.3g} px "
+                  f"(bar {BOX_TOL}), sizes {stats['max_dim_rel_err']:.3g}, depth "
+                  f"{stats['max_depth_rel_err']:.3g}, x/y {stats['max_xy_err_over_z']:.3g} of z "
+                  f"(bar {REG_TOL_3D}), angles {stats.get('max_angle_err', 0.0):.3g} (bar "
+                  f"{REG_TOL_3D}), heading bins differing {stats['n_bin_flips']}; CPU took "
+                  f"{ref_s:.1f} s")
+            print(f"[val3d] {route}: {t['images'] / t['total']:.2f} img/s end to end "
+                  f"({t['total'] * 1e3:.1f} ms for {t['images']} frames, host clock {wall:.2f} s "
+                  f"around val) = loader wait {t['loader'] * 1e3:.1f} ms (PNG decode + warp, 4 "
+                  f"threads) + device {t['device'] * 1e3:.1f} ms (forward + decode + top-k, "
+                  f"CUDA events) + host rows {t['host'] * 1e3:.1f} ms (decode_preds, 2D metrics, "
+                  f"save_results) + evaluator {t['eval'] * 1e3:.1f} ms (eval_from_scratch) ({card})")
+            print(f"[val3d] {route}: AP40 tables, card {v.table} | CPU {c.table}; metrics card "
+                  + ", ".join(f"{k} {got[k]:.4g}" for k in ("mAP50", "mAP50-95", "metrics/3D"))
+                  + f"; hand-kernel launches {launches}")
+            out[route] = {"stats": stats, "timings": t, "launches": launches}
+    print(f"[val3d] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def write_png(path: Path, img) -> None:
     """An 8-bit RGB PNG of an HWC uint8 image (filter 0, zlib level 1)."""
     h, w, _ = img.shape
@@ -1687,6 +1836,7 @@ def main() -> int:
           f"of device time | request medians: b1_640_int8 {medians['b1_640_int8']:.2f} ms, "
           f"uniform_b8_int8 {medians['uniform_b8_int8']:.2f} ms")
     serve3d = phase_serve3d(card)
+    phase_val3d(card)
     failed = []
     try:  # the train phase runs even when the lockstep misses a bar; both are fatal
         phase_train_lockstep(card)

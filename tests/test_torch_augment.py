@@ -17,6 +17,7 @@ import pytest
 import torch
 from PIL import Image
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.data.dataset import DataLoader as JaxDataLoader
 from yolov10_3d_tpu.data.dataset import YOLODataset as JaxYOLODataset
 from yolov10_3d_tpu.ops.device_aug import device_train_augment as jax_device_train_augment

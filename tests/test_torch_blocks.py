@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.nn import heads as JH
 from yolov10_3d_tpu.nn import modules as JM
 from yolov10_3d_torch.nn import heads as TH

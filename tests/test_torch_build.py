@@ -9,12 +9,15 @@ import pytest
 import torch
 import yaml
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
+from yolov10_3d_tpu.nn.build import build_model as jax_build_model
 from yolov10_3d_tpu.nn.build import parse_model_yaml as jax_parse
 from yolov10_3d_torch.cfg import CFG_DIR, load_yaml
 from yolov10_3d_torch.nn.build import YOLOModel, parse_model_yaml
 from yolov10_3d_torch.utils.weights import load_flax_variables
 
-from _helpers import apply_model, build_jax
+from _helpers import CFG_DIR as JAX_CFG_DIR
+from _helpers import apply_model
 from test_torch_blocks import randomize
 
 SCALES = "nsmblx"
@@ -48,8 +51,10 @@ def test_full_model_parity_yolov10n():
     """Raw one2many and one2one maps of yolov10n at 64x96 within 2e-4, the bar
     tests/test_model_parity.py holds the JAX model to against the torch
     reference; params and BN statistics randomised, converted, strict load."""
-    model, spec, variables = build_jax("n")
-    variables = randomize(jax.device_get(variables), seed=7)
+    model, spec = jax_build_model(f"{JAX_CFG_DIR}/yolov10n.yaml")
+    tree = jax.eval_shape(lambda k, x: model.init(k, x, train=False), jax.random.PRNGKey(0),
+                          jnp.zeros((1, 64, 64, 3)))  # randomize draws every leaf anew
+    variables = randomize(jax.tree.map(lambda a: np.zeros(a.shape, a.dtype), tree), seed=7)
     port = YOLOModel(parse_model_yaml(_yaml("n")))
     load_flax_variables(port, variables)
     assert sum(p.numel() for p in port.parameters()) == sum(

@@ -8,6 +8,7 @@ import math
 
 import pytest
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_torch import YOLOv10
 from yolov10_3d_torch.kernels import int8 as K8
 from yolov10_3d_torch.nn.quant import Int8Config, plan_int8

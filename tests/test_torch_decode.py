@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.ops.boxes import make_anchors as jax_make_anchors
 from yolov10_3d_tpu.ops.pallas_kernels import decode_detect_pallas
 from yolov10_3d_tpu.ops import postprocess as JP

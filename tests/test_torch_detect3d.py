@@ -3,8 +3,9 @@ V10Detect3d head (dense and the sparse top-K patch path), ``decode_detect3d``,
 ``v10_3d_postprocess`` and ``predict`` end to end, yolov10n_3D at 128x608 on
 the CPU.
 
-One module fixture: yolov10n_3D initialised by the JAX facade, its variables
-loaded into the port (strict), calibrated there on the served images
+One module fixture: yolov10n_3D built by the JAX facade with flax's initial
+values (``test_torch_predictor.jax_variables``), its variables loaded into
+the port (strict), calibrated there on the served images
 (``utils/parity.calibrate``: untrained weights otherwise give every score
 0.5, and the top-k order is decided by rounding) and copied back into the
 JAX tree. At 128x608 the P3 map (16x76) runs sparse and P4 and P5 run
@@ -38,8 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_predictor import port_to_flax
-from yolov10_3d_tpu.engine.model import YOLOv10 as JaxYOLOv10
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
+from test_torch_predictor import JaxFacade, port_to_flax
 from yolov10_3d_tpu.nn.build import build_model as jax_build_model
 from yolov10_3d_tpu.nn.build import parse_model_yaml as jax_parse
 from yolov10_3d_tpu.ops import pallas_preprocess as JPP
@@ -75,7 +76,7 @@ def _nhwc(t):
 def pair():
     rng = np.random.default_rng(0)
     imgs = smooth_images(rng, [(124, 600)] * 2)  # a small upscale, as KITTI's 375x1242
-    jm = JaxYOLOv10("yolov10n_3D.yaml")
+    jm = JaxFacade("yolov10n_3D.yaml")
     port = YOLOv10("yolov10n_3D.yaml", device="cpu")
     port.model.load_state_dict({k: torch.from_numpy(np.array(v)) for k, v in
                                 flax_to_torch_state_dict(jm.variables).items()}, strict=True)

@@ -2,7 +2,7 @@
 the CPU (the kernels' plain twins; tests/test_torch_kernels.py holds the
 CUDA kernels to the twins on the card).
 
-One module fixture: yolov10n initialised by the JAX facade, its variables
+One module fixture: yolov10n initialised by JAX in int8 mode, its variables
 loaded into the port, calibrated there on the served images
 (``utils/parity.calibrate``, head scales fitted to the int8 outputs) and
 copied back, so that activations spread over the int8 range and the int8
@@ -41,8 +41,8 @@ import pytest
 import torch
 from flax import linen as fnn
 
-from test_torch_predictor import port_to_flax
-from yolov10_3d_tpu.engine.model import YOLOv10 as JaxYOLOv10
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
+from test_torch_predictor import JaxFacade, port_to_flax
 from yolov10_3d_tpu.nn import modules as JM
 from yolov10_3d_tpu.ops.pallas_kernels import int8_conv3x3_fused as pallas_k3
 from yolov10_3d_tpu.ops.pallas_kernels import int8_mm_fused as pallas_k2
@@ -235,7 +235,7 @@ def test_plan_with_the_fused_stem():
 def pair():
     imgs = smooth_images(np.random.default_rng(0), [(IMGSZ, IMGSZ)] * 2)
     batch, _ = preprocess_batch(imgs, IMGSZ)  # (2, 64, 64, 3) float32
-    jm = JaxYOLOv10("yolov10n.yaml")
+    jm = JaxFacade("yolov10n.yaml")  # its values are replaced by the port's below
     JM.set_int8_mode(True, scope="k3deep")
     try:  # the variables of the model traced in int8 mode
         v8 = jax.jit(jm.model.init, static_argnames="train")(

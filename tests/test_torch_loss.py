@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.nn.heads import detect_bias_init as jax_detect_bias_init
 from yolov10_3d_tpu.ops import boxes as JB
 from yolov10_3d_tpu.train import loss as JL

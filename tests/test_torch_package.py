@@ -1,5 +1,6 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package (nor cv2 or PIL), serves (2D, int8 and 3D) and trains without them,
+package (nor cv2 or PIL), serves (2D, int8 and 3D), trains and validates in
+3D without them,
 runs on the card unless the caller asks for the CPU, and refuses the serving
 options it has not ported."""
 
@@ -13,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 import yolov10_3d_torch
 from yolov10_3d_torch import YOLOv10, build_model
 from yolov10_3d_torch.cfg import get_cfg
@@ -60,6 +62,29 @@ model, spec = build_model(yolov10_3d_torch.cfg.resolve_model_cfg("yolov10n"), de
 st = state.TrainState.create(model, optim.Optimizer(model, batch_size=2))
 st, metrics = state.make_train_step(nc=spec.nc, strides=spec.strides)(st, batch)
 assert st.step == 1 and bool(torch.isfinite(metrics["loss"]))
+# 3D KITTI validation: a two-frame tree with PNGs written here (zlib, filter 0)
+import pathlib, struct, tempfile, zlib
+root = pathlib.Path(tempfile.mkdtemp())
+for sub in ("image_2", "label_2", "calib"):
+    (root / "training" / sub).mkdir(parents=True)
+(root / "ImageSets").mkdir()
+def chunk(tag, body):
+    return struct.pack(">I", len(body)) + tag + body + struct.pack(">I", zlib.crc32(tag + body))
+for i in range(2):
+    img = np.random.default_rng(i).integers(0, 256, (60, 200, 3), dtype=np.uint8)
+    raw = b"".join(b"\\x00" + row.tobytes() for row in img)
+    (root / "training" / "image_2" / f"{{i:06d}}.png").write_bytes(
+        b"\\x89PNG\\r\\n\\x1a\\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", 200, 60, 8, 2, 0, 0, 0))
+        + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    (root / "training" / "label_2" / f"{{i:06d}}.txt").write_text(
+        "Car 0.00 0 -1.58 80.00 20.00 120.00 45.00 1.50 1.60 3.90 -1.00 1.65 20.00 -1.60\\n")
+    (root / "training" / "calib" / f"{{i:06d}}.txt").write_text(
+        "P2: 100 0 100 0 0 100 30 0 0 0 1 0\\n")
+(root / "ImageSets" / "val.txt").write_text("000000\\n000001\\n")
+(root / "kitti.yaml").write_text(f"path: {{root}}\\nval: ImageSets/val.txt\\nnames:\\n  0: Car\\n")
+out = yolov10_3d_torch.YOLOv10("yolov10n_3D.yaml", device="cpu").val(
+    data=str(root / "kitti.yaml"), batch=2, kitti_resolution=[192, 64], save_dir=str(root / "val"))
+assert {{"mAP50", "metrics/3D", "fitness"}} <= set(out), out
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 print("isolated ok")
@@ -69,7 +94,8 @@ print("isolated ok")
 def test_port_imports_and_serves_without_jax():
     """In a subprocess: tests/conftest.py has already imported jax here. The
     subprocess also runs the training path (device augmentation, one train
-    step)."""
+    step) and a 3D KITTI validation (the port's PNG reader, warp, validator
+    and AP40 evaluator)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and "isolated ok" in out.stdout, out.stderr[-3000:]

@@ -1,8 +1,9 @@
 """End to end: the port's YOLOv10.predict against the JAX package's, yolov10n
 at imgsz=128, same weights, same numpy images.
 
-The JAX model is initialised by its facade; its variables are loaded into
-the port (strict), calibrated there on the served images
+The JAX facade's variables come from ``jax_variables`` (flax's initial
+values, the conv kernels from one ``jax.random`` draw of its ``lecun_normal``
+distribution); they are loaded into the port (strict), calibrated there on the served images
 (``utils/parity.calibrate``: untrained weights otherwise give every score
 0.5 and top-k order is decided by rounding) and copied back into the JAX
 tree. Both sides then serve a uniform batch (device letterbox) and a
@@ -20,11 +21,16 @@ maxima on the CPU: scores 2.9e-5, boxes 2.3e-3 px.
 
 from collections.abc import Mapping
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.engine.model import YOLOv10 as JaxYOLOv10
+from yolov10_3d_tpu.engine.model import _resolve_model_cfg
+from yolov10_3d_tpu.nn.build import build_model as jax_build_model
 from yolov10_3d_torch import YOLOv10
 from yolov10_3d_torch.data.preprocess import preprocess_batch
 from yolov10_3d_torch.utils.parity import calibrate, compare_results, smooth_images
@@ -33,6 +39,52 @@ from yolov10_3d_torch.utils.weights import _dotted, load_flax_variables
 SCORE_TOL, BOX_TOL = 1e-4, 0.1
 IMGSZ = 128
 CONF = 0.01  # low enough that every image fills max_det: the top-k cut is compared too
+
+
+def jax_variables(model, *args, seed: int = 0):
+    """Variables of the flax ``model`` as ``model.init(key, *args, train=False)``
+    makes them, without compiling the init: its tree by ``jax.eval_shape``,
+    every conv kernel from one ``jax.random`` draw of flax's ``lecun_normal``
+    (a normal truncated at 2, scaled to std 1/sqrt(fan_in)), and flax's
+    initial constants elsewhere (BatchNorm scale and variance 1, biases and
+    means 0: every other leaf of the v10 and v10-3D trees). A jitted
+    ``model.init`` compiles one initializer per kernel, 30 s or more on the
+    CPU for yolov10n_3D whatever the input size; this compiles one draw."""
+    tree = jax.eval_shape(lambda k, *a: model.init(k, *a, train=False),
+                          jax.random.PRNGKey(0), *args)
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    total = sum(leaf.size for path, leaf in leaves if path[-1].key == "kernel")
+    draw = np.asarray(jax.jit(lambda k: jax.random.truncated_normal(k, -2.0, 2.0, (total,)))(
+        jax.random.PRNGKey(seed)), np.float64)
+    out, used = [], 0
+    for path, leaf in leaves:
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            std = np.sqrt(1.0 / fan_in) / 0.87962566103423978  # flax's variance_scaling
+            out.append((draw[used:used + leaf.size].reshape(leaf.shape) * std).astype(leaf.dtype))
+            used += leaf.size
+        elif name in ("scale", "var"):
+            out.append(np.ones(leaf.shape, leaf.dtype))
+        elif name in ("bias", "mean"):
+            out.append(np.zeros(leaf.shape, leaf.dtype))
+        else:
+            raise ValueError(f"no initial value for the leaf {jax.tree_util.keystr(path)}")
+    return jax.tree_util.tree_unflatten(treedef, out)
+
+
+class JaxFacade(JaxYOLOv10):
+    """The JAX facade ``YOLOv10(cfg)``, its variables from ``jax_variables``
+    (traced at 64x64, as the facade initialises)."""
+
+    def _new(self, cfg_name, nc=None):
+        path = _resolve_model_cfg(cfg_name)
+        self.model_cfg = str(path)
+        self.model, self.spec = jax_build_model(str(path), nc=nc)
+        if self.spec.head_module == "v10Detect3d":
+            self.task = "detect3d"
+        self.variables = jax_variables(self.model, jnp.zeros((1, 64, 64, 3), jnp.float32))
+        self.names = {i: f"class{i}" for i in range(self.spec.nc)}
 
 
 def port_to_flax(variables, module):
@@ -61,7 +113,7 @@ def pair():
         # mixed: host letterbox, shapes that need padding only
         "mixed": (smooth_images(rng, [(128, 96), (80, 128)]), 2),
     }
-    jm = JaxYOLOv10("yolov10n.yaml")
+    jm = JaxFacade("yolov10n.yaml")
     port = YOLOv10("yolov10n.yaml", device="cpu")
     load_flax_variables(port.model, jm.variables)
     cal, _ = preprocess_batch([im for ims, _ in requests.values() for im in ims], IMGSZ)

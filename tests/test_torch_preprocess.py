@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.data import preprocess as JD
 from yolov10_3d_tpu.ops import pallas_preprocess as JPP
 from yolov10_3d_torch.data import preprocess as TD

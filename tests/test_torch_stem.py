@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.nn import modules as JM
 from yolov10_3d_tpu.ops.spd_stem import space_to_depth
 from yolov10_3d_torch import YOLOv10

@@ -16,6 +16,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from test_torch_predictor import port_to_flax
 from yolov10_3d_tpu.nn.heads3d import V10Detect3d as JaxV10Detect3d
 from yolov10_3d_tpu.ops import postprocess as JP

@@ -12,6 +12,7 @@ import pytest
 import torch
 from torch import nn
 
+from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.nn.heads import detect_bias_init as jax_detect_bias_init
 from yolov10_3d_tpu.train import optim as JO
 from yolov10_3d_tpu.train.state import TrainState as JaxTrainState

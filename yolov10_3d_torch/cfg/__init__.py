@@ -83,8 +83,11 @@ def get_cfg(overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
 
 def load_dataset_yaml(path) -> Dict[str, Any]:
     """Dataset YAML {path, train, val, names (list or index mapping) | nc}
-    -> the same dict with ``names`` as {index: name} and ``nc``."""
+    -> the same dict with ``names`` as {index: name} and ``nc``. A name that
+    is not a file is looked up among the port's ``cfg/datasets``."""
     path = Path(path)
+    if not path.exists() and (CFG_DIR / "datasets" / path.name).exists():
+        path = CFG_DIR / "datasets" / path.name
     if not path.exists():
         raise FileNotFoundError(f"dataset yaml not found: {path}")
     d = load_yaml(path)

@@ -345,3 +345,40 @@ class DataLoader:
             stop.set()
             producer.join()
             pool.shutdown(wait=True, cancel_futures=True)
+
+
+class DictLoader:
+    """Ordered batches of a dataset whose items are dicts of numpy arrays
+    (``KITTIDataset``): each key stacked, the last batch kept short, as the
+    JAX DataLoader collates them. ``workers=0`` loads in the caller's thread;
+    otherwise a pool of ``workers`` threads loads the next batch's items
+    while the caller works on this one, and is joined when the iteration
+    ends, fails or is abandoned."""
+
+    def __init__(self, dataset, batch_size: int, workers: int = 0):
+        self.dataset = dataset
+        self.batch_size = int(batch_size)
+        self.workers = max(0, int(workers))
+
+    @staticmethod
+    def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        return {k: np.stack([it[k] for it in items]) for k in items[0]}
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        n, bs = len(self.dataset), self.batch_size
+        batches = [range(i, min(i + bs, n)) for i in range(0, n, bs)]
+        if self.workers == 0:
+            for sel in batches:
+                yield self.collate([self.dataset[i] for i in sel])
+            return
+        pool = ThreadPoolExecutor(max_workers=self.workers, thread_name_prefix="dict-loader")
+        try:
+            load = self.dataset.__getitem__
+            pending = [pool.submit(load, i) for i in batches[0]] if batches else []
+            for b in range(len(batches)):
+                items = [f.result() for f in pending]
+                pending = ([pool.submit(load, i) for i in batches[b + 1]]
+                           if b + 1 < len(batches) else [])
+                yield self.collate(items)
+        finally:
+            pool.shutdown(wait=True, cancel_futures=True)

@@ -6,8 +6,9 @@ weights; ``.predict(source, **kwargs)`` serves it, in int8 with
 ``int8=True``; ``.train(data=..., device_aug=True, val=False, save=False)``
 trains a fresh model of the same YAML on a dataset (2D detection) and then
 serves the trained EMA weights. A v10-3D YAML (``yolov10s_3D.yaml``) makes a
-``detect3d`` model, whose Results carry ``boxes3d``; its training is not
-ported yet, nor is checkpoint loading.
+``detect3d`` model, whose Results carry ``boxes3d``, and
+``.val(data="kitti.yaml")`` gives its KITTI AP40 (``engine/validator3d.py``);
+its training is not ported yet, nor are 2D validation and checkpoint loading.
 """
 
 from __future__ import annotations
@@ -17,12 +18,17 @@ from typing import Optional, Union
 
 import torch
 
-from ..cfg import get_cfg, resolve_model_cfg
+from ..cfg import get_cfg, load_dataset_yaml, resolve_model_cfg
+from ..data.dataset import DictLoader
 from ..device import resolve_device
 from ..nn.build import build_model
 from ..train.state import TrainState
 from .predictor import Predictor
 from .trainer import DetectionTrainer
+from .validator3d import Detection3DValidator, build_3d_dataset
+
+VAL_KEYS = ("batch", "save_dir", "conf", "max_det", "use_o2m_depth", "kitti_resolution",
+            "use_dino_depth")
 
 
 class YOLOv10:
@@ -41,6 +47,7 @@ class YOLOv10:
         self.task = "detect3d" if self.spec.head_module == "v10Detect3d" else "detect"
         self.names = {i: f"class{i}" for i in range(self.spec.nc)}
         self.trainer = None
+        self.validator = None
 
     def predict(self, source, **kwargs):
         """Detect on an HWC uint8 image or a list of them -> [Results]."""
@@ -70,3 +77,32 @@ class YOLOv10:
         self.model, self.spec = self.trainer.eval_model(), self.trainer.spec
         self.names = dict(self.trainer.names)
         return state
+
+    def val(self, data: Union[str, Path] = "kitti.yaml", **kwargs):
+        """KITTI AP40 of a 3D model on this facade's device (the JAX
+        ``YOLOv10.val`` for ``detect3d``): the dataset YAML's ``val`` split,
+        ``batch`` frames at a time (16), at ``kitti_resolution`` [W, H]
+        (1280x384), rows written under ``save_dir``, scores above ``conf``
+        (0.001), ``max_det`` (50) detections per frame, the one2many depth
+        fusion with ``use_o2m_depth``; 4 loader threads. Returns the metrics
+        dict (2D mAP keys, ``metrics/3D``, ``fitness``); the validator stays
+        on ``self.validator``."""
+        if self.task != "detect3d":
+            raise NotImplementedError("2D validation is not ported (engine/validator.py, "
+                                      "ROADMAP queue 1, item 9b)")
+        unknown = sorted(set(kwargs) - set(VAL_KEYS))
+        if unknown:
+            raise KeyError(f"unknown val keys {unknown}; valid keys: {sorted(VAL_KEYS)}")
+        d = load_dataset_yaml(data)
+        args = {k: kwargs[k] for k in ("kitti_resolution", "use_o2m_depth", "use_dino_depth")
+                if k in kwargs}
+        self.validator = Detection3DValidator(self.model, self.spec, args, d["names"])
+        ds = build_3d_dataset(data, Path(d.get("path", ".")) / d["val"], "val", args)
+        loader = DictLoader(ds, kwargs.get("batch", 16), workers=4)
+        return self.validator(
+            ds, loader,
+            save_dir=kwargs.get("save_dir", "runs/val3d"),
+            conf_threshold=kwargs.get("conf", 0.001),
+            max_det=kwargs.get("max_det", 50),
+            use_o2m_depth=bool(kwargs.get("use_o2m_depth", False)),
+        )

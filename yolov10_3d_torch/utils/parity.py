@@ -13,11 +13,13 @@ chaotic, so the calibration batch is the images that are then served
 (``smooth_images`` makes them: pixel noise would make the served scores
 hinge on resize details).
 ``match_detections`` pairs detections by class and box and compares those
-clear of the selection boundaries, where the selection cannot flip.
+clear of the selection boundaries, where the selection cannot flip;
+``compare_kitti_rows`` does the same for the 3D validator's KITTI rows.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -118,6 +120,29 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
     return model
 
 
+@torch.no_grad()
+def o2m_near_o2o(model: nn.Module, rel: float = 0.02, seed: int = 0) -> nn.Module:
+    """Set a v10Detect3d head's one2many branches to its one2one branches
+    (the trainer's init copies them) with every conv weight scaled by
+    1 + ``rel`` * N(0, 1): the two branches of a trained net predict nearby
+    boxes, so the validator's one2many depth fusion finds clusters, as it
+    does not on independent random branches."""
+    head = model.model[-1]
+    if not isinstance(head, V10Detect3d):
+        raise ValueError("o2m_near_o2o needs a v10Detect3d head")
+    g = torch.Generator().manual_seed(seed)
+    for j, name in enumerate(BRANCHES):
+        for dst, src in zip(head.o2m_heads[j].modules(), getattr(head, name).modules()):
+            if isinstance(dst, nn.Conv2d):
+                noise = torch.randn(src.weight.shape, generator=g).to(src.weight)
+                dst.weight.copy_(src.weight * (1 + rel * noise))
+                if src.bias is not None:
+                    dst.bias.copy_(src.bias)
+            elif isinstance(dst, nn.BatchNorm2d):
+                dst.load_state_dict(src.state_dict())
+    return model
+
+
 def smooth_images(rng: np.random.Generator, shapes, cell: int = 8):
     """Seeded HWC uint8 images of the given (h, w): coarse noise, one value
     per ``cell`` x ``cell`` block, bilinearly upsampled."""
@@ -200,3 +225,75 @@ def compare_results(ref: Sequence, got: Sequence, conf: float, score_tol: float,
         for k, v in s.items():
             total[k] = total.get(k, 0) + v if k.startswith("n_") else max(total.get(k, 0.0), v)
     return total
+
+
+def _wrap(a: np.ndarray) -> np.ndarray:
+    """Angles to (-pi, pi]."""
+    return np.pi - np.mod(np.pi - a, 2 * np.pi)
+
+
+def compare_kitti_rows(ref: Dict[str, Sequence], got: Dict[str, Sequence], score_tol: float,
+                       box_tol: float, rel_tol: float, angle_tol: float,
+                       ref_bins: Optional[Dict[str, Sequence[int]]] = None,
+                       got_bins: Optional[Dict[str, Sequence[int]]] = None) -> Dict[str, float]:
+    """Compare two ``Detection3DValidator.results`` (image file -> KITTI rows
+    [cls, alpha, x1, y1, x2, y2, h, w, l, x, y, z, ry, score]), with their
+    heading bins (``Detection3DValidator.bins``).
+
+    Each image must have the same number of rows and the same classes. Each
+    ``ref`` row is paired with the ``got`` row of its class with the nearest
+    2D box, and must meet:
+    - 2D box within ``box_tol`` px;
+    - score within ``score_tol`` + ``rel_tol`` * max(1, |ln score|) *
+      score: the KITTI score is sigmoid(logit) * exp(-dep_un), the sigmoid
+      held to ``score_tol`` and dep_un to ``rel_tol`` of max(1, |dep_un|)
+      (|ln score| is |dep_un| where either is large; a random net puts
+      dep_un 28 below 0 and the score at 1e12);
+    - h, w, l within ``rel_tol`` relative (absolute below 1 m: a residual
+      can bring a size near 0), depth z within ``rel_tol`` relative, x and
+      y within ``rel_tol`` of z;
+    - alpha and ry within ``angle_tol`` (mod 2 pi) where the two rows have
+      the same heading bin (every pair when no bins are given); pairs whose
+      bins differ are counted in ``n_bin_flips``.
+    Raises AssertionError otherwise; returns the counts and largest errors."""
+    stats = {"n_rows": 0, "n_bin_flips": 0}
+    if set(ref) != set(got):
+        raise AssertionError(f"image files differ: {sorted(set(ref) ^ set(got))}")
+    for name in sorted(ref):
+        a = np.asarray(ref[name], np.float64).reshape(-1, 14)
+        b = np.asarray(got[name], np.float64).reshape(-1, 14)
+        if len(a) != len(b) or sorted(a[:, 0]) != sorted(b[:, 0]):
+            raise AssertionError(f"{name}: {len(a)} rows of classes {sorted(a[:, 0])} vs "
+                                 f"{len(b)} of {sorted(b[:, 0])}")
+        bins_a = list(ref_bins[name]) if ref_bins else [0] * len(a)
+        bins_b = list(got_bins[name]) if got_bins else [0] * len(b)
+        free = np.ones(len(b), bool)
+        for i, r in enumerate(a):
+            cand = np.flatnonzero(free & (b[:, 0] == r[0]))
+            box_err = np.abs(b[cand, 2:6] - r[2:6]).max(1)
+            j = int(cand[box_err.argmin()])
+            free[j] = False
+            g = b[j]
+            # name: (error, bar)
+            checks = {
+                "box_err": (float(box_err.min()), box_tol),
+                "score_err": (abs(g[13] - r[13]), score_tol + rel_tol * abs(r[13]) * max(
+                    1.0, abs(math.log(abs(r[13]))))),
+                "score_rel_err": (abs(g[13] - r[13]) / abs(r[13]), np.inf),
+                "dim_rel_err": (float((np.abs(g[6:9] - r[6:9]) / np.maximum(np.abs(r[6:9]), 1)
+                                       ).max()), rel_tol),
+                "depth_rel_err": (abs(g[11] - r[11]) / abs(r[11]), rel_tol),
+                "xy_err_over_z": (float(np.abs(g[9:11] - r[9:11]).max() / abs(r[11])), rel_tol),
+            }
+            if bins_a[i] != bins_b[j]:
+                stats["n_bin_flips"] += 1
+            else:
+                checks["angle_err"] = (max(abs(float(_wrap(g[k] - r[k]))) for k in (1, 12)),
+                                       angle_tol)
+            for k, (err, bar) in checks.items():
+                if not err <= bar:
+                    raise AssertionError(f"{name} row {i} {r.tolist()} vs {g.tolist()}: "
+                                         f"{k} {err:.3g} (bar {bar:.3g})")
+                stats[f"max_{k}"] = max(stats.get(f"max_{k}", 0.0), err)
+            stats["n_rows"] += 1
+    return stats
