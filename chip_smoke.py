@@ -75,7 +75,9 @@ Phases, each fatal on failure:
                 finds clusters). Two runs at 1280x384, batch 8: max_det 50 (the
                 sparse head) and use_o2m_depth (the dense head and the
                 one2many depth fusion). Each is held to the same call on the
-                CPU (same weights, TF32 off): the KITTI rows of every image,
+                CPU in float64 (same weights, TF32 off; the CPU's float32 run
+                is as far from it as the card, printed beside): the KITTI rows
+                of every image,
                 before the text formatting, the same count and classes, score
                 1e-4 + 1e-3 max(1, |ln score|) of the score (the score is
                 sigmoid * exp(-dep_un)), 2D box 0.1 px, sizes and depth 1e-3
@@ -117,6 +119,7 @@ from __future__ import annotations
 
 import contextlib
 import copy
+import csv
 import json
 import math
 import statistics
@@ -1300,12 +1303,15 @@ def phase_serve3d(card: str):
     return launches
 
 
-def kitti_tree(root: Path, n: int = VAL3D_FRAMES, seed: int = 0) -> Path:
+def kitti_tree(root: Path, n: int = VAL3D_FRAMES, seed: int = 0, n_val: int = None,
+               seg: bool = False) -> Path:
     """A KITTI tree of ``n`` 375x1242 PNG frames (smooth background, one
     painted box per object), labels of the three classes at each difficulty
     (easy, moderate, hard, and an occlusion 3 that KITTI ignores) with a
-    DontCare row a frame, KITTI's P2 calibration and ImageSets/val.txt.
-    Returns its data YAML."""
+    DontCare row a frame, KITTI's P2 calibration, ImageSets/train.txt (all
+    frames) and val.txt (the first ``n_val``, default all); with ``seg`` the
+    instance masks of the FGDM depth maps (each object's box its label row,
+    background 51) under deepseg/training/image_2. Returns its data YAML."""
     import numpy as np
 
     from yolov10_3d_torch.utils.parity import smooth_images
@@ -1314,12 +1320,16 @@ def kitti_tree(root: Path, n: int = VAL3D_FRAMES, seed: int = 0) -> Path:
     for sub in ("image_2", "label_2", "calib"):
         (root / "training" / sub).mkdir(parents=True)
     (root / "ImageSets").mkdir()
+    seg_dir = root / "deepseg" / "training" / "image_2"
+    if seg:
+        seg_dir.mkdir(parents=True)
     fu, cu, cv = 721.5377, 609.5593, 172.854
     dims = {"Car": (1.53, 1.63, 3.88), "Pedestrian": (1.76, 0.66, 0.84),
             "Cyclist": (1.74, 0.6, 1.76)}
     levels = [(0.0, 0), (0.2, 1), (0.4, 2), (0.0, 3)]  # (truncation, occlusion)
     for i, img in enumerate(smooth_images(rng, [(375, 1242)] * n)):
         lines = []
+        mask = np.full((375, 1242), 51, np.uint8)
         for j, name in enumerate(("Car", "Pedestrian", "Cyclist", "Car", "Pedestrian", "Car")):
             h, w, l = dims[name]
             z, x, ry = rng.uniform(8, 45), rng.uniform(-10, 10), rng.uniform(-math.pi, math.pi)
@@ -1330,6 +1340,7 @@ def kitti_tree(root: Path, n: int = VAL3D_FRAMES, seed: int = 0) -> Path:
             if x2 - x1 < 8 or y2 - y1 < 8:
                 continue
             img[int(y1):int(y2), int(x1):int(x2)] = rng.integers(0, 256, 3)
+            mask[int(y1):int(y2), int(x1):int(x2)] = len(lines)
             trunc, occ = levels[(i + j) % 4]
             alpha = ry - math.atan2(u - cu, fu)
             lines.append(f"{name} {trunc:.2f} {occ} {alpha:.2f} {x1:.2f} {y1:.2f} {x2:.2f} "
@@ -1338,20 +1349,26 @@ def kitti_tree(root: Path, n: int = VAL3D_FRAMES, seed: int = 0) -> Path:
         lines.append(f"DontCare -1 -1 -10 {dx:.2f} 160.00 {dx + 120:.2f} 200.00 -1 -1 -1 "
                      "-1000 -1000 -1000 -10")
         write_png(root / "training" / "image_2" / f"{i:06d}.png", img)
+        if seg:
+            write_png(seg_dir / f"{i:06d}_seg.png", np.repeat(mask[..., None], 3, 2))
         (root / "training" / "label_2" / f"{i:06d}.txt").write_text("\n".join(lines) + "\n")
         (root / "training" / "calib" / f"{i:06d}.txt").write_text(
             f"P2: {KITTI_P2}\nR0_rect: 1 0 0 0 1 0 0 0 1\n"
             "Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0\n")
-    (root / "ImageSets" / "val.txt").write_text("".join(f"{i:06d}\n" for i in range(n)))
+    (root / "ImageSets" / "train.txt").write_text("".join(f"{i:06d}\n" for i in range(n)))
+    (root / "ImageSets" / "val.txt").write_text(
+        "".join(f"{i:06d}\n" for i in range(n if n_val is None else min(n_val, n))))
     yaml_path = root / "kitti_val.yaml"
-    yaml_path.write_text(f"path: {root}\nval: ImageSets/val.txt\n"
+    yaml_path.write_text(f"path: {root}\ntrain: ImageSets/train.txt\nval: ImageSets/val.txt\n"
                          "names:\n  0: Car\n  1: Pedestrian\n  2: Cyclist\n")
     return yaml_path
 
 
 def phase_val3d(card: str) -> dict:
     """KITTI AP40 validation of YOLOv10-S-3D on the card, on both routes,
-    each held to the same call on the CPU; the launches and times of each."""
+    each held to the same call on the CPU in float64 (the exact rows); the
+    gaps to the CPU's float32 run, and of that run to float64, are printed
+    beside. The launches and times of each."""
     import numpy as np
     import torch
 
@@ -1380,6 +1397,9 @@ def phase_val3d(card: str) -> dict:
         del x
         cpu = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
         cpu.model.load_state_dict(gpu.model.state_dict())
+        exact = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+        exact.model.load_state_dict(gpu.model.state_dict())
+        exact.model.double()
         common = dict(data=str(data), batch=8)
         gpu.val(**common, save_dir=f"{tmp}/warmup")  # cuDNN's first calls, the native build
         torch.cuda.synchronize()
@@ -1398,14 +1418,21 @@ def phase_val3d(card: str) -> dict:
             want = cpu.val(**common, save_dir=f"{tmp}/cpu_{route}", **kw)
             ref_s = time.perf_counter() - t0
             c = cpu.validator
-            stats = compare_kitti_rows(c.results, v.results, SCORE_TOL, BOX_TOL, REG_TOL_3D,
-                                       REG_TOL_3D, c.bins, v.bins)
+            exact.val(**common, save_dir=f"{tmp}/f64_{route}", **kw)
+            e = exact.validator
+            stats = compare_kitti_rows(e.results, v.results, SCORE_TOL, BOX_TOL, REG_TOL_3D,
+                                       REG_TOL_3D, e.bins, v.bins)
+            inf = float("inf")  # the float32 runs' gaps, printed
+            gap_cpu = compare_kitti_rows(c.results, v.results, inf, inf, inf, inf, c.bins, v.bins)
+            floor = compare_kitti_rows(e.results, c.results, inf, inf, inf, inf, e.bins, c.bins)
             if list(got) != list(want) or stats["n_rows"] == 0:
                 raise AssertionError(f"val3d {route}: metric keys {list(got)} vs {list(want)}, "
                                      f"{stats['n_rows']} rows")
             t = v.timings
+            print(f"[val3d] {route}: the card vs the CPU's float32 rows: " + _row_gaps(gap_cpu)
+                  + "; the CPU's float32 rows vs float64: " + _row_gaps(floor))
             print(f"[val3d] {route} ({v.route(kw.get('max_det', 50), route == 'o2m')}): "
-                  f"{t['images']} frames, {stats['n_rows']} KITTI rows | vs CPU: score "
+                  f"{t['images']} frames, {stats['n_rows']} KITTI rows | vs float64: score "
                   f"{stats['max_score_err']:.3g} ({stats['max_score_rel_err']:.3g} relative; bar "
                   f"{SCORE_TOL} + {REG_TOL_3D} max(1, |ln s|) of the score s), box {stats['max_box_err']:.3g} px "
                   f"(bar {BOX_TOL}), sizes {stats['max_dim_rel_err']:.3g}, depth "
@@ -1419,12 +1446,18 @@ def phase_val3d(card: str) -> dict:
                   f"threads) + device {t['device'] * 1e3:.1f} ms (forward + decode + top-k, "
                   f"CUDA events) + host rows {t['host'] * 1e3:.1f} ms (decode_preds, 2D metrics, "
                   f"save_results) + evaluator {t['eval'] * 1e3:.1f} ms (eval_from_scratch) ({card})")
-            print(f"[val3d] {route}: AP40 tables, card {v.table} | CPU {c.table}; metrics card "
+            print(f"[val3d] {route}: AP40 tables, card {v.table} | CPU {e.table}; metrics card "
                   + ", ".join(f"{k} {got[k]:.4g}" for k in ("mAP50", "mAP50-95", "metrics/3D"))
                   + f"; hand-kernel launches {launches}")
-            out[route] = {"stats": stats, "timings": t, "launches": launches}
+            out[route] = {"stats": stats, "gap_cpu": gap_cpu, "floor": floor, "timings": t,
+                          "launches": launches}
     print(f"[val3d] phase took {time.perf_counter() - t_phase:.1f} s")
     return out
+
+
+def _row_gaps(stats: dict) -> str:
+    return ", ".join(f"{k[4:]} {v:.3g}" for k, v in stats.items() if k.startswith("max_")) + \
+        f", heading bins differing {stats['n_bin_flips']}"
 
 
 def write_png(path: Path, img) -> None:
@@ -1651,7 +1684,8 @@ def timed_train_steps(times: list, prof=None, profiled=()):
 
 
 KERNEL_GROUPS = (  # kernel name fragments -> a layer of the train step
-    ("hsv_jitter", "K4 hsv_jitter"), ("conv", "convolution (cuDNN)"),
+    ("hsv_jitter", "K4 hsv_jitter"), ("fft", "convolution (cuDNN FFT)"),
+    ("conv", "convolution (cuDNN)"),
     ("gemm", "matmul / convolution GEMM"), ("sm90", "matmul / convolution GEMM"),
     ("sm80", "matmul / convolution GEMM"), ("cutlass", "matmul / convolution GEMM"),
     ("batch_norm", "batch norm"), ("bn_", "batch norm"),
@@ -1690,15 +1724,16 @@ def isolated_steps(trainer, amp: bool, n: int = 5) -> list:
     with no loader thread running (synchronised, host clock)."""
     import torch
 
-    from yolov10_3d_torch.data.dataset import DataLoader
     from yolov10_3d_torch.train.state import make_train_step
 
     args = trainer.args
-    batch = next(iter(DataLoader(trainer.train_ds, args["batch"], workers=0, pin_memory=True)))
-    batch = {k: v.cuda(non_blocking=True) for k, v in batch.items()}
+    loader = trainer.build_loader(trainer.train_ds, args["batch"])
+    loader.workers = 0  # the batch is read in this thread
+    batch = trainer.to_device({**next(iter(loader)), **trainer.epoch_batch_extras(0)})
     step = make_train_step(nc=trainer.spec.nc, strides=trainer.spec.strides,
                            gains=(args["box"], args["cls"], args["dfl"]), amp=amp,
-                           preprocess_fn=trainer.make_preprocess_fn())
+                           preprocess_fn=trainer.make_preprocess_fn(),
+                           loss_fn=trainer.make_loss(trainer.spec), nhwc=trainer.nhwc)
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
@@ -1776,6 +1811,216 @@ def phase_train(card: str) -> dict:
     return launches
 
 
+TRAIN3D_FRAMES = 32  # [train3d]'s synthetic KITTI tree; its val split is the first 16
+
+
+@contextlib.contextmanager
+def assignments3d(record: list = None, replay: list = None, gaps: list = None):
+    """Inside: the 3D loss's assign3d results are appended to ``record`` (on
+    the CPU), or taken in order from ``replay`` instead, while the step's own
+    assignment is still computed and its difference appended to ``gaps``."""
+    from yolov10_3d_torch.train import loss3d as L3
+
+    real = L3.assign3d
+
+    def assign(*args, **kw):
+        r = real(*args, **kw)
+        if replay is not None:
+            want = type(r)(*(t.to(r.fg_mask.device) for t in replay.pop(0)))
+            gaps.append(assignment_gap(want, r))
+            return want
+        if record is not None:
+            record.append(type(r)(*(t.detach().cpu() for t in r)))
+        return r
+
+    L3.assign3d = assign
+    try:
+        yield
+    finally:
+        L3.assign3d = real
+
+
+def phase_train3d_lockstep(card: str) -> dict:
+    """One SGD train step of YOLOv10-S-3D (nc=3, seeded weights, the 3D
+    head init) at 384x1280, batch 2, float32 (TF32 off), on the GPU and on
+    the CPU from the same state and the same KITTI batch (made by the port's
+    KITTIDataset, training split, from a synthetic tree). The CPU step takes
+    the GPU step's 3D assignments; the CPU's own are computed beside them and
+    their difference printed."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch.cfg import get_cfg, resolve_model_cfg
+    from yolov10_3d_torch.data.dataset import DictLoader
+    from yolov10_3d_torch.data.kitti import KITTIDataset
+    from yolov10_3d_torch.engine.trainer3d import HOST_KEYS
+    from yolov10_3d_torch.nn.build import build_model
+    from yolov10_3d_torch.nn.heads3d import detect3d_bias_init
+    from yolov10_3d_torch.train.loss3d import detect3d_loss
+    from yolov10_3d_torch.train.optim import Optimizer
+    from yolov10_3d_torch.train.state import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = kitti_tree(Path(tmp) / "kitti", n=4)
+        ds = KITTIDataset(data.parent, "train", args={"fliplr": 1.0, "random_crop": 1.0,
+                                                      "mixup": 1.0})
+        batch = DictLoader.collate([ds[i] for i in range(2)])
+    batch = {k: torch.from_numpy(v) for k, v in batch.items() if k not in HOST_KEYS}
+    gpu, spec = build_model(resolve_model_cfg("yolov10s_3D"), device="cuda", seed=0)
+    detect3d_bias_init(gpu.model[spec.head_index], spec.nc, spec.strides)
+    cpu = copy.deepcopy(gpu).cpu()
+    hyp = get_cfg()
+    kw = dict(name="SGD", lr0=0.01, epochs=10, steps_per_epoch=10, warmup_epochs=0.0,
+              batch_size=2, nbs=2)
+    step = make_train_step(nc=spec.nc, strides=spec.strides, nhwc=True, loss_fn=lambda p, b:
+                           detect3d_loss(p, b, nc=spec.nc, strides=spec.strides, hyp=hyp))
+    before = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
+    record, gaps, out = [], [], {}
+    for name, model, dev, ctx in (("gpu", gpu, "cuda", assignments3d(record=record)),
+                                  ("cpu", cpu, "cpu", assignments3d(replay=record, gaps=gaps))):
+        state = TrainState.create(model, Optimizer(model, **kw))
+        with ctx:
+            _, metrics = step(state, {k: v.to(dev) for k, v in batch.items()})
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {k: v.detach().cpu() for k, v in model.state_dict().items()})
+    (mg, sg), (mc, sc) = out["gpu"], out["cpu"]
+    worst_term = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    params = [k for k, _ in cpu.named_parameters()]
+    big = max(float((sc[k] - before[k]).abs().max()) for k in params)
+    worst, bad = (0.0, ""), []
+    for k in params:
+        d_gpu, d_cpu = sg[k] - before[k], sc[k] - before[k]
+        top = float(d_cpu.abs().max())
+        # an update is a difference of float32 parameters: known to one spacing
+        ulp = float(np.spacing(np.float32(float(before[k].abs().max()))))
+        err = float((d_gpu - d_cpu).abs().max())
+        if err > 1e-2 * top + 1e-4 * big + ulp:
+            bad.append(f"{k} ({err:.3g} of {top:.3g})")
+        worst = max(worst, (err / (top + 1e-30), k))
+    stats = [k for k in sc if k.endswith(("running_mean", "running_var"))]
+    bn_err = max(float((sg[k] - sc[k]).abs().max()) for k in stats)
+    print("[train3d-lockstep] 3D assignments, the GPU's vs the CPU's own: " + "; ".join(
+        f"{br}: {g}" for br, g in zip(("one2many", "one2one"), gaps)))
+    print(f"[train3d-lockstep] YOLOv10-S-3D 384x1280 B=2 (KITTI training split: flip, crop, "
+          f"mixup), SGD, float32 (TF32 off), one step; {int(batch['mask_gt'].sum())} objects "
+          f"({card})")
+    print("[train3d-lockstep] loss terms GPU / CPU given the GPU's assignments: " + ", ".join(
+        f"{k} {mg[k]:.7g} / {mc[k]:.7g}" for k in mc) + f" | worst rel {worst_term:.3g} (bar 1e-3)")
+    print(f"[train3d-lockstep] updates: worst {worst[0]:.3g} of its own largest element at "
+          f"{worst[1]}; each within 1e-2 of its largest element plus 1e-4 of the model's largest "
+          f"update ({big:.3g}) plus one float32 spacing of the parameter unless listed: "
+          f"{bad[:8] or 'none'} ({len(bad)} listed); BN running stats max abs diff {bn_err:.3g} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    if worst_term > 1e-3 or bad:
+        raise AssertionError(f"train3d-lockstep: GPU step off the CPU step (terms "
+                             f"{worst_term:.3g}, {len(bad)} updates beyond their bar)")
+    return {"loss_terms_rel": worst_term, "update_worst": worst[0], "bn_err": bn_err}
+
+
+def phase_train3d(card: str) -> dict:
+    """YOLOv10("yolov10s_3D.yaml").train on a synthetic KITTI tree: two
+    epochs with per-epoch AP40 validation in amp (bf16 autocast), the same in
+    float32, then one epoch of a ``fgdm_predictor: true`` model with the
+    depth maps, the FGDM loss and HTL. Returns the hand kernels' launches."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.cfg import resolve_model_cfg
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.train.loss3d import ITEM_KEYS
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        data = kitti_tree(Path(tmp) / "kitti", n=TRAIN3D_FRAMES, n_val=16, seg=True)
+        n_val = len((data.parent / "ImageSets" / "val.txt").read_text().split())
+        print(f"[train3d] synthetic KITTI tree: {TRAIN3D_FRAMES} frames 375x1242 with instance "
+              f"masks, val split {n_val} of them, written in {time.perf_counter() - t0:.1f} s")
+        fgdm_yaml = Path(tmp) / "yolov10s_3D_fgdm.yaml"
+        fgdm_yaml.write_text(resolve_model_cfg("yolov10s_3D").read_text()
+                             + "fgdm_predictor: true\n")
+        runs = (("amp", "yolov10s_3D.yaml", dict(amp=True, epochs=2, val=True)),
+                ("float32", "yolov10s_3D.yaml", dict(amp=False, epochs=2, val=True)),
+                ("fgdm+htl", str(fgdm_yaml), dict(amp=True, epochs=1, val=False, htl=True,
+                                                  load_depth_maps=True, fgdm_loss=True)))
+        for name, cfg, kw in runs:
+            times = []
+            model = YOLOv10(cfg, device="cuda", seed=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_launch_counts()
+            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                      torch.profiler.ProfilerActivity.CUDA])
+            profiled = (5, 6) if kw["epochs"] == 2 else ()  # epoch 2's middle steps
+            t0 = time.perf_counter()
+            with timed_train_steps(times, prof, profiled):
+                state = model.train(data=str(data), kitti_resolution=[1280, 384], batch=8,
+                                    workers=4, save=False, save_dir=str(Path(tmp) / name), **kw)
+            wall = time.perf_counter() - t0
+            counts = dict(launch_counts)
+            trainer = model.trainer
+            with open(Path(tmp) / name / "results.csv") as f:
+                rows = list(csv.DictReader(f))
+            terms = {k: float(rows[-1][k]) for k in ("loss", *ITEM_KEYS, "fgdm")
+                     if k in rows[-1]}
+            if not rows or not all(math.isfinite(v) for v in terms.values()):
+                raise AssertionError(f"train3d {name}: non-finite epoch loss means {terms}")
+            if any(counts.values()):
+                raise AssertionError(f"train3d {name}: hand kernels launched {counts}; the 3D "
+                                     "training path runs none")
+            steps = state.step
+            per_epoch = steps // kw["epochs"]
+            steady = [t for i, t in enumerate(times) if i >= 1 and i not in profiled]
+            ms = statistics.median(steady)
+            epoch_s = float(rows[-1]["time"])
+            last = times[-per_epoch:]
+            wait = epoch_s * 1e3 - sum(last)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[train3d] {name}: YOLOv10-S-3D 1280x384, batch 8, {steps} steps in "
+                  f"{kw['epochs']} epoch(s): median {ms:.1f} ms/step in the loop (steps "
+                  f"{', '.join(f'{t:.0f}' for t in times)} ms); last epoch {epoch_s:.2f} s = "
+                  f"{8 * per_epoch / epoch_s:.1f} img/s with the loader, of which the steps "
+                  f"{sum(last) / 1e3:.2f} s and the loader wait (with the H2D copies) "
+                  f"{wait / 1e3:.2f} s; call {wall:.1f} s; peak device memory {peak:.2f} GiB "
+                  f"({card})")
+            if profiled:
+                traced_ms = sum(times[i] for i in profiled)
+                print(f"[train3d] {name}: profile of steps {[i + 1 for i in profiled]}: "
+                      f"{profile_report(prof, traced_ms, len(profiled))}")
+            iso = isolated_steps(trainer, kw["amp"])
+            print(f"[train3d] {name}: the same step with no loader running (a cached batch, "
+                  f"{len(iso)} steps): median {statistics.median(iso):.1f} ms/step "
+                  f"({', '.join(f'{t:.0f}' for t in iso)} ms)")
+            print(f"[train3d] {name}: epoch loss means, last epoch: " + ", ".join(
+                f"{k} {v:.5g}" for k, v in terms.items())
+                + (f"; loss by epoch {[round(float(r['loss']), 3) for r in rows]}"
+                   if len(rows) > 1 else "") + f"; hand-kernel launches {counts}")
+            if kw["val"]:
+                t = trainer.validator.timings
+                print(f"[train3d] {name}: per-epoch validation ({t['images']} frames): "
+                      f"{t['total'] * 1e3:.1f} ms (loader wait {t['loader'] * 1e3:.1f}, device "
+                      f"{t['device'] * 1e3:.1f}, host rows {t['host'] * 1e3:.1f}, evaluator "
+                      f"{t['eval'] * 1e3:.1f}); metrics/3D by epoch "
+                      f"{[float(r['metrics/3D']) for r in rows]}")
+            if "htl" in kw:
+                w = trainer._htl_weights
+                print(f"[train3d] {name}: fgdm {terms['fgdm']:.5g}, HTL weights "
+                      f"{[round(float(v), 4) for v in w]} (sum {float(w.sum()):.4f})")
+                if not terms.get("fgdm", 0.0) > 0:
+                    raise AssertionError(f"train3d {name}: no FGDM loss term {terms}")
+            out[name] = {"ms": ms, "counts": counts, "loss": [float(r["loss"]) for r in rows]}
+            del model, trainer, state
+            torch.cuda.empty_cache()
+    print(f"[train3d] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "stem": "stem_conv",
           "k1": "decode_detect"}
 
@@ -1844,6 +2089,12 @@ def main() -> int:
         failed.append(f"train-lockstep: {e}")
         print(f"[train-lockstep] FAILED: {e}")
     train = phase_train(card)
+    try:  # as above: [train3d] runs even when its lockstep misses a bar
+        phase_train3d_lockstep(card)
+    except AssertionError as e:
+        failed.append(f"train3d-lockstep: {e}")
+        print(f"[train3d-lockstep] FAILED: {e}")
+    phase_train3d(card)
     if failed:
         raise AssertionError("; ".join(failed))
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}

@@ -255,9 +255,12 @@ def test_yolov10m_3d_two_scales_and_1x1_conv2():
 
 
 def test_unported_head_options_raise():
+    """The head options no shipped YAML sets raise; fgdm_predictor is ported
+    (the DepthPredictor, tests/test_torch_train3d.py)."""
     base = {"channels": {}, "num_scales": 3}
     V10Detect3d(3, (64, 128, 256), base)
-    for key in ("dsconv", "deform", "use_predecessors", "common_head", "half_channels",
-                "fgdm_predictor"):
+    assert hasattr(V10Detect3d(3, (64, 128, 256), {**base, "fgdm_predictor": True}),
+                   "fgdm_predictor")
+    for key in ("dsconv", "deform", "use_predecessors", "common_head", "half_channels"):
         with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP"):
             V10Detect3d(3, (64, 128, 256), {**base, key: True})

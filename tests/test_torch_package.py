@@ -85,6 +85,14 @@ for i in range(2):
 out = yolov10_3d_torch.YOLOv10("yolov10n_3D.yaml", device="cpu").val(
     data=str(root / "kitti.yaml"), batch=2, kitti_resolution=[192, 64], save_dir=str(root / "val"))
 assert {{"mAP50", "metrics/3D", "fitness"}} <= set(out), out
+# 3D training: one epoch on the same two frames, then the EMA model's AP40
+(root / "ImageSets" / "train.txt").write_text("000000\\n000001\\n")
+(root / "kitti.yaml").write_text(f"path: {{root}}\\ntrain: ImageSets/train.txt\\n"
+                                 f"val: ImageSets/val.txt\\nnames:\\n  0: Car\\n")
+m3 = yolov10_3d_torch.YOLOv10("yolov10n_3D.yaml", device="cpu")
+st = m3.train(data=str(root / "kitti.yaml"), kitti_resolution=[192, 64], epochs=1, batch=2,
+              workers=0, save=False, save_dir=str(root / "train"))
+assert st.step == 1 and "metrics/3D" in m3.trainer.last_metrics
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 print("isolated ok")
@@ -94,8 +102,8 @@ print("isolated ok")
 def test_port_imports_and_serves_without_jax():
     """In a subprocess: tests/conftest.py has already imported jax here. The
     subprocess also runs the training path (device augmentation, one train
-    step) and a 3D KITTI validation (the port's PNG reader, warp, validator
-    and AP40 evaluator)."""
+    step), a 3D KITTI validation (the port's PNG reader, warp, validator
+    and AP40 evaluator) and one epoch of 3D training with its validation."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and "isolated ok" in out.stdout, out.stderr[-3000:]

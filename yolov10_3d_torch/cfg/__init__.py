@@ -16,10 +16,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 CFG_DIR = Path(__file__).resolve().parent
 
-# The cfg/default.yaml keys the Predictor and the trainer read, with the JAX
+# The cfg/default.yaml keys the Predictor and the trainers read, with the JAX
 # defaults. spd_serving (on, as in the JAX package) serves layer 0 through
-# the fused stem kernel (nn/modules.py Conv.fused_stem). The trainer raises
-# on the training options it has not ported (engine/trainer.py).
+# the fused stem kernel (nn/modules.py Conv.fused_stem). The trainers raise
+# on the training options they have not ported (engine/trainer.py,
+# engine/trainer3d.py); the distillation keys are here only to raise.
 DEFAULTS: Dict[str, Any] = {
     # predict
     "conf": None,
@@ -69,6 +70,49 @@ DEFAULTS: Dict[str, Any] = {
     "perspective": 0.0,
     "fliplr": 0.5,
     "mosaic": 1.0,
+    "patience": 150,
+    "val_period": 1,
+    "pretrained": True,
+    # 3D loss gains
+    "loss2d": 2.0,
+    "depth": 1.0,
+    "offset3d": 10.0,
+    "size3d": 1.0,
+    "heading": 1.0,
+    # 3D task-aligned assignment
+    "tal_topk": 8,
+    "tal_alpha": 0.5,
+    "tal_beta": 1.0,
+    "tal_gamma": 1.0,
+    "tal_3d": True,
+    "tal_2d": True,
+    "kps_dist_metric": "l1",
+    "constrain_anchors": True,
+    # 3D training extras and the KITTI dataset's augmentation
+    "htl": False,
+    "close_mixup": 0,
+    "max_depth_threshold": 120,
+    "min_depth_threshold": 1,
+    "min_scale": 0.8,
+    "max_scale": 1.2,
+    "translate": 0.1,
+    "random_crop": 0.5,
+    "mixup": 0.5,
+    "cam_dis": False,
+    "kitti_resolution": None,
+    "load_depth_maps": False,
+    "fgdm_loss": False,
+    "fgdm_loss_weight": 2,
+    "use_o2m_depth": False,
+    "use_dino_depth": False,
+    "distillation": False,
+    "distillation_temp": 2,
+    "distillation_weight": 0.75,
+    "distillation_loss": "soft",
+    "distillation_no_mixup": True,
+    "fgdm_supervision": False,
+    "fgdm_supervision_weight": 1,
+    "dino_path": None,
 }
 
 

@@ -348,36 +348,54 @@ class DataLoader:
 
 
 class DictLoader:
-    """Ordered batches of a dataset whose items are dicts of numpy arrays
-    (``KITTIDataset``): each key stacked, the last batch kept short, as the
-    JAX DataLoader collates them. ``workers=0`` loads in the caller's thread;
-    otherwise a pool of ``workers`` threads loads the next batch's items
-    while the caller works on this one, and is joined when the iteration
-    ends, fails or is abandoned."""
+    """Batches of a dataset whose items are dicts of numpy arrays
+    (``KITTIDataset``), each key stacked, as the JAX DataLoader collates them:
+    in order with the last batch kept short (validation), or with
+    ``shuffle`` (training) in the order of ``np.random.default_rng(seed +
+    epoch)``, the short last batch dropped (set ``epoch`` before each epoch). ``workers=0`` loads in the caller's thread, so a
+    dataset that draws from its own generator (the KITTI training splits)
+    yields the same items as the JAX loader on one thread; otherwise a pool
+    of ``workers`` threads loads the next batch's items while the caller
+    works on this one, and is joined when the iteration ends, fails or is
+    abandoned."""
 
-    def __init__(self, dataset, batch_size: int, workers: int = 0):
+    def __init__(self, dataset, batch_size: int, workers: int = 0, shuffle: bool = False,
+                 seed: int = 0):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.workers = max(0, int(workers))
+        self.shuffle = shuffle
+        self.seed = seed
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        return len(self._batches())
+
+    def _batches(self) -> List[np.ndarray]:
+        idx = np.arange(len(self.dataset))
+        bs = self.batch_size
+        if not self.shuffle:
+            return [idx[i:i + bs] for i in range(0, len(idx), bs)]
+        np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return [idx[i:i + bs] for i in range(0, len(idx) - bs + 1, bs)]
 
     @staticmethod
     def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
-        n, bs = len(self.dataset), self.batch_size
-        batches = [range(i, min(i + bs, n)) for i in range(0, n, bs)]
+        batches = self._batches()
         if self.workers == 0:
             for sel in batches:
-                yield self.collate([self.dataset[i] for i in sel])
+                yield self.collate([self.dataset[int(i)] for i in sel])
             return
         pool = ThreadPoolExecutor(max_workers=self.workers, thread_name_prefix="dict-loader")
         try:
             load = self.dataset.__getitem__
-            pending = [pool.submit(load, i) for i in batches[0]] if batches else []
+            pending = [pool.submit(load, int(i)) for i in batches[0]] if batches else []
             for b in range(len(batches)):
                 items = [f.result() for f in pending]
-                pending = ([pool.submit(load, i) for i in batches[b + 1]]
+                pending = ([pool.submit(load, int(i)) for i in batches[b + 1]]
                            if b + 1 < len(batches) else [])
                 yield self.collate(items)
         finally:

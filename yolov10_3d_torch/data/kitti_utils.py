@@ -1,9 +1,9 @@
 """KITTI label and calibration readers and the crop affine (the port's copy of
 ``yolov10_3d_tpu/data/kitti_utils.py``). Numpy only, on the host.
 
-``get_affine_transform`` solves its three-point system with numpy in float64
-where the JAX package calls ``cv2.getAffineTransform``; it returns what cv2
-returns, a float64 (2, 3) matrix. The Waymo/Omni3D JSON reader
+``get_affine_transform`` solves its three-point system in float64 as
+``cv2.getAffineTransform`` does (the JAX package calls cv2), and returns
+what cv2 returns, bit for bit: a float64 (2, 3) matrix. The Waymo/Omni3D JSON reader
 (``object_from_dict``) is ROADMAP queue 1, item 11b.
 """
 
@@ -199,9 +199,39 @@ def get_3rd_point(a, b):
 
 def _affine_from_points(src: np.ndarray, dst: np.ndarray) -> np.ndarray:
     """The (2, 3) float64 affine that maps the three points ``src`` onto
-    ``dst`` (each (3, 2)): ``cv2.getAffineTransform``'s function."""
-    a = np.concatenate([src.astype(np.float64), np.ones((3, 1))], 1)  # rows [x, y, 1]
-    return np.linalg.solve(a, dst.astype(np.float64)).T
+    ``dst`` (each (3, 2)), as ``cv2.getAffineTransform`` computes it: the
+    6x6 system [x, y, 1, 0, 0, 0 | 0, 0, 0, x, y, 1] solved by Gaussian
+    elimination with partial pivoting in float64, operation for operation,
+    so that the result equals cv2's bit for bit (a warp whose sample lands on
+    a rounding boundary then rounds the same way)."""
+    A = [[0.0] * 6 for _ in range(6)]
+    B = [0.0] * 6
+    for i in range(3):
+        x, y = float(src[i][0]), float(src[i][1])
+        A[2 * i][0:3] = [x, y, 1.0]
+        A[2 * i + 1][3:6] = [x, y, 1.0]
+        B[2 * i], B[2 * i + 1] = float(dst[i][0]), float(dst[i][1])
+    m = 6
+    for i in range(m):
+        k = i
+        for j in range(i + 1, m):
+            if abs(A[j][i]) > abs(A[k][i]):
+                k = j
+        if k != i:
+            A[i], A[k] = A[k], A[i]
+            B[i], B[k] = B[k], B[i]
+        d = -1.0 / A[i][i]
+        for j in range(i + 1, m):
+            alpha = A[j][i] * d
+            for c in range(i + 1, m):
+                A[j][c] += alpha * A[i][c]
+            B[j] += alpha * B[i]
+    for i in range(m - 1, -1, -1):
+        s = B[i]
+        for c in range(i + 1, m):
+            s -= A[i][c] * B[c]
+        B[i] = s / A[i][i]
+    return np.array(B, np.float64).reshape(2, 3)
 
 
 def get_affine_transform(center, scale, rot, output_size, shift=np.zeros(2, np.float32), inv=0):

@@ -6,9 +6,11 @@ weights; ``.predict(source, **kwargs)`` serves it, in int8 with
 ``int8=True``; ``.train(data=..., device_aug=True, val=False, save=False)``
 trains a fresh model of the same YAML on a dataset (2D detection) and then
 serves the trained EMA weights. A v10-3D YAML (``yolov10s_3D.yaml``) makes a
-``detect3d`` model, whose Results carry ``boxes3d``, and
-``.val(data="kitti.yaml")`` gives its KITTI AP40 (``engine/validator3d.py``);
-its training is not ported yet, nor are 2D validation and checkpoint loading.
+``detect3d`` model, whose Results carry ``boxes3d``; ``.val(data="kitti.yaml")``
+gives its KITTI AP40 (``engine/validator3d.py``) and ``.train(data=
+"kitti.yaml", ...)`` trains it on KITTI's training split with per-epoch
+AP40 validation (``engine/trainer3d.py``). 2D validation and checkpoint
+loading are not ported yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from ..nn.build import build_model
 from ..train.state import TrainState
 from .predictor import Predictor
 from .trainer import DetectionTrainer
+from .trainer3d import Detection3DTrainer
 from .validator3d import Detection3DValidator, build_3d_dataset
 
 VAL_KEYS = ("batch", "save_dir", "conf", "max_det", "use_o2m_depth", "kitti_resolution",
@@ -66,13 +69,13 @@ class YOLOv10:
 
     def train(self, **kwargs) -> TrainState:
         """Train a fresh model of this YAML with the dataset's nc on this
-        facade's device (the JAX ``YOLOv10.train``, 2D detection with device
-        augmentation); afterwards the facade serves the EMA weights."""
-        if self.task != "detect":
-            raise NotImplementedError(f"training the {self.task} task is not ported "
-                                      "(engine/trainer3d.py, ROADMAP queue 1, item 9)")
+        facade's device (the JAX ``YOLOv10.train``): 2D detection with device
+        augmentation, or 3D detection on a KITTI dataset YAML
+        (``Detection3DTrainer``); afterwards the facade serves and validates
+        the EMA weights."""
         args = get_cfg({"model": self.model_cfg, "device": str(self.device), **kwargs})
-        self.trainer = DetectionTrainer(args)
+        trainer_cls = Detection3DTrainer if self.task == "detect3d" else DetectionTrainer
+        self.trainer = trainer_cls(args)
         state = self.trainer.train()
         self.model, self.spec = self.trainer.eval_model(), self.trainer.spec
         self.names = dict(self.trainer.names)

@@ -1,12 +1,17 @@
-"""2D detection trainer (port of ``yolov10_3d_tpu/engine/trainer.py``
-``DetectionTrainer``, the device-augmentation path).
+"""Training loop (port of ``yolov10_3d_tpu/engine/trainer.py``
+``DetectionTrainer``: 2D detection on the device-augmentation path, and the
+hooks the 3D trainer, ``engine/trainer3d.py``, overrides).
 
 The host loop builds the model with the dataset's nc and the head's bias
-init, the tile-mode dataset and its loader, the optimizer and the train
-step; then, per epoch, it steps through the loader in a seeded order and
-appends the epoch's mean loss terms and lr to ``results.csv``. The options
-this slice has not ported raise ``NotImplementedError`` naming their
-ROADMAP item (queue 1, item 9).
+init (``init_params``), the datasets (``build_dataset``) and the training
+loader, the optimizer and the train step (its loss from ``make_loss``);
+then, per epoch, it steps through the loader in a seeded order with the
+epoch's extra batch keys (``epoch_batch_extras``), hands the epoch's mean
+loss terms to ``on_epoch_losses``, validates every ``val_period`` epochs
+(``get_validator``, ``run_val``), appends the terms, lr and validation
+metrics to ``results.csv``, tracks the best fitness and stops early after
+``patience`` epochs without a better one. The options a task has not ported
+raise ``NotImplementedError`` naming their ROADMAP item (queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from ..device import resolve_device
 from ..nn.build import build_model
 from ..nn.heads import detect_bias_init
 from ..ops.device_aug import device_train_augment
+from ..train.loss import v10_detect_loss
 from ..train.optim import Optimizer, resolve_auto_optimizer
 from ..train.state import TrainState, make_train_step
 
@@ -39,12 +45,21 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def check_ported(args: Dict[str, Any]) -> None:
-    """Raise for every training option of the JAX trainer this slice lacks."""
-    if args["val"]:
-        raise _not_ported("val=True (the validator)", "9b")
+def check_ported(args: Dict[str, Any], task: str = "detect") -> None:
+    """Raise for every training option of the JAX trainer that the port
+    lacks for ``task`` ("detect" or "detect3d")."""
     if args["save"] or args["resume"]:
         raise _not_ported("save=True / resume (checkpoints)", "9d")
+    for k in ("rect", "multi_scale", "cache"):
+        if args[k]:
+            raise _not_ported(f"{k}={args[k]!r}", "9e")
+    dev = args["device"]
+    if isinstance(dev, (list, tuple)) or "," in str(dev or ""):
+        raise _not_ported(f"multi-GPU training (device={dev!r})", "9g")
+    if task != "detect":
+        return
+    if args["val"]:
+        raise _not_ported("val=True (the validator)", "9b")
     if not args["device_aug"] or any(float(args[k] or 0.0) for k in
                                      ("degrees", "shear", "perspective")):
         raise _not_ported("the host augmentation path (device_aug=False, or non-zero "
@@ -52,12 +67,21 @@ def check_ported(args: Dict[str, Any]) -> None:
     if args["close_mosaic"] and args["close_mosaic"] <= args["epochs"]:
         raise _not_ported(f"close_mosaic={args['close_mosaic']} within {args['epochs']} epochs "
                           "(its last epochs train on the host augmentation path)", "9a")
-    for k in ("rect", "multi_scale", "cache"):
-        if args[k]:
-            raise _not_ported(f"{k}={args[k]!r}", "9e")
-    dev = args["device"]
-    if isinstance(dev, (list, tuple)) or "," in str(dev or ""):
-        raise _not_ported(f"multi-GPU training (device={dev!r})", "9g")
+
+
+class EarlyStopping:
+    """Stops after ``patience`` epochs without a fitness at or above the best."""
+
+    def __init__(self, patience: int = 50):
+        self.best_fitness = 0.0
+        self.best_epoch = 0
+        self.patience = patience or float("inf")
+
+    def __call__(self, epoch: int, fitness: float) -> bool:
+        if fitness >= self.best_fitness:
+            self.best_epoch = epoch
+            self.best_fitness = fitness
+        return (epoch - self.best_epoch) >= self.patience
 
 
 def step_generator(seed: int, step: int) -> torch.Generator:
@@ -71,12 +95,29 @@ class DetectionTrainer:
     """Trains ``args['model']`` on ``args['data']`` (a dataset YAML) on
     ``args['device']`` (the card unless "cpu" is asked for)."""
 
+    task = "detect"
+    nhwc = False  # the 2D batch images are NCHW (the device augmentation makes them)
+
     def __init__(self, args: Dict[str, Any]):
-        check_ported(args)
+        check_ported(args, self.task)
         self.args = args
         self.device = resolve_device(args["device"] or "cuda")
         self.save_dir = Path(args["save_dir"] or "runs/train")
         self.state: Optional[TrainState] = None
+
+    # -- the hooks a task overrides --
+    def init_params(self, model, spec) -> None:
+        """The head's bias init, in place."""
+        detect_bias_init(model.model[spec.head_index], spec.nc, spec.strides)
+
+    def build_dataset(self, path, mode: str):
+        args = self.args
+        return YOLODataset(path, imgsz=args["imgsz"], hyp=args, fraction=args["fraction"],
+                           single_cls=args["single_cls"], seed=args["seed"])
+
+    def build_loader(self, dataset, batch: int):
+        return DataLoader(dataset, batch, seed=self.args["seed"], workers=self.args["workers"],
+                          pin_memory=self.device.type == "cuda")
 
     def make_preprocess_fn(self):
         args = self.args
@@ -94,22 +135,52 @@ class DetectionTrainer:
 
         return preprocess
 
+    def make_loss(self, spec):
+        """``loss_fn(preds, batch) -> (total, terms)``: the v10 dual loss."""
+        gains = (self.args["box"], self.args["cls"], self.args["dfl"])
+
+        def loss_fn(preds, batch):
+            return v10_detect_loss(preds, batch, nc=spec.nc, strides=spec.strides, gains=gains,
+                                   one2many_topk=10)
+
+        return loss_fn
+
+    def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+        """A loader batch (and the epoch's extras) on the trainer's device."""
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in batch.items()}
+
+    def epoch_batch_extras(self, epoch: int) -> Dict[str, Any]:
+        """Per-epoch arrays merged into every batch of the epoch."""
+        return {}
+
+    def on_epoch_losses(self, items: Dict[str, float]) -> None:
+        """The epoch's mean loss terms, after its last step."""
+
+    def get_validator(self, model, names):
+        """The validator of ``model`` (the EMA weights) for ``run_val``."""
+        raise _not_ported("val=True (the validator)", "9b")
+
+    def run_val(self, state: TrainState, val_ds, batch_size: int) -> Dict[str, float]:
+        """The validation metrics of the EMA weights, with a ``fitness`` key;
+        the validator stays on ``self.validator``."""
+        raise _not_ported("val=True (the validator)", "9b")
+
+    # -- main --
     def train(self) -> TrainState:
         args, dev = self.args, self.device
         data = load_dataset_yaml(args["data"])
         self.names = data["names"]
         model, spec = build_model(resolve_model_cfg(args["model"]), nc=data["nc"], device=dev,
                                   seed=args["seed"])
-        detect_bias_init(model.model[spec.head_index], spec.nc, spec.strides)
+        self.init_params(model, spec)
         self.model, self.spec = model, spec
 
         root = Path(data.get("path") or ".")
-        train_ds = self.train_ds = YOLODataset(
-            root / data["train"], imgsz=args["imgsz"], hyp=args, fraction=args["fraction"],
-            single_cls=args["single_cls"], seed=args["seed"])
+        train_ds = self.train_ds = self.build_dataset(root / data["train"], "train")
+        val_ds = self.build_dataset(root / data["val"], "val") if args["val"] else None
         batch = args["batch"]
-        loader = DataLoader(train_ds, batch, seed=args["seed"], workers=args["workers"],
-                            pin_memory=dev.type == "cuda")
+        loader = self.build_loader(train_ds, batch)
         steps_per_epoch = max(len(loader), 1)
 
         opt_name, lr0, mom = args["optimizer"], args["lr0"], args["momentum"]
@@ -126,26 +197,47 @@ class DetectionTrainer:
             warmup_bias_lr=warmup_bias_lr, warmup_momentum=float(args["warmup_momentum"] or 0.0))
         step_fn = make_train_step(nc=spec.nc, strides=spec.strides,
                                   gains=(args["box"], args["cls"], args["dfl"]), amp=args["amp"],
-                                  preprocess_fn=self.make_preprocess_fn())
+                                  preprocess_fn=self.make_preprocess_fn(),
+                                  loss_fn=self.make_loss(spec), nhwc=self.nhwc)
         state = self.state = TrainState.create(model, opt)
+        self.validator = None
+        stopper = EarlyStopping(args["patience"])
+        best_fitness = None
 
         csv_path = self.save_dir / "results.csv"
         self.save_dir.mkdir(parents=True, exist_ok=True)
-        for epoch in range(args["epochs"]):
+        epochs = args["epochs"]
+        for epoch in range(epochs):
+            if (args["close_mixup"] and epoch == epochs - args["close_mixup"]
+                    and hasattr(train_ds, "mixup")):
+                train_ds.mixup = 0.0  # mixup's own closing epoch, apart from close_mosaic
+                LOGGER.info("Disabled mixup on dataset")
+            self.epoch = epoch
             loader.epoch = epoch  # a fresh seeded order per epoch
+            extras = self.epoch_batch_extras(epoch)
             t0 = time.time()
             sums, n_run = None, 0  # running sums stay on the device
             for b in loader:
-                b = {k: v.to(dev, non_blocking=True) for k, v in b.items()}
-                state, metrics = step_fn(state, b)
+                state, metrics = step_fn(state, self.to_device({**b, **extras}))
                 sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
                 n_run += 1
             agg = {k: float(v) / n_run for k, v in sums.items()} if sums else {}
             if not all(math.isfinite(v) for v in agg.values()):
                 LOGGER.warning(f"non-finite loss terms at epoch {epoch}: {agg}")
+            self.on_epoch_losses(agg)
             row = {"epoch": epoch, "time": time.time() - t0, **agg, "lr": opt.lr_fn(state.step)}
+            fitness = 0.0
+            if val_ds is not None and (epoch + 1) % max(args["val_period"], 1) == 0:
+                results = self.run_val(state, val_ds, batch)
+                fitness = results["fitness"]
+                row.update({k: v for k, v in results.items() if np.isscalar(v)})
             self.last_metrics = row
             self._write_csv(csv_path, row)
+            if best_fitness is None or fitness > best_fitness:
+                best_fitness = fitness
+            if stopper(epoch, fitness):
+                break
+        self.best_fitness = best_fitness or 0.0
         return state
 
     def eval_model(self) -> torch.nn.Module:

@@ -122,6 +122,7 @@ class Detection3DValidator:
         self.spec = spec
         self.names = names or {i: str(i) for i in range(spec.nc)}
         self.device = next(model.parameters()).device
+        self.dtype = next(model.parameters()).dtype  # float32; float64 for a reference run
         self.results: Dict[str, List] = {}
         self.bins: Dict[str, List[int]] = {}
         self.table: Dict[str, Tuple[float, float, float]] = {}
@@ -146,7 +147,7 @@ class Detection3DValidator:
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
         t0 = time.perf_counter()
-        x = x.permute(0, 3, 1, 2).float().div(255.0).contiguous()
+        x = x.permute(0, 3, 1, 2).to(self.dtype).div(255.0).contiguous()
         out = self.model(x, fast_eval=not with_o2m,
                          sparse=self.route(max_det, with_o2m) == "sparse")
         strides = self.spec.strides[: len(out["one2one"])]

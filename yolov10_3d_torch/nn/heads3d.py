@@ -17,12 +17,19 @@ batched contraction, the 1x1 convs, and a scatter into zero maps. The
 detections equal the dense forward's: the candidates' values differ only by
 float reassociation, and the decode's top-k can only pick candidate anchors.
 A scale runs sparse only when 2 * K * k2^2 < H * W.
+
+With ``fgdm_predictor: true`` the head also holds a ``DepthPredictor`` (the
+foreground depth map of the FGDM loss), whose output the training forward
+returns as ``depth_maps``. ``detect3d_bias_init`` is the 3D trainer's head
+initialisation.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+import math
+from typing import Dict, List, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -43,7 +50,6 @@ UNPORTED_OPTIONS = {
     "use_predecessors": "queue 1, item 10a (predecessor chaining)",
     "common_head": "queue 1, item 10a (shared common conv)",
     "half_channels": "queue 1, item 10a (half-width conv2)",
-    "fgdm_predictor": "queue 1, item 10 (DepthPredictor, heads3d.py:413)",
 }
 
 
@@ -85,6 +91,8 @@ class V10Detect3d(nn.Module):
         for name in BRANCHES:
             self.add_module(name, branch(name))
         self.o2m_heads = nn.ModuleList(branch(name) for name in BRANCHES)
+        if cfg.get("fgdm_predictor"):
+            self.fgdm_predictor = DepthPredictor(ch)
 
     def o2o_heads(self) -> List[nn.ModuleList]:
         return [getattr(self, name) for name in BRANCHES]
@@ -162,7 +170,9 @@ class V10Detect3d(nn.Module):
                 sparse: bool = False) -> Dict[str, List[torch.Tensor]]:
         """``one2many=False``: the serving output {"one2one": maps}; with
         ``sparse`` the one-to-one regression branches run on the top-K
-        patches (eval only)."""
+        patches (eval only). Otherwise {"one2many", "one2one"} maps, and
+        with a DepthPredictor its (logits, depth, embeddings) as
+        ``depth_maps``."""
         xs = list(xs[: self.nl])
         # the one-to-one branches train on detached features (JAX's stop_gradient)
         xs_det = [x.detach() for x in xs]
@@ -174,7 +184,90 @@ class V10Detect3d(nn.Module):
             one2one = self._forward_feat(xs_det, self.o2o_heads())
         if not one2many:
             return {"one2one": one2one}
-        return {"one2many": self._forward_feat(xs, list(self.o2m_heads)), "one2one": one2one}
+        out = {"one2many": self._forward_feat(xs, list(self.o2m_heads)), "one2one": one2one}
+        if hasattr(self, "fgdm_predictor"):
+            out["depth_maps"] = self.fgdm_predictor(xs)
+        return out
+
+
+class DepthPredictor(nn.Module):
+    """MonoDETR's foreground depth-map head (port of the JAX
+    ``DepthPredictor``): P3 downsampled, P4 projected and P5 upsampled
+    (bilinear, half-pixel centres) to P4's grid, each through GroupNorm(32),
+    averaged; two conv + GroupNorm + ReLU stages; (D + 1)-bin LID depth
+    logits and their softmax-weighted depth (the softmax in float32).
+    ``depth_head`` indices 2 and 5 are the parameter-free ReLUs."""
+
+    def __init__(self, ch: Sequence[int], depth_bins: int = 80, depth_min: float = 1.0,
+                 depth_max: float = 70.0, hidden: int = 128):
+        super().__init__()
+        bin_size = 2 * (depth_max - depth_min) / (depth_bins * (1 + depth_bins))
+        idx = np.arange(depth_bins, dtype=np.float32)
+        bin_value = (idx + 0.5) ** 2 * bin_size / 2 - bin_size / 8 + depth_min
+        self.register_buffer("depth_bin_values", torch.from_numpy(
+            np.concatenate([bin_value, [depth_max]]).astype(np.float32)), persistent=False)
+        d = hidden
+
+        def gn():
+            return nn.GroupNorm(32, d, eps=1e-5)
+
+        self.downsample = nn.Sequential(nn.Conv2d(ch[0], d, 3, 2, 1), gn())
+        self.proj = nn.Sequential(nn.Conv2d(ch[1], d, 1), gn())
+        self.upsample = nn.Sequential(nn.Conv2d(ch[2], d, 1), gn())
+        self.depth_head = nn.Sequential(nn.Conv2d(d, d, 3, 1, 1), gn(), nn.ReLU(),
+                                        nn.Conv2d(d, d, 3, 1, 1), gn(), nn.ReLU())
+        self.depth_classifier = nn.Conv2d(d, depth_bins + 1, 1)
+
+    def forward(self, xs: Sequence[torch.Tensor]):
+        """-> (logits (B, D + 1, H, W), depth (B, H, W), embeddings (B, hidden, H, W))
+        on P4's grid."""
+        src_8 = self.downsample(xs[0])
+        src_16 = self.proj(xs[1])
+        p5 = F.interpolate(xs[2], size=src_16.shape[-2:], mode="bilinear", align_corners=False)
+        src_32 = self.upsample(p5)
+        src = (src_8 + src_16 + src_32) / 3
+        emb = self.depth_head[:3](src)
+        logits = self.depth_classifier(self.depth_head[3:](emb))
+        probs = F.softmax(logits.float(), 1)
+        depth = (probs * self.depth_bin_values[:, None, None]).sum(1)
+        return logits, depth, emb
+
+
+@torch.no_grad()
+def detect3d_bias_init(head: V10Detect3d, nc: int, strides: Sequence[int],
+                       rng: Optional[np.random.Generator] = None) -> V10Detect3d:
+    """The 3D trainer's head init, in place: per scale, the class bias prior
+    for 1280x384 inputs, s2d bias 6, o2d/o3d/s3d biases 0, the s3d kernel
+    from N(0, 0.05), the dep bias 45/25/10 and the dep kernel uniform in a
+    per-scale range; then the one-to-many branches become exact copies of
+    the one-to-one ones (parameters; BN statistics stay). The kernels are
+    drawn from ``rng`` (default ``np.random.default_rng(0)``) in the JAX
+    package's order and flax layout (kH, kW, I, O), then moved to OIHW, so
+    that the same numbers land in the same weights."""
+    rng = np.random.default_rng(0) if rng is None else rng
+    nl = len(strides)
+    deps = {1: [40.0], 2: [45.0, 20.0], 3: [45.0, 25.0, 10.0]}[nl]
+    ranges = {1: [(-3.5, 3.5)], 2: [(-2, 2), (-2, 2)], 3: [(-2, 2), (-1.5, 1.5), (-1, 1)]}[nl]
+
+    def draw(conv: nn.Conv2d, sample) -> None:
+        o, i, kh, kw = conv.weight.shape
+        w = sample((kh, kw, i, o)).astype(np.float32).transpose(3, 2, 0, 1)
+        conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
+
+    for i, s in enumerate(strides):
+        final = {name: getattr(head, name)[i][2] for name in BRANCHES}
+        final["cls"].bias.fill_(math.log(5 / nc / ((1280 / s) * (384 / s))))
+        final["s2d"].bias.fill_(6.0)
+        for name in ("o2d", "o3d", "s3d"):
+            final[name].bias.zero_()
+        draw(final["s3d"], lambda shape: rng.normal(0.0, 0.05, shape))
+        final["dep"].bias.fill_(deps[i])
+        lo, hi = ranges[i]
+        draw(final["dep"], lambda shape: rng.uniform(lo, hi, shape))
+    for o2o, o2m in zip(head.o2o_heads(), head.o2m_heads):
+        for p_o, p_m in zip(o2o.parameters(), o2m.parameters()):
+            p_m.copy_(p_o)
+    return head
 
 
 def _affine(bn: nn.BatchNorm2d):

@@ -4,7 +4,7 @@
 The JAX package rebuilt torch.optim's update rules as one optax chain; the
 port uses torch.optim itself and keeps the chain's semantics around it:
   - three parameter groups: conv weights (the JAX ``kernel`` leaves, with
-    weight decay), BatchNorm weights and biases (no decay); decay is
+    weight decay), BatchNorm and GroupNorm weights and biases (no decay); decay is
     decoupled for AdamW and coupled for SGD and RMSprop, as torch.optim has it;
   - gradients averaged over ``accumulate = round(nbs / batch)`` micro-steps
     (optax.MultiSteps' running mean), then clipped to a global norm of 10;
@@ -64,13 +64,14 @@ def resolve_auto_optimizer(nc: int, n_samples: int, batch: int, nbs: int, epochs
 
 def param_groups(model: nn.Module) -> Tuple[List[nn.Parameter], List[nn.Parameter],
                                             List[nn.Parameter]]:
-    """(conv/linear weights, BatchNorm weights, biases) in module order."""
+    """(conv/linear weights, BatchNorm and GroupNorm weights, biases) in module
+    order: the JAX ``kernel``, ``scale`` and ``bias`` leaves."""
     kernels, scales, biases = [], [], []
     for m in model.modules():
         for name, p in m.named_parameters(recurse=False):
             if name == "bias":
                 biases.append(p)
-            elif isinstance(m, nn.modules.batchnorm._BatchNorm):
+            elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.GroupNorm)):
                 scales.append(p)
             else:
                 kernels.append(p)

@@ -50,25 +50,37 @@ def make_train_step(
     one2many_topk: int = 10,
     amp: bool = False,
     preprocess_fn: Optional[Callable] = None,
+    loss_fn: Optional[Callable] = None,
+    nhwc: bool = False,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build ``train_step(state, batch)``. A batch holds either ``img`` (B, 3,
     H, W) uint8 or float [0, 1] with its targets, or the tile keys that
-    ``preprocess_fn(batch, step)`` turns into such a batch. ``amp`` runs the
-    forward under bfloat16 autocast; the loss is float32 either way."""
+    ``preprocess_fn(batch, step)`` turns into such a batch; with ``nhwc`` the
+    image is (B, H, W, 3), as the KITTI dataset stacks it. ``loss_fn(preds,
+    batch) -> (total, terms)`` replaces the v10 dual loss (the 3D trainer's
+    hook); it reads the batch keys it needs (``htl_weights``, ``depth_map``)
+    and ignores the rest. ``amp`` runs the forward under bfloat16 autocast;
+    the loss is float32 either way."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         if preprocess_fn is not None and "tiles" in batch:
             batch = preprocess_fn(batch, state.step)
         img = batch["img"]
-        img = img.float() / 255.0 if img.dtype == torch.uint8 else img
+        if nhwc:  # uint8 (B, H, W, 3) -> float NCHW on the batch's device
+            img = img.permute(0, 3, 1, 2).float().div(255.0).contiguous()
+        elif img.dtype == torch.uint8:
+            img = img.float() / 255.0
         model = state.model
         model.train()
         autocast = (torch.autocast(img.device.type, dtype=torch.bfloat16) if amp
                     else contextlib.nullcontext())
         with autocast:
             preds = model(img)
-        loss, aux = v10_detect_loss(preds, batch, nc=nc, strides=strides, gains=gains,
-                                    one2many_topk=one2many_topk)
+        if loss_fn is not None:
+            loss, aux = loss_fn(preds, batch)
+        else:
+            loss, aux = v10_detect_loss(preds, batch, nc=nc, strides=strides, gains=gains,
+                                        one2many_topk=one2many_topk)
         loss.backward()
         state.optimizer.step()
         ema_update(state.ema_params, [p.detach() for p in model.parameters()], state.step + 1)

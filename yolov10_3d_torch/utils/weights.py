@@ -8,8 +8,8 @@ numpy arrays (or anything ``np.asarray`` takes). A flax path joined with
 ambiguous only for attribute names that contain underscores, which are
 re-merged against ``_ATOMS`` per path segment.
 
-Layouts: kernel (kH, kW, I/g, O) -> weight (O, I/g, kH, kW); BN scale/bias ->
-weight/bias; batch_stats mean/var -> running_mean/running_var, plus
+Layouts: kernel (kH, kW, I/g, O) -> weight (O, I/g, kH, kW); BN and GroupNorm
+scale/bias -> weight/bias; batch_stats mean/var -> running_mean/running_var, plus
 ``num_batches_tracked``. The DFL decode has no parameters in the port, so no
 ``dfl.conv.weight`` is emitted. The 3D head's one-to-one branches are the
 attributes ``cls`` ... ``dep_un`` and its one-to-many ones ``o2m_heads.{j}``;
@@ -24,8 +24,10 @@ from typing import Any, Dict, Mapping
 import numpy as np
 import torch
 
-# attribute names with underscores in the v10 and v10-3D modules
-_ATOMS = {"one2one_cv2", "one2one_cv3", "dep_un", "o2m_heads"}
+# attribute names with underscores in the v10 and v10-3D modules (the last
+# three: the 3D head's DepthPredictor)
+_ATOMS = {"one2one_cv2", "one2one_cv3", "dep_un", "o2m_heads", "fgdm_predictor", "depth_head",
+          "depth_classifier"}
 _ATOM_TOKENS = sorted({tuple(a.split("_")) for a in _ATOMS}, key=len, reverse=True)
 
 
