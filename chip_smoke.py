@@ -46,8 +46,13 @@ Phases, each fatal on failure:
                 gated conv must match the CPU int8 path given the same input (a
                 free-running CPU run is chaotic in int8: see
                 int8_layers_vs_cpu); the free-running gap is printed. One
-                float32 request is profiled: its device operations, and no
-                flatten-concatenation of the head maps before K1. The port's
+                float32 request is profiled, eager and replayed: its device
+                operations, and no flatten-concatenation of the head maps
+                before K1. Every request goes through the Predictor's captured
+                forward: its first call runs eagerly and captures the key, the
+                timed calls replay the graph (one replay counts one launch of
+                each kernel it holds, so the expected counts are per request as
+                before); the twins' int8 reference runs the eager forward. The port's
                 top-k (ties to the lowest index) is timed beside torch.topk
                 at v10_postprocess's shapes, B=1 and 8 (a yardstick).
   4b. serve3d - YOLOv10-S-3D (full width, nc=3, seeded random weights
@@ -65,6 +70,26 @@ Phases, each fatal on failure:
                 the served fused stem) must lie, branch by branch, within
                 twice the distance of the CPU float32 run of the same route
                 from a float64 run of the same weights and input.
+  4x. serve-graph - at the end of phases 4 and 4b, for every request
+                (and kitti_b8_dense, eight frames at max_det 100): each
+                chunk's replayed forward against the eager forward on the same
+                model input, bit for bit (torch.equal; fatal otherwise, the
+                differing output columns named); median host ms per request
+                captured and eager over 5 calls in turns; one replay's device
+                ms (CUDA events); each key's capture time, reserved memory and
+                launches per replay. Then the 3D route (ROADMAP 10b): is dense
+                faster than sparse beyond the calls' spread at B=1 and B=8?
+  4d. server - the port's InferenceServer on the card (HTTP on localhost,
+                port 0): YOLOv10-S at 640, max_batch 8, max_delay_ms 10;
+                warmup captures buckets 1, 2, 4 and 8; 16 client threads post
+                64 PNGs (480x640, from the seed, encoded here with zlib) from
+                a child process (the clients do not share the server's
+                interpreter lock); every
+                response held to a direct call of the captured Predictor at the
+                float32 bars; requests/s, p50/p90/p99, batch_hist, /stats; one
+                K1 and one stem launch per device batch. Then YOLOv10-S-3D at
+                384x1280, max_batch 2, four frames from two threads, held
+                likewise. Both servers stopped, no thread left behind.
   4c. val3d  - KITTI AP40 validation, YOLOv10("yolov10s_3D.yaml").val(...), on a
                 synthetic KITTI tree the script writes to a temporary directory:
                 16 frames of 375x1242 PNGs (smooth background, painted
@@ -100,8 +125,8 @@ Phases, each fatal on failure:
                 then a shorter float32 run (amp=False). K4 must launch once
                 per step; the epoch's loss means must be finite.
 
-Each path (serving, serve3d, val3d, train) is driven with the launch counts set to
-0 just before it and read just after. The last three lines are the card line, one
+Each path (serving, serve3d, server, val3d, train) is driven with the launch counts
+set to 0 just before it and read just after. The last three lines are the card line, one
 JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
 Imports no JAX.
 
@@ -162,6 +187,7 @@ KERNELS = {
 SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
                    "stem_conv")
 SERVE3D_KERNELS = ("stem_conv",)
+SERVER_KERNELS = ("decode_detect", "stem_conv")
 TRAIN_KERNELS = ("hsv_jitter",)
 
 IMGSZ = 640
@@ -773,6 +799,27 @@ def twins_on_card():
             setattr(mod, f"{n}_cuda", fn)
 
 
+@contextlib.contextmanager
+def eager_forward():
+    """Inside: every Predictor runs its forward eagerly (``forward_eager``,
+    the function its graphs capture) and captures nothing: the reference
+    the replayed forward is held to, and the only way the twins of
+    ``twins_on_card`` can reach a served request. A package without
+    captured forwards (an older checkout under ``--package-root``) is
+    eager already."""
+    from yolov10_3d_torch.engine.predictor import Predictor
+
+    if not hasattr(Predictor, "forward_eager"):
+        yield
+        return
+    saved = Predictor._forward
+    Predictor._forward = lambda self, x, max_det: self.forward_eager(x, max_det).cpu().numpy()
+    try:
+        yield
+    finally:
+        Predictor._forward = saved
+
+
 def int8_layers_vs_cpu(gpu8, cpu8, x) -> dict:
     """Every gated conv of one GPU int8 forward of ``x`` against the CPU int8
     path given the same input (the GPU's). Codes: at most a fraction 1e-4
@@ -857,11 +904,12 @@ def int8_drift(gpu8, cpu8, x) -> dict:
 
 def request_kernels(model=None) -> dict:
     """The device operations of one float32 b1_640 request (torch.profiler),
-    the concatenation kernels among them, and the flatten-concatenations of
-    the head maps (``torch.cat`` of 3-D (B, 4*16 + nc, H*W) maps, which the
-    decode took before K1 read the maps in place), counted by a spy on
-    ``torch.cat``. ``model``: a YOLOv10-S on the card (default: seeded
-    random weights)."""
+    eager and replayed from its graph; of the eager one the concatenation
+    kernels, the top-k's sort and select kernels, and the
+    flatten-concatenations of the head maps (``torch.cat`` of 3-D (B, 4*16 +
+    nc, H*W) maps, which the decode took before K1 read the maps in place),
+    counted by a spy on ``torch.cat``. ``model``: a YOLOv10-S on the card
+    (default: seeded random weights)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -871,7 +919,9 @@ def request_kernels(model=None) -> dict:
 
     model = model or YOLOv10("yolov10s.yaml", device="cuda", seed=0)
     img = smooth_images(np.random.default_rng(0), [(640, 640)])
-    for _ in range(2):
+    for _ in range(2):  # the capture, then a replay
+        model.predict(img, imgsz=IMGSZ, conf=CONF)
+    with eager_forward():
         model.predict(img, imgsz=IMGSZ, conf=CONF)
     torch.cuda.synchronize()
     no = 64 + model.spec.nc
@@ -882,26 +932,42 @@ def request_kernels(model=None) -> dict:
             flat_cats.append(len(tensors))
         return real_cat(tensors, *args, **kwargs)
 
-    torch.cat = spy
-    try:
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            model.predict(img, imgsz=IMGSZ, conf=CONF)
-            torch.cuda.synchronize()
-    finally:
-        torch.cat = real_cat
-    ops = {}
-    for e in prof.key_averages():
-        if e.device_type.name == "CUDA":
-            ops[e.key] = ops.get(e.key, 0) + e.count
+    def device_ops(eager: bool):
+        """(device operations by name, device busy ms, host ms) of one traced request."""
+        torch.cat = spy
+        try:
+            with eager_forward() if eager else contextlib.nullcontext():
+                with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                    t0 = time.perf_counter()
+                    model.predict(img, imgsz=IMGSZ, conf=CONF)
+                    torch.cuda.synchronize()
+                    wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            torch.cat = real_cat
+        ops, busy = {}, 0.0
+        for e in prof.key_averages():
+            if e.device_type.name == "CUDA":
+                ops[e.key] = ops.get(e.key, 0) + e.count
+                busy += (getattr(e, "self_device_time_total", 0)
+                         or getattr(e, "self_cuda_time_total", 0)) / 1e3
+        return ops, busy, wall
+
+    ops, busy, wall = device_ops(eager=True)
+    flat = len(flat_cats)
+    replay_ops, rbusy, rwall = device_ops(eager=False)
     count = lambda *frags: sum(n for k, n in ops.items()  # noqa: E731
                                if any(f in k.lower() for f in frags))
     r = {"device_ops": sum(ops.values()), "concat_kernels": count("cat"),
          "topk_kernels": count("sort", "radix", "topk", "select"),
-         "flatten_concats": len(flat_cats)}
-    print(f"[serve] one b1_640 float32 request: {r['device_ops']} device operations "
+         "flatten_concats": flat, "replay_device_ops": sum(replay_ops.values())}
+    idle = lambda b, w: f"{max(0.0, 1 - b / w):.3f}" if b else "not measured"  # noqa: E731
+    print(f"[serve] one b1_640 float32 request, eager: {r['device_ops']} device operations "
           f"(torch.profiler: kernels and copies), {r['concat_kernels']} of them concatenation "
           f"kernels, {r['topk_kernels']} sort or select kernels (the top-k); "
-          f"flatten-concatenations of the head maps before the decode: {r['flatten_concats']}")
+          f"flatten-concatenations of the head maps before the decode: {r['flatten_concats']}; "
+          f"device busy {busy:.3f} of {wall:.3f} traced ms, idle share {idle(busy, wall)} | "
+          f"replayed from its graph: {r['replay_device_ops']} device operations, device busy "
+          f"{rbusy:.3f} of {rwall:.3f} traced ms, idle share {idle(rbusy, rwall)}")
     return r
 
 
@@ -928,6 +994,76 @@ def topk_yardstick() -> None:
             except RuntimeError as e:  # a yardstick only: its failure is reported, not fatal
                 parts.append(f"({B}, {n}): not measured ({str(e).splitlines()[0]})")
         print("[serve] top-k, device ms: " + "; ".join(parts))
+
+
+def replay_device_ms(cap, replays: int = 20) -> float:
+    """Device ms of one replay of a captured forward (CUDA events around
+    ``replays`` back-to-back replays on its static input)."""
+    import torch
+
+    cap.graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        cap.graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def serve_graph(card: str, requests, imgsz, reps: int = 5) -> dict:
+    """[serve-graph] for ``requests`` (name, facade, images, batch, predict
+    kwargs): each chunk's replayed forward against ``forward_eager`` on the
+    same model input (``torch.equal``, fatal on any difference, which is
+    located by output column); the median host ms per request over ``reps``
+    calls captured and eager, in turns; the device ms of one replay; each
+    key's capture time, reserved memory and launches per replay. Returns
+    name -> {captured, eager: the host ms of each call; device_ms}."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch.cfg import get_cfg
+
+    out = {}
+    for name, facade, ims, b, kw in requests:
+        facade.predict(ims, imgsz=imgsz, batch=b, conf=CONF, **kw)  # a key not served yet: captured
+        pred = facade.predictor(get_cfg(kw))
+        _, max_det, sz = pred._resolve(CONF, kw.get("max_det"), imgsz)
+        caps, diffs = [], []
+        for i in range(0, len(ims), b):
+            x, _ = pred.preprocess(ims[i:i + b], sz)
+            cap = pred.graphs[pred.graph_key(x, max_det)]
+            replayed = torch.from_numpy(cap.replay(x))
+            eager = pred.forward_eager(x, max_det).cpu()
+            if not torch.equal(replayed, eager):
+                cols = (replayed - eager).abs().amax((0, 1))
+                diffs.append(f"chunk {i // b}: columns {torch.nonzero(cols).flatten().tolist()} "
+                             f"differ by up to {float(cols.max()):.3g}")
+            caps.append(cap)
+        times = {"captured": [], "eager": []}
+        for _ in range(reps):
+            for way in times:
+                with eager_forward() if way == "eager" else contextlib.nullcontext():
+                    t0 = time.perf_counter()
+                    facade.predict(ims, imgsz=imgsz, batch=b, conf=CONF, **kw)
+                    times[way].append((time.perf_counter() - t0) * 1e3)
+        dev = replay_device_ms(caps[0])
+        cap = caps[0]
+        med = {k: statistics.median(v) for k, v in times.items()}
+        print(f"[serve-graph] {name}: replayed vs eager forward: "
+              f"{'bit for bit (torch.equal)' if not diffs else 'DIFFER: ' + '; '.join(diffs)} | "
+              f"host ms/request captured {med['captured']:.2f} (reps "
+              f"{', '.join(f'{t:.2f}' for t in times['captured'])}), eager {med['eager']:.2f} "
+              f"(reps {', '.join(f'{t:.2f}' for t in times['eager'])}) | device ms of one replay "
+              f"{dev:.4f} | key {tuple(cap.x.shape)}: capture {cap.capture_s * 1e3:.1f} ms, "
+              f"reserved {cap.reserved / 2**20:.1f} MiB, launches per replay "
+              f"{ {k: n for k, n in cap.launches.items() if n} } ({card})")
+        if diffs:
+            raise AssertionError(f"{name}: the replayed forward differs from the eager one: "
+                                 + "; ".join(diffs))
+        out[name] = {**times, "device_ms": dev}
+    return out
 
 
 def phase_serving(card: str):
@@ -1014,6 +1150,8 @@ def phase_serving(card: str):
     for k in SERVING_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched on the serving path")
+    serve_graph(card, [(name, models[int8], ims, b, {"int8": True} if int8 else {})
+                       for name, ims, b, int8 in requests], IMGSZ)
 
     # the float32 requests again with the unfused stem (cuDNN conv, BN, SiLU)
     for name, ims, b, int8 in requests:
@@ -1046,7 +1184,7 @@ def phase_serving(card: str):
         t0 = time.perf_counter()
         if int8:  # see int8_layers_vs_cpu below for the CPU reference
             before = dict(launch_counts)
-            with twins_on_card():
+            with twins_on_card(), eager_forward():
                 ref = gpu8.predict(ims, imgsz=IMGSZ, batch=b, conf=CONF, int8=True)
             if any(launch_counts[k] != before[k] for k in KERNELS if k != "decode_detect"):
                 raise AssertionError(f"request {name}: the twins' reference launched a kernel")
@@ -1216,6 +1354,39 @@ def std05_vs_float64(frames, x, imgsz) -> dict:
     return gaps
 
 
+def traced_request(call) -> str:
+    """``profile_report`` of one ``call`` (a served request, synchronised)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return profile_report(prof, wall, 1).replace("/step", "")
+
+
+def route_10b(card: str, graph: dict) -> bool:
+    """The 3D route on the card (ROADMAP 10b), from the captured requests of
+    [serve-graph]: is the dense head faster than the sparse one beyond the
+    runs' spread (its slowest call faster than sparse's fastest) at both
+    B=1 and B=8? Prints both routes' host ms and one replay's device ms."""
+    faster = {}
+    for B in (1, 8):
+        sp, de = graph[f"kitti_b{B}"], graph[f"kitti_b{B}_dense"]
+        faster[B] = max(de["captured"]) < min(sp["captured"])
+        print(f"[serve-graph] 10b, B={B}: sparse host ms {min(sp['captured']):.2f}-"
+              f"{max(sp['captured']):.2f} (device {sp['device_ms']:.4f}), dense "
+              f"{min(de['captured']):.2f}-{max(de['captured']):.2f} (device "
+              f"{de['device_ms']:.4f}), both captured: dense "
+              f"{'faster' if faster[B] else 'not faster'} beyond the spread ({card})")
+    verdict = all(faster.values())
+    print(f"[serve-graph] 10b: {'serve dense' if verdict else 'keep the sparse route'} while "
+          f"max_det <= 50 on the card")
+    return verdict
+
+
 def phase_serve3d(card: str):
     """YOLOv10-S-3D at 384x1280: KITTI-sized requests on the card, held to a
     CPU run of the same weights; the sparse head held to the dense one."""
@@ -1266,6 +1437,13 @@ def phase_serve3d(card: str):
     for k in SERVE3D_KERNELS:
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched on the 3D serving path")
+    graph = serve_graph(card, [(name, gpu, ims, b, {"max_det": md}) for name, ims, b, md in
+                               requests + [("kitti_b8_dense", frames, 8, 100)]], imgsz)
+    route_10b(card, graph)
+    for name, md in (("kitti_b8", 50), ("kitti_b8_dense", 100)):
+        print(f"[serve-graph] {name}, one captured request traced: "
+              + traced_request(lambda: gpu.predict(frames, imgsz=imgsz, batch=8, conf=CONF,
+                                                   max_det=md)))
 
     sd = sparse_vs_dense_on_card(gpu.model, x, gpu.spec.nc)
     print(f"[serve3d] sparse vs dense head on the GPU, 8 frames: class maps equal, candidates "
@@ -1300,6 +1478,197 @@ def phase_serve3d(card: str):
               f"{REG_TOL_3D}); reference took {ref_s:.1f} s")
     std05_vs_float64(frames, x, imgsz)
     print(f"[serve3d] main-path launches: {launches}")
+    return launches
+
+
+def _http(url: str, timeout: float = 60.0) -> dict:
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+# The load generator of [server], run in a process of its own (stdlib only),
+# so that its threads do not share the server's interpreter lock: argv is
+# the /predict URL, a folder of PNG bodies and the number of client
+# threads; each thread posts every n-th body in turn, one connection a
+# request. Prints one JSON object: wall seconds, per request the ms in all
+# and its parts (connect, send, wait for the response's head, read), the
+# replies (None where a request failed, with the error beside).
+LOAD_CLIENT = r"""
+import http.client, json, sys, threading, time
+from pathlib import Path
+from urllib.parse import urlparse
+url, folder, n = urlparse(sys.argv[1]), Path(sys.argv[2]), int(sys.argv[3])
+bodies = [p.read_bytes() for p in sorted(folder.glob("*.png"))]
+replies, parts, errors = [None] * len(bodies), [None] * len(bodies), []
+def client(k):
+    for i in range(k, len(bodies), n):
+        try:
+            t0 = time.perf_counter()
+            c = http.client.HTTPConnection(url.hostname, url.port, timeout=120)
+            c.connect()
+            t1 = time.perf_counter()
+            c.request("POST", url.path, body=bodies[i])
+            t2 = time.perf_counter()
+            r = c.getresponse()
+            t3 = time.perf_counter()
+            replies[i] = json.loads(r.read())
+            c.close()
+            t4 = time.perf_counter()
+            if r.status != 200:
+                raise RuntimeError(f"HTTP {r.status}: {replies[i]}")
+            parts[i] = [(t4 - t0) * 1e3, (t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3,
+                        (t4 - t3) * 1e3]
+        except Exception as e:
+            errors.append(f"request {i}: {e!r}")
+threads = [threading.Thread(target=client, args=(k,)) for k in range(n)]
+t0 = time.perf_counter()
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump({"wall_s": time.perf_counter() - t0, "parts": parts, "replies": replies,
+           "errors": errors}, sys.stdout)
+"""
+
+
+def load_clients(url: str, bodies, threads: int) -> dict:
+    """Post ``bodies`` to ``url`` from ``threads`` client threads of a
+    child process (``LOAD_CLIENT``); its output, after it has exited."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, body in enumerate(bodies):
+            (Path(tmp) / f"{i:04d}.png").write_bytes(body)
+        out = subprocess.run([sys.executable, "-c", LOAD_CLIENT, url, tmp, str(threads)],
+                             capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        raise AssertionError(f"the load client failed: {out.stderr[-2000:]}")
+    run = json.loads(out.stdout)
+    if run["errors"] or any(r is None for r in run["replies"]):
+        raise AssertionError(f"{len(run['errors'])} requests failed: {run['errors'][:3]}")
+    return run
+
+
+def _joined(before: set, what: str) -> None:
+    """Every thread started since ``before`` has ended (10 s to finish)."""
+    import threading
+
+    deadline = time.monotonic() + 10
+    while set(threading.enumerate()) - before and time.monotonic() < deadline:
+        time.sleep(0.05)
+    left = set(threading.enumerate()) - before
+    if left:
+        raise AssertionError(f"{what} left threads behind: {sorted(t.name for t in left)}")
+
+
+def phase_server(card: str) -> dict:
+    """[server]: the port's InferenceServer on the card over HTTP on
+    localhost. YOLOv10-S at 640 (seeded, calibrated), max_batch 8,
+    max_delay_ms 10: warmup captures buckets 1, 2, 4 and 8; 16 client
+    threads of a child process (``LOAD_CLIENT``) post 64 PNG bodies
+    (480x640, made from the seed and encoded here); every response's rows
+    are held to a direct call of the facade's captured Predictor on the
+    same image at the float32 bars; requests/s, client p50/p90/p99, the
+    batch histogram and /stats. Then YOLOv10-S-3D at 384x1280, max_batch
+    2, four KITTI-sized frames from two client threads, held to a direct
+    call likewise (hwl and depth_sigma at 1e-3). Each server is
+    stopped and must leave no thread behind. Returns the launch counts of
+    the 2D traffic (the warmup excluded)."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.engine.server import InferenceServer
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.utils.parity import (calibrate, compare_results, smooth_images,
+                                               summary_results)
+
+    torch.backends.cudnn.allow_tf32 = False  # the float32 bars, as in [serve]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    imgs = smooth_images(np.random.default_rng(5), [(480, 640)] * 64)
+    bodies = [png_bytes(im) for im in imgs]
+    model = YOLOv10("yolov10s.yaml", device="cuda", seed=0)
+    calibrate(model.model, serve_preprocess(torch.from_numpy(np.stack(imgs[:16])).cuda(),
+                                            (IMGSZ, IMGSZ)))
+    before = set(threading.enumerate())
+    srv = InferenceServer(model, imgsz=IMGSZ, conf=CONF, max_batch=8, max_delay_ms=10.0)
+    t0 = time.perf_counter()
+    srv.warmup()
+    warm_s = time.perf_counter() - t0
+    caps = {k[0][0]: c for k, c in srv.predictor.graphs.items()}
+    if sorted(caps) != [1, 2, 4, 8] or srv.batcher.allowed != [1, 2, 4, 8]:
+        raise AssertionError(f"warmup captured batches {sorted(caps)}, allowed "
+                             f"{srv.batcher.allowed}")
+    print(f"[server] YOLOv10-S at {IMGSZ}, max_batch 8, max_delay_ms 10: warmup of buckets "
+          f"{srv.batcher.allowed} took {warm_s:.2f} s; per bucket capture ms / reserved MiB: "
+          + ", ".join(f"{b}: {c.capture_s * 1e3:.1f} / {c.reserved / 2**20:.1f}"
+                      for b, c in sorted(caps.items())) + f" ({card})")
+    http = srv.serve(port=0, blocking=False, warmup=False)
+    url = f"http://127.0.0.1:{http.server_address[1]}"
+    reset_launch_counts()
+    run = load_clients(url + "/predict", bodies, 16)
+    launches = dict(launch_counts)
+    stats = _http(url + "/stats")
+    srv.stop()
+    _joined(before, "[server] 2D")
+    replies, wall = run["replies"], run["wall_s"]
+    parts = np.array(run["parts"])  # (requests, [all, connect, send, wait, read]) ms
+    lat = parts[:, 0]
+    if launches["decode_detect"] != stats["batches"] or launches["stem_conv"] != stats["batches"]:
+        raise AssertionError(f"[server]: launches {launches} for {stats['batches']} batches")
+    model.predict(imgs[0], imgsz=IMGSZ, conf=CONF)  # the direct path's capture
+    direct = model.predict(imgs, imgsz=IMGSZ, conf=CONF)
+    got = [summary_results(r["detections"], im.shape) for r, im in zip(replies, imgs)]
+    cmp = compare_results(direct, got, conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL)
+    if cmp["n_compared"] < 0.5 * (cmp["n_ref"] + cmp["n_got"]):
+        raise AssertionError(f"[server]: too few separated detections {cmp}")
+    q = np.percentile(lat, [50, 90, 99])
+    split = "; ".join(f"{name} " + "/".join(f"{v:.2f}" for v in np.percentile(parts[:, j],
+                                                                             [50, 90, 99]))
+                      for j, name in enumerate(("connect", "send", "wait", "read"), 1))
+    print(f"[server] 64 requests from 16 client threads (another process) in {wall:.3f} s: "
+          f"{len(bodies) / wall:.1f} "
+          f"requests/s, client ms p50 {q[0]:.2f} p90 {q[1]:.2f} p99 {q[2]:.2f} (p50/p90/p99 of "
+          f"its parts: {split}); batched_with "
+          f"{sorted({r['batched_with'] for r in replies})}; /stats {json.dumps(stats)}; "
+          f"launches {launches} ({card})")
+    print(f"[server] responses vs a direct call of the captured Predictor: {cmp['n_compared']} "
+          f"compared, max score err {cmp['max_score_err']:.3g} (bar {SCORE_TOL}), max box err "
+          f"{cmp['max_box_err']:.3g} px (bar {BOX_TOL})")
+
+    frames = smooth_images(np.random.default_rng(6), [(375, 1242)] * 4)
+    imgsz3 = [KITTI_HW[1], KITTI_HW[0]]
+    m3 = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+    calibrate(m3.model, serve_preprocess(torch.from_numpy(np.stack(frames)).cuda(), KITTI_HW),
+              bn_std=BN_STD_3D)
+    srv3 = InferenceServer(m3, imgsz=imgsz3, conf=CONF, max_batch=2, max_delay_ms=10.0)
+    t0 = time.perf_counter()
+    srv3.warmup()
+    warm3 = time.perf_counter() - t0
+    http = srv3.serve(port=0, blocking=False, warmup=False)
+    url = f"http://127.0.0.1:{http.server_address[1]}"
+    replies3 = load_clients(url + "/predict", [png_bytes(f) for f in frames], 2)["replies"]
+    stats3 = _http(url + "/stats")
+    srv3.stop()
+    _joined(before, "[server] 3D")
+    direct3 = m3.predict(frames, imgsz=imgsz3, conf=CONF, max_det=50)
+    got3 = [summary_results(r["detections"], f.shape) for r, f in zip(replies3, frames)]
+    cols = {"s3d": (slice(8, 11), REG_TOL_3D), "dep_un": (slice(15, 16), REG_TOL_3D)}
+    cmp3 = compare_results(direct3, got3, conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL,
+                           cols=cols)
+    if cmp3["n_compared"] < 0.5 * (cmp3["n_ref"] + cmp3["n_got"]):
+        raise AssertionError(f"[server] 3D: too few separated detections {cmp3}")
+    print(f"[server] YOLOv10-S-3D at {KITTI_HW[0]}x{KITTI_HW[1]}, max_batch 2: warmup "
+          f"{warm3:.2f} s; 4 frames from 2 client threads, batched_with "
+          f"{sorted({r['batched_with'] for r in replies3})}, /stats {json.dumps(stats3)}; vs a "
+          f"direct call: {cmp3['n_compared']} compared, score {cmp3['max_score_err']:.3g}, box "
+          f"{cmp3['max_box_err']:.3g} px, hwl {cmp3['max_s3d_err']:.3g}, depth_sigma "
+          f"{cmp3['max_dep_un_err']:.3g} (bars {SCORE_TOL}, {BOX_TOL}, {REG_TOL_3D}); both "
+          f"servers stopped, no thread left; phase took {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1460,7 +1829,7 @@ def _row_gaps(stats: dict) -> str:
         f", heading bins differing {stats['n_bin_flips']}"
 
 
-def write_png(path: Path, img) -> None:
+def png_bytes(img) -> bytes:
     """An 8-bit RGB PNG of an HWC uint8 image (filter 0, zlib level 1)."""
     h, w, _ = img.shape
     raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
@@ -1468,8 +1837,12 @@ def write_png(path: Path, img) -> None:
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
-    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                     + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def write_png(path: Path, img) -> None:
+    path.write_bytes(png_bytes(img))
 
 
 def painted_image(rng, h: int, w: int, n_max: int = 5):
@@ -2081,6 +2454,7 @@ def main() -> int:
           f"of device time | request medians: b1_640_int8 {medians['b1_640_int8']:.2f} ms, "
           f"uniform_b8_int8 {medians['uniform_b8_int8']:.2f} ms")
     serve3d = phase_serve3d(card)
+    server = phase_server(card)
     phase_val3d(card)
     failed = []
     try:  # the train phase runs even when the lockstep misses a bar; both are fatal
@@ -2100,6 +2474,8 @@ def main() -> int:
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}
     for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too
         launches[k] += serve3d[k]
+    for k in SERVER_KERNELS:  # and the server's traffic K1 and the stem
+        launches[k] += server[k]
     if not set(KERNELS) == set(kern) == set(launches) == set(serving):
         raise AssertionError(f"kernel tables disagree: {set(KERNELS)}, {set(kern)}, {set(launches)}")
     entries = [

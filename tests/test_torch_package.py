@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
-package (nor cv2 or PIL), serves (2D, int8 and 3D), trains and validates in
-3D without them,
+package (nor cv2 or PIL), serves (2D, int8 and 3D, and over HTTP), trains
+and validates in 3D without them,
 runs on the card unless the caller asks for the CPU, and refuses the serving
 options it has not ported."""
 
@@ -93,6 +93,18 @@ m3 = yolov10_3d_torch.YOLOv10("yolov10n_3D.yaml", device="cpu")
 st = m3.train(data=str(root / "kitti.yaml"), kitti_resolution=[192, 64], epochs=1, batch=2,
               workers=0, save=False, save_dir=str(root / "train"))
 assert st.step == 1 and "metrics/3D" in m3.trainer.last_metrics
+# the dynamic-batching server over HTTP on localhost, a PNG body from above
+import json, urllib.request
+from yolov10_3d_torch.engine.server import InferenceServer
+srv = InferenceServer(yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu"), imgsz=64,
+                      conf=0.01, max_batch=2)
+http = srv.serve(port=0, blocking=False)
+req = urllib.request.Request(f"http://127.0.0.1:{{http.server_address[1]}}/predict",
+                             data=(root / "training" / "image_2" / "000000.png").read_bytes(),
+                             method="POST")
+reply = json.loads(urllib.request.urlopen(req, timeout=60).read())
+srv.stop()
+assert reply["shape"] == [60, 200] and reply["detections"], reply
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 print("isolated ok")
@@ -103,7 +115,9 @@ def test_port_imports_and_serves_without_jax():
     """In a subprocess: tests/conftest.py has already imported jax here. The
     subprocess also runs the training path (device augmentation, one train
     step), a 3D KITTI validation (the port's PNG reader, warp, validator
-    and AP40 evaluator) and one epoch of 3D training with its validation."""
+    and AP40 evaluator), one epoch of 3D training with its validation, and
+    one request to the inference server (``engine/server.py``; every
+    module, ``cfg/cli.py`` too, is imported first)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and "isolated ok" in out.stdout, out.stderr[-3000:]

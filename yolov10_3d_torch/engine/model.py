@@ -11,12 +11,17 @@ gives its KITTI AP40 (``engine/validator3d.py``) and ``.train(data=
 "kitti.yaml", ...)`` trains it on KITTI's training split with per-epoch
 AP40 validation (``engine/trainer3d.py``). 2D validation and checkpoint
 loading are not ported yet.
+
+The facade keeps one Predictor per setting that shapes the forward (int8,
+spd_serving) from one ``predict`` call to the next, and with it the
+Predictor's captured CUDA graphs; ``train`` drops them, since the graphs
+read the weight tensors they were captured on.
 """
 
 from __future__ import annotations
 
 from pathlib import Path
-from typing import Optional, Union
+from typing import Dict, Optional, Union
 
 import torch
 
@@ -51,11 +56,23 @@ class YOLOv10:
         self.names = {i: f"class{i}" for i in range(self.spec.nc)}
         self.trainer = None
         self.validator = None
+        self.predictors: Dict[tuple, Predictor] = {}
+
+    def predictor(self, args) -> Predictor:
+        """The Predictor for the settings in ``args`` (a ``get_cfg`` dict)
+        that shape the forward, kept with its graphs; ``args`` supplies the
+        call's defaults (conf, max_det, imgsz)."""
+        key = (bool(args.get("int8")), args.get("spd_serving"))
+        pred = self.predictors.get(key)
+        if pred is None:
+            pred = self.predictors[key] = Predictor(self.model, self.spec, args, self.names)
+        pred.args = args
+        return pred
 
     def predict(self, source, **kwargs):
         """Detect on an HWC uint8 image or a list of them -> [Results]."""
         args = get_cfg(kwargs)
-        pred = Predictor(self.model, self.spec, args, self.names)
+        pred = self.predictor(args)
         return pred(
             source,
             batch_size=kwargs.get("batch", 1),
@@ -77,6 +94,7 @@ class YOLOv10:
         trainer_cls = Detection3DTrainer if self.task == "detect3d" else DetectionTrainer
         self.trainer = trainer_cls(args)
         state = self.trainer.train()
+        self.predictors = {}  # their graphs read the weights that were trained over
         self.model, self.spec = self.trainer.eval_model(), self.trainer.spec
         self.names = dict(self.trainer.names)
         return state

@@ -22,19 +22,41 @@ ignores it with a warning, as the JAX Predictor does. The 3D head runs its
 sparse top-K patch path while ``max_det <= SPARSE_K`` and densely above.
 The Predictor holds these settings and passes them with each forward; the
 model is not switched.
+
+On the card the forward, decode and top-k run as a replayed CUDA graph, the
+counterpart of the JAX Predictor's jitted ``_forward_fn`` (compiled once per
+``max_det`` and input shape, ``lru_cache(maxsize=8)``). A graph is kept per
+key: the model input's shape and dtype, ``max_det``, the int8 config, the
+stem and the 3D route. The first call of a key runs ``forward_eager``,
+which builds the kernels, lets cuDNN choose its algorithms and warms the
+allocator; the key is then captured once, and every later call copies its
+input into the graph's static buffer, replays and reads the static output
+back in one transfer. The letterbox stays eager, before the copy. At most
+``GRAPH_CACHE`` graphs are kept, the least recently used evicted first. A
+failed capture or replay raises; there is no eager fallback on the card. A
+graph reads the weight tensors it was captured on (and the folded or
+quantized copies the modules cache), so the graphs are dropped whenever one
+of the model's parameters or buffers changes its storage or version
+(``load_state_dict``, calibration, ``.to``); a module given new parameter
+objects needs a new Predictor (the facade makes one after ``train``). On the
+CPU nothing is captured.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+import threading
 import time
 import warnings
+from collections import OrderedDict
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..data.preprocess import preprocess_batch
+from ..kernels import add_launches, captured_launches
 from ..nn.heads3d import SPARSE_K
 from ..nn.quant import Int8Config
 from ..ops.postprocess import decode_detect3d, v10_3d_postprocess, v10_detections
@@ -42,6 +64,7 @@ from ..ops.preprocess import serve_preprocess
 from .results import Results
 
 TASKS = {"v10Detect": "detect", "v10Detect3d": "detect3d"}
+GRAPH_CACHE = 8  # captured forwards kept per Predictor (JAX: lru_cache(maxsize=8))
 
 
 def load_source(source) -> Iterator:
@@ -82,6 +105,26 @@ def _scale_boxes_np(boxes, from_shape, to_shape):
     return boxes
 
 
+@dataclasses.dataclass
+class CapturedForward:
+    """One key's CUDA graph with its static input and output."""
+
+    graph: "torch.cuda.CUDAGraph"
+    x: torch.Tensor  # static input, allocated outside the graph's pool
+    out: torch.Tensor  # static output (B, max_det, 6 or 37)
+    launches: Dict[str, int]  # hand-kernel launches one replay makes
+    capture_s: float  # host seconds of the capture
+    reserved: int  # bytes the capture added to the allocator's reserve
+
+    @torch.inference_mode()
+    def replay(self, x: torch.Tensor) -> np.ndarray:
+        """Copy ``x`` into the static input, replay, read the output back."""
+        self.x.copy_(x)
+        self.graph.replay()
+        add_launches(self.launches)
+        return self.out.cpu().numpy()
+
+
 class Predictor:
     """NMS-free YOLOv10 detection predictor on the model's device."""
 
@@ -106,6 +149,26 @@ class Predictor:
             warnings.warn("int8=True is ignored for the 3D serving path, as in the JAX "
                           "Predictor; serving float32")
             self.int8 = None
+        self.graphs: "OrderedDict[tuple, CapturedForward]" = OrderedDict()
+        self._pool = None  # one memory pool for this Predictor's graphs
+        self._lock = threading.Lock()  # graphs share the pool: one forward at a time
+        self._state = [*model.parameters(), *model.buffers()]
+        self._state_key = self._weights_key()
+
+    def _weights_key(self) -> list:
+        return [(t.data_ptr(), t._version) for t in self._state]
+
+    def sparse(self, max_det: int) -> bool:
+        """The 3D head's route: sparse while ``max_det <= SPARSE_K`` (the
+        JAX rule); sparse is exact only while the top-k stays within each
+        scale's SPARSE_K candidates (off-candidate regression is zero)."""
+        return max_det <= SPARSE_K
+
+    def graph_key(self, x: torch.Tensor, max_det: int) -> tuple:
+        """Everything that shapes the captured forward of ``x``."""
+        int8 = None if self.int8 is None else (self.int8.act_scale, self.int8.scope)
+        sparse = self.sparse(max_det) if self.task == "detect3d" else None
+        return tuple(x.shape), x.dtype, int(max_det), int8, self.stem, sparse
 
     def _resolve(self, conf, max_det, imgsz):
         conf = conf if conf is not None else (self.args.get("conf") or 0.25)
@@ -117,41 +180,87 @@ class Predictor:
         return conf, max_det, imgsz
 
     @torch.inference_mode()
-    def _forward(self, x: torch.Tensor, max_det: int) -> np.ndarray:
-        """Forward + decode + top-k; one host transfer of (B, max_det, 6):
-        boxes, score, label (2D), or (B, max_det, 37): the 35 regression
-        values, score, label (3D)."""
+    def forward_eager(self, x: torch.Tensor, max_det: int) -> torch.Tensor:
+        """Forward + decode + top-k on ``x``'s device: (B, max_det, 6) boxes,
+        score, label (2D), or (B, max_det, 37): the 35 regression values,
+        score, label (3D). The function each graph captures."""
         nc = self.spec.nc
         if self.task == "detect3d":
-            # sparse is exact only while the top-k stays within each scale's
-            # SPARSE_K candidates (off-candidate regression is zero)
             feats = self.model(x, fast_eval=True, stem=self.stem,
-                               sparse=max_det <= SPARSE_K)["one2one"]
+                               sparse=self.sparse(max_det))["one2one"]
             preds = decode_detect3d(feats, self.spec.strides[: len(feats)], nc)
             reg, scores, labels = v10_3d_postprocess(preds, max_det, nc)
-            out = torch.cat([reg, scores.sigmoid()[..., None], labels[..., None].float()], -1)
-            return out.cpu().numpy()
+            return torch.cat([reg, scores.sigmoid()[..., None], labels[..., None].float()], -1)
         feats = self.model(x, fast_eval=True, int8=self.int8, stem=self.stem)["one2one"]
         det = v10_detections(feats, self.spec.strides, nc, max_det=max_det)
-        out = torch.cat(
+        return torch.cat(
             [det["boxes"], det["scores"][..., None], det["labels"][..., None].float()], -1
         )
-        return out.cpu().numpy()
+
+    @torch.inference_mode()
+    def _forward(self, x: torch.Tensor, max_det: int) -> np.ndarray:
+        """``forward_eager`` as one host array: on the card a replay of the
+        key's graph (the key's first call runs eagerly and then captures)."""
+        with self._lock:
+            state = self._weights_key()
+            if state != self._state_key:  # weights replaced or changed in place
+                self.graphs.clear()
+                self._state_key = state
+            if not x.is_cuda:
+                return self.forward_eager(x, max_det).cpu().numpy()
+            key = self.graph_key(x, max_det)
+            cap = self.graphs.get(key)
+            if cap is None:
+                out = self.forward_eager(x, max_det).cpu().numpy()
+                self.remember(key, self._capture(x, max_det))
+                return out
+            self.graphs.move_to_end(key)
+            return cap.replay(x)
+
+    def remember(self, key: tuple, cap: CapturedForward) -> None:
+        """Keep ``cap`` as the newest graph, dropping the least recently
+        used beyond ``GRAPH_CACHE``."""
+        self.graphs[key] = cap
+        self.graphs.move_to_end(key)
+        while len(self.graphs) > GRAPH_CACHE:
+            self.graphs.popitem(last=False)
+
+    def _capture(self, x: torch.Tensor, max_det: int) -> CapturedForward:
+        """Capture ``forward_eager`` on a static copy of ``x``; raises if the
+        capture fails. The kernels it records count once per replay
+        (``kernels.captured_launches``)."""
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        static_x = x.clone()
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()  # what torch.cuda.graph does first: the reserve below is ours
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        # thread_local: another thread's CUDA calls (a server's request
+        # threads) do not invalidate this thread's capture
+        with captured_launches() as launches, torch.cuda.graph(
+                graph, pool=self._pool, capture_error_mode="thread_local"):
+            out = self.forward_eager(static_x, max_det)
+        return CapturedForward(graph, static_x, out, launches, time.perf_counter() - t0,
+                               torch.cuda.memory_reserved(self.device) - reserved)
+
+    @torch.inference_mode()
+    def preprocess(self, imgs: Sequence[np.ndarray], imgsz):
+        """The model input of HWC uint8 ``imgs`` letterboxed to ``imgsz``
+        (int or [w, h]) and its (h, w): same-shape images on the device,
+        mixed shapes on the host."""
+        shape = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
+        if len({im.shape for im in imgs}) == 1:
+            u8 = torch.from_numpy(np.stack(imgs)).to(self.device)
+            return serve_preprocess(u8, tuple(shape)), tuple(shape)
+        batch, _ = preprocess_batch(imgs, imgsz)
+        x = torch.from_numpy(batch).to(self.device).permute(0, 3, 1, 2).contiguous()
+        return x, batch.shape[1:3]
 
     def _process_chunk(self, chunk, max_det, conf, classes, imgsz) -> List[Results]:
-        shape = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
-        imgs = [f[1] for f in chunk]
-        uniform = len({im.shape for im in imgs}) == 1
         t0 = time.perf_counter()
-        with torch.inference_mode():
-            if uniform:
-                u8 = torch.from_numpy(np.stack(imgs)).to(self.device)
-                x = serve_preprocess(u8, tuple(shape))
-                model_hw = tuple(shape)
-            else:
-                batch, _ = preprocess_batch(imgs, imgsz)
-                x = torch.from_numpy(batch).to(self.device).permute(0, 3, 1, 2).contiguous()
-                model_hw = batch.shape[1:3]
+        x, model_hw = self.preprocess([f[1] for f in chunk], imgsz)
         t1 = time.perf_counter()
         out = self._forward(x, max_det)
         t2 = time.perf_counter()

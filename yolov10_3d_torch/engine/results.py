@@ -1,9 +1,9 @@
 """Results containers (port of ``yolov10_3d_tpu/engine/results.py``: 2D and 3D
-boxes)."""
+boxes, and ``summary``'s rows for them)."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -84,3 +84,30 @@ class Results:
 
     def __len__(self):
         return len(self.boxes) if self.boxes is not None else 0
+
+    def summary(self) -> List[Dict[str, Any]]:
+        """JSON-ready rows, one per detection (the JAX ``Results.summary``
+        for the detect and detect3d payloads): ``name``, ``class``,
+        ``confidence``, ``box`` {x1, y1, x2, y2} and, in 3D, ``box3d`` {xyz,
+        hwl, ry, depth_sigma}."""
+        b = self.boxes3d if self.boxes3d is not None else self.boxes
+        if b is None:
+            return []
+        out = []
+        for i in range(len(b)):
+            c = int(b.cls[i])
+            row = {
+                "name": self.names.get(c, str(c)),
+                "class": c,
+                "confidence": float(b.conf[i]),
+                "box": {k: float(v) for k, v in zip(("x1", "y1", "x2", "y2"), b.xyxy[i])},
+            }
+            if self.boxes3d is not None:
+                row["box3d"] = {
+                    "xyz": [float(v) for v in b.xyz[i]],
+                    "hwl": [float(v) for v in b.size_3d[i]],
+                    "ry": float(b.ry[i]),
+                    "depth_sigma": float(b.depth_sigma[i]),
+                }
+            out.append(row)
+        return out

@@ -4,11 +4,18 @@ Each kernel's wrapper counts its launches in ``launch_counts`` (one per
 launch, nowhere else), so a run can show that its main path went through
 the kernel. The twin runs only for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.
+
+Inside a CUDA graph capture a wrapper still counts once, though the capture
+only records the launch, and a replay runs no Python. So the code that
+captures takes those counts back out with ``captured_launches`` and adds
+them again with ``add_launches`` at every replay: a replay counts as one
+launch of each kernel it holds.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import contextlib
+from typing import Dict, Iterator
 
 launch_counts: Dict[str, int] = {
     "decode_detect": 0,  # K1, kernels/decode.py
@@ -23,3 +30,24 @@ launch_counts: Dict[str, int] = {
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+
+
+@contextlib.contextmanager
+def captured_launches() -> Iterator[Dict[str, int]]:
+    """Around a graph capture: yields a dict that holds, on exit, the
+    launches the wrappers counted inside, and takes them out of
+    ``launch_counts`` again (a capture launches nothing)."""
+    before = dict(launch_counts)
+    record: Dict[str, int] = {}
+    try:
+        yield record
+    finally:
+        for k in launch_counts:
+            record[k] = launch_counts[k] - before[k]
+            launch_counts[k] -= record[k]
+
+
+def add_launches(record: Dict[str, int]) -> None:
+    """Count one replay of a graph whose capture recorded ``record``."""
+    for k, n in record.items():
+        launch_counts[k] += n

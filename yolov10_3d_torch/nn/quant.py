@@ -86,7 +86,8 @@ def quantize_act(x: torch.Tensor, act_scale: Optional[float]) -> Tuple[torch.Ten
         sx = x.abs().amax() * _RECIP_127 + 1e-12
         q = x / sx  # a 0-dim tensor on x's device: a true division on the card too
     else:
-        sx = torch.tensor(act_scale, dtype=torch.float32, device=x.device)
+        # a fill on the device, not a host copy: legal inside a CUDA graph capture
+        sx = torch.full((), act_scale, dtype=torch.float32, device=x.device)
         q = x * _recip32(act_scale)
     return torch.round(q).clamp_(-127, 127).to(torch.int8), sx
 

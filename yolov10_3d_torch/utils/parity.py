@@ -14,13 +14,14 @@ chaotic, so the calibration batch is the images that are then served
 hinge on resize details).
 ``match_detections`` pairs detections by class and box and compares those
 clear of the selection boundaries, where the selection cannot flip;
-``compare_kitti_rows`` does the same for the 3D validator's KITTI rows.
+``compare_kitti_rows`` does the same for the 3D validator's KITTI rows;
+``summary_results`` turns a server's JSON rows back into a Results for them.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -207,6 +208,24 @@ def match_detections(
             stats["max_score_err"] = max(stats["max_score_err"], score_err)
             stats["max_box_err"] = max(stats["max_box_err"], float(box_err[j]))
     return stats
+
+
+def summary_results(rows: List[Dict[str, Any]], shape: Sequence[int]):
+    """A Results of an image of (h, w) ``shape`` from its ``summary()`` rows
+    (a server's ``detections``), for ``compare_results``: ``boxes`` from
+    box, confidence and class; with ``box3d`` rows also ``boxes3d``, whose
+    projected centre (not in the rows) is 0."""
+    from ..engine.results import Results
+
+    boxes = np.array([[*(r["box"][k] for k in ("x1", "y1", "x2", "y2")), r["confidence"],
+                       r["class"]] for r in rows], np.float64).reshape(-1, 6)
+    boxes3d = None
+    if rows and "box3d" in rows[0]:
+        boxes3d = np.array([[*b, 0.0, 0.0, *r["box3d"]["hwl"], r["box3d"]["ry"],
+                             *r["box3d"]["xyz"], r["box3d"]["depth_sigma"]]
+                            for b, r in zip(boxes, rows)], np.float64)
+    img = np.broadcast_to(np.uint8(0), (int(shape[0]), int(shape[1]), 3))
+    return Results(img, boxes=boxes, boxes3d=boxes3d)
 
 
 def compare_results(ref: Sequence, got: Sequence, conf: float, score_tol: float,
