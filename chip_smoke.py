@@ -124,10 +124,37 @@ Phases, each fatal on failure:
                 augmentation, the JAX defaults otherwise (AdamW, nbs 64, amp);
                 then a shorter float32 run (amp=False). K4 must launch once
                 per step; the epoch's loss means must be finite.
+  7. ckpt     - YOLOv10("yolov10s.yaml").train(...) on 64 synthetic PNGs at
+                640x640, batch 16, 2 epochs, device augmentation, validation
+                every epoch and checkpoints (last, best, a mid-epoch save every
+                2 steps): the file's size, the train thread's snapshot ms per
+                save against the writer thread's encode-and-write ms, the
+                writes submitted and done; K4 once a step, K1 once a
+                validation batch. Then, in a child process with
+                CUBLAS_WORKSPACE_CONFIG set and deterministic algorithms, a
+                run killed after a mid-epoch save (between two accumulated
+                micro-steps) and resumed must end bit for bit where an
+                uninterrupted run ends (or, where torch names an op as
+                nondeterministic, within [train-lockstep]'s update bars).
+                YOLOv10(".../best.ckpt") and last.ckpt serve [serve]'s b1_640
+                request through the captured forward bit for bit what the
+                run's own EMA models serve (K1 and the stem launch); the file
+                stripped to float16 serves bit for bit what its float16-rounded
+                weights serve, and its gap to the float32 file is printed.
+  8. val2d    - YOLOv10("yolov10s.yaml").val(...) on the same 64 PNGs at 640,
+                batch 16, weights calibrated on them: img/s split into loader
+                wait, device (forward, K1, top-k), host rows and metrics; K1
+                once a batch; every image's rows held to a float64 CPU run of
+                the same weights at the [serve] bars, metrics both ways.
+  9. learn3d  - the JAX 3D learn-proof (tests/test_overfit_ap.py:58-103), key
+                for key: yolov10n-3D on 8 synthetic KITTI frames at 320x96, 300
+                epochs, AdamW, checkpoints; YOLOv10(".../last.ckpt").val must
+                reach mAP50 >= 0.9 and metrics/3D >= 7.0.
 
-Each path (serving, serve3d, server, val3d, train) is driven with the launch counts
-set to 0 just before it and read just after. The last three lines are the card line, one
-JSON object with the per-kernel numbers, and {"ok": true, "device": {...}}.
+Each path (serving, serve3d, server, val3d, train, ckpt, val2d, learn3d) is driven with
+the launch counts set to 0 just before it and read just after. The last three lines are
+the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
+{...}}.
 Imports no JAX.
 
     python3 chip_smoke.py --sweep stem,k1,int8,k2tiles,serve [--package-root DIR]
@@ -2295,7 +2322,7 @@ def phase_train3d_lockstep(card: str) -> dict:
 
 def phase_train3d(card: str) -> dict:
     """YOLOv10("yolov10s_3D.yaml").train on a synthetic KITTI tree: two
-    epochs with per-epoch AP40 validation in amp (bf16 autocast), the same in
+    epochs with per-epoch AP40 validation in amp (bf16 autocast), one in
     float32, then one epoch of a ``fgdm_predictor: true`` model with the
     depth maps, the FGDM loss and HTL. Returns the hand kernels' launches."""
     import torch
@@ -2319,7 +2346,8 @@ def phase_train3d(card: str) -> dict:
         fgdm_yaml.write_text(resolve_model_cfg("yolov10s_3D").read_text()
                              + "fgdm_predictor: true\n")
         runs = (("amp", "yolov10s_3D.yaml", dict(amp=True, epochs=2, val=True)),
-                ("float32", "yolov10s_3D.yaml", dict(amp=False, epochs=2, val=True)),
+                # one float32 epoch: the run's time goes to [learn3d]
+                ("float32", "yolov10s_3D.yaml", dict(amp=False, epochs=1, val=True)),
                 ("fgdm+htl", str(fgdm_yaml), dict(amp=True, epochs=1, val=False, htl=True,
                                                   load_depth_maps=True, fgdm_loss=True)))
         for name, cfg, kw in runs:
@@ -2330,7 +2358,8 @@ def phase_train3d(card: str) -> dict:
             reset_launch_counts()
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                       torch.profiler.ProfilerActivity.CUDA])
-            profiled = (5, 6) if kw["epochs"] == 2 else ()  # epoch 2's middle steps
+            # epoch 2's middle steps; the float32 epoch's last two
+            profiled = (5, 6) if kw["epochs"] == 2 else (2, 3) if name == "float32" else ()
             t0 = time.perf_counter()
             with timed_train_steps(times, prof, profiled):
                 state = model.train(data=str(data), kitti_resolution=[1280, 384], batch=8,
@@ -2394,8 +2423,597 @@ def phase_train3d(card: str) -> dict:
     return out
 
 
+CKPT_SET = 64  # [ckpt] trains and [val2d] validates on this many synthetic PNGs
+
+
+def one_picture_set(root: Path, n: int = 32) -> Path:
+    """``n`` copies of one painted 480x640 PNG with its labels: the set of
+    the kill-and-resume pair (the mosaic partners come from the dataset's
+    generator, which no checkpoint carries; with one picture they cannot
+    change a batch)."""
+    import numpy as np
+
+    img, rows = painted_image(np.random.default_rng(7), 480, 640)
+    body = png_bytes(img)
+    label = "\n".join(f"{c} {x:.6f} {y:.6f} {w:.6f} {h:.6f}" for c, x, y, w, h in rows)
+    (root / "images").mkdir(parents=True)
+    (root / "labels").mkdir(parents=True)
+    for i in range(n):
+        (root / "images" / f"{i:02d}.png").write_bytes(body)
+        (root / "labels" / f"{i:02d}.txt").write_text(label)
+    names = "\n".join(f"  {i}: class{i}" for i in range(80))
+    (root / "data.yaml").write_text(f"path: {root}\ntrain: images\nval: images\nnames:\n{names}\n")
+    return root / "data.yaml"
+
+
+class _Kill(Exception):
+    pass
+
+
+def ckpt_pair(root: Path) -> dict:
+    """The kill-and-resume pair on the card (run in a child process, whose
+    environment sets CUBLAS_WORKSPACE_CONFIG before cuBLAS starts):
+    YOLOv10-S at 640, batch 4, nbs 12 (accumulate 3), float32 with TF32 off,
+    2 epochs of 8 micro-steps on the one-picture set; an uninterrupted run,
+    then a run killed after micro-step 10 with a save every 2 (the last one
+    between two accumulated micro-steps), then ``resume=True``, all under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` and
+    ``cudnn.deterministic``. Returns the ops torch warned about, whether the
+    two end states are equal bit for bit, and the worst update gap."""
+    import warnings
+
+    import torch
+
+    from yolov10_3d_torch.cfg import get_cfg
+    from yolov10_3d_torch.engine.trainer import DetectionTrainer
+    from yolov10_3d_torch.utils.checkpoint import load_checkpoint
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    data = one_picture_set(root / "set")
+    kw = dict(model="yolov10s.yaml", data=str(data), epochs=2, imgsz=IMGSZ, batch=4, workers=0,
+              device_aug=True, close_mosaic=0, warmup_epochs=0.0, amp=False, lr0=0.003,
+              optimizer="AdamW", nbs=12, val=False, seed=0, device="cuda")
+    init = {}
+    real_init = DetectionTrainer.init_params
+
+    def keep_init(self, model, spec):
+        real_init(self, model, spec)
+        init.update({k: v.detach().cpu().double() for k, v in model.state_dict().items()})
+
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        DetectionTrainer.init_params = keep_init
+        try:
+            ref = DetectionTrainer(get_cfg({**kw, "save_dir": str(root / "ref")}))
+            ref.train()
+        finally:
+            DetectionTrainer.init_params = real_init
+        killed = DetectionTrainer(get_cfg({**kw, "save_dir": str(root / "k"),
+                                           "ckpt_period_steps": 2}))
+        calls = {"n": 0}
+        to_device = killed.to_device
+
+        def killing(batch):
+            calls["n"] += 1
+            if calls["n"] > 10:
+                raise _Kill()
+            return to_device(batch)
+
+        killed.to_device = killing
+        try:
+            killed.train()
+            raise AssertionError("ckpt: the killed run was not killed")
+        except _Kill:
+            pass
+        meta = load_checkpoint(root / "k" / "weights" / "last.ckpt")["meta"]
+        resumed = DetectionTrainer(get_cfg({**kw, "save_dir": str(root / "k"), "resume": True}))
+        resumed.train()
+    ops = sorted({str(w.message).split("\n")[0][:160] for w in caught
+                  if "deterministic" in str(w.message)})
+    a, b = ref.state, resumed.state
+    params = [k for k, _ in a.model.named_parameters()]
+    sa, sb = a.model.state_dict(), b.model.state_dict()
+    keys = [k for k in sa if not k.endswith("num_batches_tracked")]
+    differ = [k for k in keys if not torch.equal(sa[k], sb[k])]
+    differ += [f"ema.{k}" for k, x, y in zip(params, a.ema_params, b.ema_params)
+               if not torch.equal(x, y)]
+    big = max(float((sa[k].double().cpu() - init[k]).abs().max()) for k in params)
+    worst, bad = 0.0, []
+    for k in params:  # [train-lockstep]'s bar on each update
+        upd = sa[k].double().cpu() - init[k]
+        err = float((sb[k].double().cpu() - sa[k].double().cpu()).abs().max())
+        top = float(upd.abs().max())
+        worst = max(worst, err / (top + 1e-30))
+        if err > 1e-2 * top + 1e-4 * big:
+            bad.append(k)
+    return {"ops": ops, "bitwise": not differ, "n_differ": len(differ), "n_keys": len(keys),
+            "worst_rel": worst, "n_beyond_bar": len(bad), "meta": {k: meta.get(k) for k in (
+                "step", "epoch", "batches_done")}, "steps": b.step, "updates":
+            b.optimizer.updates, "seconds": time.perf_counter() - t0}
+
+
+@contextlib.contextmanager
+def record_best_ema(record: dict):
+    """Inside: each ``save_ckpt`` of best.ckpt keeps a copy of the EMA model
+    state it writes, under ``record['best']``."""
+    from yolov10_3d_torch.engine.trainer import DetectionTrainer
+
+    real = DetectionTrainer.save_ckpt
+
+    def save(self, path, state, meta):
+        if Path(path).name == "best.ckpt":
+            record["best"] = {k: v.detach().clone() for k, v in state.ema_state_dict().items()}
+            record["best_epoch"] = meta["epoch"]
+        return real(self, path, state, meta)
+
+    DetectionTrainer.save_ckpt = save
+    try:
+        yield
+    finally:
+        DetectionTrainer.save_ckpt = real
+
+
+def snapshot_ab(state) -> dict:
+    """The train thread's snapshot of ``state`` (``host_copy``: a copy a
+    leaf into pageable memory) against the same copies into pinned memory,
+    five of each in turn with no write in flight: median ms."""
+    import torch
+
+    from yolov10_3d_torch.utils.checkpoint import host_copy
+
+    def pinned(tree):
+        if isinstance(tree, dict):
+            return {k: pinned(v) for k, v in tree.items()}
+        if isinstance(tree, torch.Tensor):
+            return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True).copy_(tree)
+        return tree
+
+    times = {"pageable": [], "pinned": []}
+    for _ in range(5):
+        for name, fn in (("pageable", host_copy), ("pinned", pinned)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(state.checkpoint_trees())
+            times[name].append((time.perf_counter() - t0) * 1e3)
+    return {k: statistics.median(v) for k, v in times.items()}
+
+
+def phase_ckpt(card: str, data: Path) -> dict:
+    """Checkpoints on the card: YOLOv10("yolov10s.yaml").train with
+    validation and checkpoints (last, best, a mid-epoch save every 2 steps),
+    its sizes and times; the kill-and-resume pair (a child process); the
+    reloaded best.ckpt and last.ckpt serving [serve]'s b1_640 request through
+    the captured forward, bit for bit what the run's own EMA models serve;
+    the file stripped to float16 and reloaded. Returns the hand kernels'
+    launches of the training run and of the reloads."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.utils.checkpoint import strip_optimizer
+    from yolov10_3d_torch.utils.parity import smooth_images
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        run = Path(tmp) / "run"
+        record = {}
+        model = YOLOv10("yolov10s.yaml", device="cuda")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with record_best_ema(record):
+            state = model.train(data=str(data), imgsz=IMGSZ, batch=16, epochs=2, device_aug=True,
+                                close_mosaic=0, val=True, save=True, ckpt_period_steps=2,
+                                workers=4, save_dir=str(run))
+        wall = time.perf_counter() - t0
+        train_counts = dict(launch_counts)
+        trainer = model.trainer
+        writer = trainer._ckpt_writer
+        weights = run / "weights"
+        last, best = weights / "last.ckpt", weights / "best.ckpt"
+        steps = state.step
+        if train_counts["hsv_jitter"] != steps or train_counts["decode_detect"] < 2:
+            raise AssertionError(f"ckpt: {steps} steps, launches {train_counts} (K4 once a step, "
+                                 "K1 once a validation batch)")
+        if writer.written + writer.superseded != writer.submitted or not last.exists():
+            raise AssertionError(f"ckpt: writes submitted {writer.submitted}, done "
+                                 f"{writer.written}, superseded {writer.superseded}")
+        snap, write = trainer.snapshot_ms, [s * 1e3 for s in writer.write_seconds]
+        ab = snapshot_ab(state)
+        rows = list(csv.DictReader(open(run / "results.csv")))
+        print(f"[ckpt] YOLOv10-S {IMGSZ}x{IMGSZ}, batch 16, 2 epochs on {CKPT_SET} PNGs with "
+              f"validation and checkpoints: {steps} steps in {wall:.1f} s; last.ckpt "
+              f"{last.stat().st_size / 2**20:.1f} MiB, best.ckpt (epoch "
+              f"{record['best_epoch']}) {best.stat().st_size / 2**20:.1f} MiB; train thread's "
+              f"snapshot per save: median {statistics.median(snap):.1f} ms (all "
+              f"{', '.join(f'{t:.1f}' for t in snap)}); writer thread's encode and write: median "
+              f"{statistics.median(write):.1f} ms (all {', '.join(f'{t:.0f}' for t in write)}); "
+              f"writes submitted {writer.submitted}, done {writer.written}, superseded "
+              f"{writer.superseded}; the final state's snapshot with no write in flight, "
+              f"median of 5 alternating: host_copy (pageable) {ab['pageable']:.1f} ms, "
+              f"into pinned memory {ab['pinned']:.1f} ms a save; "
+              f"mAP50 by epoch {[float(r['mAP50']) for r in rows]}; "
+              f"launches {train_counts} ({card})")
+
+        # the kill-and-resume pair, in a child process: cuBLAS reads its
+        # workspace setting when it starts
+        out = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--ckpt-pair",
+                              str(Path(tmp) / "pair")], capture_output=True, text=True,
+                             timeout=600, env={**__import__("os").environ,
+                                               "CUBLAS_WORKSPACE_CONFIG": ":4096:8"})
+        if out.returncode != 0:
+            raise AssertionError(f"ckpt: the kill-and-resume pair failed:\n{out.stderr[-3000:]}")
+        pair = json.loads(out.stdout.strip().splitlines()[-1])
+        print(f"[ckpt] kill and resume on the card (YOLOv10-S 640, batch 4, accumulate 3, "
+              f"float32, deterministic algorithms): killed at meta {pair['meta']}, resumed to "
+              f"{pair['steps']} steps / {pair['updates']} updates in {pair['seconds']:.1f} s; "
+              f"end state bit for bit: {pair['bitwise']} ({pair['n_differ']} of "
+              f"{pair['n_keys']} tensors differ, worst update gap {pair['worst_rel']:.3g} of "
+              f"its update); ops torch names as nondeterministic: {pair['ops'] or 'none'}")
+        if not pair["bitwise"]:
+            if not pair["ops"]:
+                raise AssertionError("ckpt: resumed != uninterrupted with no nondeterministic op")
+            if pair["n_beyond_bar"]:
+                raise AssertionError(f"ckpt: {pair['n_beyond_bar']} updates beyond "
+                                     "[train-lockstep]'s bar after resume")
+
+        # the reloads, through the captured forward, against the run's own EMA models
+        img = smooth_images(np.random.default_rng(0), [(640, 640)])  # [serve]'s b1_640
+        ref = YOLOv10("yolov10s.yaml", device="cuda")
+        ref.model.load_state_dict(record["best"])
+        reset_launch_counts()
+        served = {}
+        for name, facade in (("trainer EMA (last)", model), ("last.ckpt", YOLOv10(str(last))),
+                             ("best EMA", ref), ("best.ckpt", YOLOv10(str(best)))):
+            for _ in range(2):  # the first call captures, the second replays
+                r = facade.predict(img, imgsz=IMGSZ, conf=0.0, max_det=50)
+            served[name] = r[0].boxes.data
+        reload_counts = dict(launch_counts)
+        for a, b in (("trainer EMA (last)", "last.ckpt"), ("best EMA", "best.ckpt")):
+            if not np.array_equal(served[a], served[b]):
+                raise AssertionError(f"ckpt: {b} serves other detections than the {a}")
+        if not reload_counts["decode_detect"] or not reload_counts["stem_conv"]:
+            raise AssertionError(f"ckpt: the reloads did not launch K1 and the stem "
+                                 f"({reload_counts})")
+        stripped = Path(tmp) / "best_fp16.ckpt"
+        strip_optimizer(best, stripped)
+        half = YOLOv10("yolov10s.yaml", device="cuda")
+        half.model.load_state_dict({k: v.half().float() if v.is_floating_point() else v
+                                    for k, v in record["best"].items()})
+        got = YOLOv10(str(stripped)).predict(img, imgsz=IMGSZ, conf=0.0, max_det=50)
+        want = half.predict(img, imgsz=IMGSZ, conf=0.0, max_det=50)
+        if not np.array_equal(got[0].boxes.data, want[0].boxes.data):
+            raise AssertionError("ckpt: the stripped file serves other detections than its "
+                                 "weights rounded to float16")
+        print(f"[ckpt] reloads served b1_640 through the captured forward: last.ckpt = the "
+              f"trainer's EMA model, best.ckpt = the EMA model it was written from (epoch "
+              f"{record['best_epoch']}), bit for bit on all 50 rows (conf 0; "
+              f"{int((served['best.ckpt'][:, 4] > CONF).sum())} above {CONF}); launches "
+              f"{reload_counts}; strip_optimizer: {last.stat().st_size / 2**20:.1f} -> "
+              f"{stripped.stat().st_size / 2**20:.1f} MiB, its reload = the float16-rounded "
+              f"weights bit for bit (what float16 costs a net with rows above conf: [val2d]); "
+              f"phase {time.perf_counter() - t_phase:.1f} s")
+    return {"train": train_counts, "reload": reload_counts}
+
+
+def nearest_rows(ref_runs, got_runs, score_tol: float) -> list:
+    """Per image, every row of ``ref_runs`` more than ``score_tol`` clear of
+    the cutoffs beside its nearest same-class box in ``got_runs`` (both
+    validator ``rows``): (box px, image, row, coordinate, score gap), with
+    an infinite gap where the class has no row."""
+    import numpy as np
+
+    from yolov10_3d_torch.utils.parity import _clear_of_cutoffs
+
+    def table(r):
+        return np.concatenate([r[0], r[1][:, None], r[2][:, None]], 1).astype(np.float64)
+
+    gaps = []
+    for img, (ref, got) in enumerate(zip(ref_runs, got_runs)):
+        ref, got = table(ref), table(got)
+        for i in np.flatnonzero(_clear_of_cutoffs(ref[:, 4], 0.001, score_tol)):
+            same = got[got[:, 5] == ref[i, 5]]
+            if not len(same):
+                gaps.append((math.inf, img, int(i), -1, math.inf))
+                continue
+            err = np.abs(same[:, :4] - ref[i, :4])
+            j = int(err.max(1).argmin())
+            gaps.append((float(err[j].max()), img, int(i), int(err[j].argmax()),
+                         abs(float(same[j, 4] - ref[i, 4]))))
+    return gaps
+
+
+def phase_val2d(card: str, data: Path) -> dict:
+    """``YOLOv10("yolov10s.yaml").val`` on the synthetic PNGs at 640, batch
+    16, seeded weights calibrated on all the letterboxed images: img/s split into
+    loader wait, device (forward, K1, top-k), host rows and metrics; K1's
+    launches; every image's rows held to a CPU run of the same weights in
+    float64 (TF32 off) at the [serve] bars, the metrics printed both ways.
+    The reference is float64 as in [val3d]: at max_det 300 and conf 0.001
+    the rows reach boxes 800 px wide, where the card's and the CPU's float32
+    errors add up to more than 0.1 px (0.113 in the first run). The net is
+    calibrated to BatchNorm std 0.25, as [serve3d]'s (BN_STD_3D): at 0.5
+    the random net amplifies float32 rounding to the size of the bars on
+    these 4800 rows (8e-5 in score on the CPU alone at 128 px).
+
+    Then the same net through a file: saved, stripped to float16
+    (``strip_optimizer``) and validated from it on the card, its rows beside
+    the float32 net's and the metrics both ways, printed, not held: on a
+    random net float16 weights move rows by up to tens of pixels. What
+    float16 costs a trained net is held in [learn3d]."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data.dataset import YOLODataset
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.utils.checkpoint import save_checkpoint, strip_optimizer
+    from yolov10_3d_torch.utils.parity import calibrate, match_detections
+    from yolov10_3d_torch.utils.weights import torch_to_flax_variables
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ds = YOLODataset(data.parent / "images", imgsz=IMGSZ, augment=False)
+    x = torch.from_numpy(np.stack([ds[i]["img"] for i in range(len(ds))]))  # every image served
+    gpu = YOLOv10("yolov10s.yaml", device="cuda", seed=0)
+    calibrate(gpu.model, x.permute(0, 3, 1, 2).float().div(255.0).contiguous().cuda(),
+              bn_std=BN_STD_3D)
+    cpu = YOLOv10("yolov10s.yaml", device="cpu", seed=0)
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    cpu.model.double()
+    gpu.val(data=str(data), imgsz=IMGSZ, batch=16)  # warm-up: cuDNN, allocator
+    reset_launch_counts()
+    out = gpu.val(data=str(data), imgsz=IMGSZ, batch=16)
+    counts = dict(launch_counts)
+    t = gpu.validator.timings
+    rows_gpu = gpu.validator.rows
+    t0 = time.perf_counter()
+    ref = cpu.val(data=str(data), imgsz=IMGSZ, batch=16)
+    cpu_s = time.perf_counter() - t0
+    n, worst_s, worst_b, n_ref, n_got = 0, 0.0, 0.0, 0, 0
+    for a, b in zip(cpu.validator.rows, rows_gpu):
+        rows = [np.concatenate([r[0], r[1][:, None], r[2][:, None]], 1).astype(np.float64)
+                for r in (a, b)]
+        st = match_detections(*rows, 0.001, SCORE_TOL, BOX_TOL)
+        n, n_ref, n_got = n + st["n_compared"], n_ref + st["n_ref"], n_got + st["n_got"]
+        worst_s, worst_b = max(worst_s, st["max_score_err"]), max(worst_b, st["max_box_err"])
+    if n < 0.5 * (n_ref + n_got):
+        raise AssertionError(f"val2d: too few separated rows ({n} of {n_ref} / {n_got})")
+    dev = t["forward"] + t["decode"] + t["topk"]
+    keys = ("mAP50", "mAP50-95", "mp", "mr")
+    print(f"[val2d] YOLOv10-S {IMGSZ}x{IMGSZ}, {t['images']} synthetic 480x640 PNGs, batch 16: "
+          f"{t['images'] / t['total']:.1f} img/s, {t['total'] * 1e3:.1f} ms = loader wait "
+          f"{t['loader'] * 1e3:.1f} + device {dev * 1e3:.1f} (forward {t['forward'] * 1e3:.1f}, "
+          f"K1 {t['decode'] * 1e3:.2f}, top-k {t['topk'] * 1e3:.2f}) + host rows "
+          f"{t['host'] * 1e3:.1f} + metrics {t['metrics'] * 1e3:.1f}; K1 launches "
+          f"{counts['decode_detect']}, launches {counts} ({card})")
+    print(f"[val2d] rows vs a float64 CPU run of the same weights ({cpu_s:.1f} s): {n} compared of "
+          f"{n_ref} / {n_got}, score {worst_s:.3g}, box {worst_b:.3g} px (bars {SCORE_TOL}, "
+          f"{BOX_TOL}); metrics card " + ", ".join(f"{k} {out[k]:.6f}" for k in keys)
+          + " | CPU float64 " + ", ".join(f"{k} {ref[k]:.6f}" for k in keys))
+    if counts["decode_detect"] != -(-t["images"] // 16):
+        raise AssertionError(f"val2d: K1 launched {counts['decode_detect']} times")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        full, half = Path(tmp) / "calibrated.ckpt", Path(tmp) / "calibrated_fp16.ckpt"
+        variables = torch_to_flax_variables(gpu.model.state_dict())
+        save_checkpoint(full, params=variables["params"], batch_stats=variables["batch_stats"],
+                        meta={"model_yaml": "yolov10s.yaml", "nc": gpu.spec.nc})
+        strip_optimizer(full, half)
+        f16 = YOLOv10(str(half), device="cuda")
+        out16 = f16.val(data=str(data), imgsz=IMGSZ, batch=16)
+    gaps = nearest_rows(rows_gpu, f16.validator.rows, 1e-2)
+    box = np.array([g[0] for g in gaps])
+    score = np.array([g[4] for g in gaps])
+    beyond = int(((box > BOX_TOL) | (score > SCORE_TOL)).sum())
+    print(f"[val2d] the same net saved, stripped to float16 and validated from the file on the "
+          f"card, each of the float32 net's {len(gaps)} rows clear of the cutoffs beside its "
+          f"nearest same-class float16 row: box worst {box.max():.4g} px, 99th percentile "
+          f"{np.percentile(box, 99):.4g}, median {np.median(box):.4g}; score worst "
+          f"{score.max():.3g}, median {np.median(score):.3g}; {beyond} rows beyond the [serve] "
+          f"bars ({BOX_TOL} px, {SCORE_TOL}); not held (a random net); metrics float16 "
+          + ", ".join(f"{k} {out16[k]:.6f}" for k in keys) + f" ({card})")
+    return counts
+
+
+def val2d_std05_witness(card: str) -> None:
+    """``--sweep val2d-std05``: [val2d]'s net calibrated on the first 16
+    images at BatchNorm std 0.5, where its rows once missed the 0.1 px bar
+    against float64. Every row of a float64 CPU run of the same weights
+    beside its nearest same-class box in three runs: the card's float32,
+    the CPU's float32 and the card's float64 (the same path, K1 decoding
+    the maps cast to float32, as the CPU's float64 run decodes them). The
+    card's float64 at the CPU's says the card's path computes the same
+    function; the two float32 gaps say how far each one's rounding goes."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data.dataset import YOLODataset
+    from yolov10_3d_torch.utils.parity import calibrate
+
+    class Float64(torch.nn.Module):  # the card's float64 forward, float32 maps for K1
+        def __init__(self, model):
+            super().__init__()
+            self.inner = model
+
+        def forward(self, x, **kw):
+            out = self.inner(x, **kw)
+            return {"one2one": [f.float() for f in out["one2one"]]}
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = synthetic_set(Path(tmp) / "set", n=CKPT_SET, seed=1)
+        ds = YOLODataset(data.parent / "images", imgsz=IMGSZ, augment=False)
+        x = torch.from_numpy(np.stack([ds[i]["img"] for i in range(16)]))
+        gpu = YOLOv10("yolov10s.yaml", device="cuda", seed=0)
+        calibrate(gpu.model, x.permute(0, 3, 1, 2).float().div(255.0).contiguous().cuda(),
+                  bn_std=0.5)
+        state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}
+        gpu.val(data=str(data), imgsz=IMGSZ, batch=16)
+        runs["card"] = gpu.validator.rows
+        gpu.model = Float64(copy.deepcopy(gpu.model).double())
+        gpu.val(data=str(data), imgsz=IMGSZ, batch=16)
+        runs["card64"] = gpu.validator.rows
+        for name, dtype in (("cpu32", torch.float32), ("cpu64", torch.float64)):
+            cpu = YOLOv10("yolov10s.yaml", device="cpu", seed=0)
+            cpu.model.load_state_dict(state)
+            cpu.model.to(dtype)
+            cpu.val(data=str(data), imgsz=IMGSZ, batch=16)
+            runs[name] = cpu.validator.rows
+    gaps = {who: nearest_rows(runs["cpu64"], runs[who], SCORE_TOL)
+            for who in ("card", "cpu32", "card64")}
+    coords = ("x1", "y1", "x2", "y2")
+    worst = max(gaps["card"])
+    at = {who: next(g for g in gaps[who] if g[1:3] == worst[1:3]) for who in gaps}
+    print(f"[val2d-std05] calibrated on 16 images at BatchNorm std 0.5, {len(gaps['card'])} "
+          f"rows of the float64 CPU run clear of the cutoffs: the card's worst is image "
+          f"{worst[1]} ref[{worst[2]}] {coords[worst[3]]}, {worst[0]:.4g} px; on that row the "
+          f"CPU float32 {at['cpu32'][0]:.4g} px, the card float64 {at['card64'][0]:.4g} px; "
+          f"worst over all rows: " + ", ".join(
+              f"{who} {max(g)[0]:.4g} px, score {max(r[4] for r in g):.3g}, "
+              f"{sum(r[0] > BOX_TOL for r in g)} rows beyond {BOX_TOL} px"
+              for who, g in gaps.items()) + f" ({card})")
+
+
+LEARN3D_RES = [320, 96]  # W, H: the JAX learn-proof's resolution
+LEARN3D_BARS = {"mAP50": 0.9, "metrics/3D": 7.0}  # tests/test_overfit_ap.py:97-103
+LEARN3D_JAX = {"mAP50": 0.995, "metrics/3D": 14.0}  # JAX's calibration at this recipe
+
+
+def learn_tree(root: Path, n: int = 8, seed: int = 0, n_objects: int = 2,
+               z_range=(8.0, 25.0)) -> Path:
+    """A numpy mirror of tests/_helpers.py ``make_kitti_tree(draw_boxes=True,
+    n_objects=2, z_range=(8, 25), val_all=True)``: the same draws in the same
+    order, noise frames of 375x1242 with each Car painted as a solid
+    rectangle in its own colour (overlapping ones skipped), KITTI's P2, every
+    frame in both splits. The helper writes its frames with cv2 (BGR order),
+    so the PNG holds the channels reversed, as its readers see them."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    for sub in ("image_2", "label_2", "calib"):
+        (root / "training" / sub).mkdir(parents=True)
+    (root / "ImageSets").mkdir()
+    fu, cu, cv = 721.5377, 609.5593, 172.854
+    ids = []
+    for i in range(n):
+        img = rng.uniform(0, 255, (375, 1242, 3)).astype(np.uint8)
+        lines, drawn = [], []
+        for j in range(n_objects):
+            z = float(rng.uniform(*z_range))
+            y, (h, w, l) = 1.65, (1.5, 1.65, 3.9)
+            x = float(rng.uniform(-8, 8))
+            ry = float(rng.uniform(-math.pi, math.pi))
+            u, v = fu * x / z + cu, fu * (y - h / 2) / z + cv
+            bw, bh = fu * l / z, fu * h / z
+            x1, y1 = max(u - bw / 2, 0), max(v - bh / 2, 0)
+            x2, y2 = min(u + bw / 2, 1241), min(v + bh / 2, 374)
+            if x2 - x1 < 10 or y2 - y1 < 10:
+                continue
+            if any(x1 < px2 and px1 < x2 and y1 < py2 and py1 < y2
+                   for px1, py1, px2, py2 in drawn):
+                continue
+            drawn.append((x1, y1, x2, y2))
+            img[int(y1):int(y2), int(x1):int(x2)] = np.array(
+                [40 + 70 * j, 255 - 80 * j, (60 + 90 * i + 50 * j) % 256], np.uint8)
+            alpha = ry - math.atan2(u - cu, fu)
+            lines.append(f"Car 0.0 0 {alpha:.2f} {x1:.2f} {y1:.2f} {x2:.2f} {y2:.2f} "
+                         f"{h:.2f} {w:.2f} {l:.2f} {x:.2f} {y:.2f} {z:.2f} {ry:.2f}")
+        write_png(root / "training" / "image_2" / f"{i:06d}.png",
+                  np.ascontiguousarray(img[..., ::-1]))
+        (root / "training" / "label_2" / f"{i:06d}.txt").write_text("\n".join(lines) + "\n")
+        (root / "training" / "calib" / f"{i:06d}.txt").write_text(
+            f"P2: {KITTI_P2}\nR0_rect: 1 0 0 0 1 0 0 0 1\n"
+            "Tr_velo_to_cam: 1 0 0 0 0 1 0 0 0 0 1 0\n")
+        ids.append(f"{i:06d}")
+    for split in ("train", "val"):
+        (root / "ImageSets" / f"{split}.txt").write_text("\n".join(ids) + "\n")
+    yaml_path = root / "kitti_mini.yaml"
+    yaml_path.write_text(f"path: {root}\ntrain: ImageSets/train.txt\nval: ImageSets/val.txt\n"
+                         "names:\n  0: Car\n  1: Pedestrian\n  2: Cyclist\n")
+    return yaml_path
+
+
+def phase_learn3d(card: str) -> dict:
+    """The JAX package's 3D learn-proof (tests/test_overfit_ap.py:58-103),
+    key for key, through the port on the card: yolov10n-3D trained on 8
+    synthetic KITTI frames at 320x96 for 300 epochs (AdamW, lr0 0.003, lrf
+    0.2, no warmup, flip, crop or mixup, float32, nbs 8, no validation
+    during the run), saving checkpoints; then ``YOLOv10(last.ckpt)`` is
+    validated on the same frames and must reach mAP50 >= 0.9 and metrics/3D
+    >= 7.0 (JAX calibrated 0.995 and 14.0 here); so must the file stripped
+    to float16 (``strip_optimizer``), whose metrics are printed beside the
+    float32 file's."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.utils.checkpoint import strip_optimizer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = learn_tree(Path(tmp) / "kitti")
+        model = YOLOv10("yolov10n_3D.yaml", device="cuda")
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model.train(data=str(data), epochs=300, imgsz=LEARN3D_RES,
+                    kitti_resolution=LEARN3D_RES, batch=8, workers=2, warmup_epochs=0.0,
+                    fliplr=0.0, random_crop=0.0, mixup=0.0, patience=10000, amp=False,
+                    lr0=0.003, lrf=0.2, optimizer="AdamW", nbs=8, val_period=10**6,
+                    max_depth_threshold=60.0, save=True, save_dir=str(Path(tmp) / "run"))
+        wall = time.perf_counter() - t0
+        with open(Path(tmp) / "run" / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        print(f"[learn3d] YOLOv10-n-3D 320x96, 8 frames, batch 8, 300 epochs (AdamW lr0 0.003, "
+              f"float32, TF32 off): {wall:.1f} s ({wall / len(rows) * 1e3:.1f} ms an epoch, "
+              f"checkpoints included; {card}); loss by epoch: " + ", ".join(
+                  f"{r['epoch']}: {float(r['loss']):.4f}" for r in rows
+                  if int(r["epoch"]) % 50 == 0 or int(r["epoch"]) == len(rows) - 1))
+        last = Path(tmp) / "run" / "weights" / "last.ckpt"
+        print(f"[learn3d] last.ckpt {last.stat().st_size / 2**20:.1f} MiB, written every epoch")
+        t0 = time.perf_counter()
+        res = YOLOv10(str(last), device="cuda").val(data=str(data), batch=8,
+                                                     kitti_resolution=LEARN3D_RES,
+                                                     save_dir=str(Path(tmp) / "val"))
+        got = {k: float(res[k]) for k in LEARN3D_BARS}
+        print(f"[learn3d] YOLOv10(last.ckpt).val on the 8 frames ({time.perf_counter() - t0:.1f} "
+              f"s): mAP50 {got['mAP50']:.4f} (bar {LEARN3D_BARS['mAP50']}, JAX "
+              f"{LEARN3D_JAX['mAP50']}), metrics/3D {got['metrics/3D']:.4f} (bar "
+              f"{LEARN3D_BARS['metrics/3D']}, JAX {LEARN3D_JAX['metrics/3D']}), mAP50-95 "
+              f"{float(res['mAP50-95']):.4f}; hand-kernel launches {dict(launch_counts)}")
+        half = Path(tmp) / "last_fp16.ckpt"
+        strip_optimizer(last, half)
+        res16 = YOLOv10(str(half), device="cuda").val(data=str(data), batch=8,
+                                                      kitti_resolution=LEARN3D_RES,
+                                                      save_dir=str(Path(tmp) / "val16"))
+        got16 = {k: float(res16[k]) for k in LEARN3D_BARS}
+        print(f"[learn3d] the file stripped to float16 ({half.stat().st_size / 2**20:.1f} MiB): "
+              + ", ".join(f"{k} {got16[k]:.4f} (float32 file {got[k]:.4f}, bar "
+                          f"{LEARN3D_BARS[k]})" for k in LEARN3D_BARS)
+              + f", mAP50-95 {float(res16['mAP50-95']):.4f} (float32 file "
+              f"{float(res['mAP50-95']):.4f}); phase {time.perf_counter() - t_phase:.1f} s")
+    missed = {f"{k}{tag}": v for tag, run in (("", got), (" float16", got16))
+              for k, v in run.items() if not v >= LEARN3D_BARS[k]}
+    if missed:
+        raise AssertionError(f"learn3d: the trained 3D net misses its bars {missed} "
+                             f"(bars {LEARN3D_BARS})")
+    return got
+
+
 SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "stem": "stem_conv",
-          "k1": "decode_detect"}
+          "k1": "decode_detect", "val2d-std05": "decode_detect"}
 
 
 def sweep_only(argv) -> int:
@@ -2404,8 +3022,9 @@ def sweep_only(argv) -> int:
     timings alone, with the ``yolov10_3d_torch`` package found under DIR. NAMES is a comma-separated
     subset of int8 (phase 3b, then K2 at both sites at B=1, 8 and 32 beside
     torch._int_mm), k2tiles (every tile K2 compiles at those six shapes),
-    stem (the stem at 640x640, B=1 and 32, beside cuDNN) and k1 (B=1 and
-    32), so that two checkouts' kernels are timed in one call on one card;
+    stem (the stem at 640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
+    32) and val2d-std05 (``val2d_std05_witness``), so that two checkouts'
+    kernels are timed in one call on one card;
     "serve" adds the device kernels of one float32 request (which builds
     every source)."""
     names = argv[argv.index("--sweep") + 1].split(",")
@@ -2429,6 +3048,8 @@ def sweep_only(argv) -> int:
         k2_sites()
     if "k2tiles" in names:
         k2_tile_sweep()
+    if "val2d-std05" in names:
+        val2d_std05_witness(card)
     if "serve" in names:
         request_kernels()
     print(card_line())
@@ -2440,22 +3061,33 @@ def main() -> int:
     if "--sweep" in sys.argv:
         return sweep_only(sys.argv)
     sys.path.insert(0, str(Path(__file__).resolve().parent))
+    if "--ckpt-pair" in sys.argv:  # the child process of [ckpt]
+        print(json.dumps(ckpt_pair(Path(sys.argv[sys.argv.index("--ckpt-pair") + 1]))))
+        return 0
     card = phase_card()
     import torch
 
     import yolov10_3d_torch  # noqa: F401  (fails outside a checkout of the repo)
 
+    def done(phase: str) -> None:
+        print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
+
     phase_build()
     kern = phase_kernels()
+    done("build, kernels")
     sweep = phase_int8_layers(card)
     serving, medians = phase_serving(card)
+    done("int8-layers, serve")
     print(f"[int8-layers] per forward, the {sweep[1]['launches']} K2, K3 and "
           f"int8_conv_f32 launches: B=1 {sweep[1]['ms']:.4f} ms, B=8 {sweep[8]['ms']:.4f} ms "
           f"of device time | request medians: b1_640_int8 {medians['b1_640_int8']:.2f} ms, "
           f"uniform_b8_int8 {medians['uniform_b8_int8']:.2f} ms")
     serve3d = phase_serve3d(card)
+    done("serve3d")
     server = phase_server(card)
+    done("server")
     phase_val3d(card)
+    done("val3d")
     failed = []
     try:  # the train phase runs even when the lockstep misses a bar; both are fatal
         phase_train_lockstep(card)
@@ -2468,10 +3100,23 @@ def main() -> int:
     except AssertionError as e:
         failed.append(f"train3d-lockstep: {e}")
         print(f"[train3d-lockstep] FAILED: {e}")
+    done("train-lockstep, train")
     phase_train3d(card)
+    done("train3d-lockstep, train3d")
     if failed:
         raise AssertionError("; ".join(failed))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = synthetic_set(Path(tmp) / "set", n=CKPT_SET, seed=1)
+        ckpt = phase_ckpt(card, data)
+        done("ckpt")
+        val2d = phase_val2d(card, data)
+        done("val2d")
+    phase_learn3d(card)
+    done("learn3d")
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}
+    for counts in (ckpt["train"], ckpt["reload"], val2d):  # K4 and K1; K1 and the stem; K1
+        for k in KERNELS:
+            launches[k] += counts[k]
     for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too
         launches[k] += serve3d[k]
     for k in SERVER_KERNELS:  # and the server's traffic K1 and the stem

@@ -322,7 +322,6 @@ def test_train_one_epoch_on_cpu(png_tree, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"val": True}, "9b"), ({"save": True}, "9d"), ({"resume": True}, "9d"),
     ({"device_aug": False}, "9a"), ({"degrees": 10.0}, "9a"), ({"close_mosaic": 1}, "9a"),
     ({"rect": True}, "9e"), ({"multi_scale": True}, "9e"), ({"cache": "ram"}, "9e"),
     ({"device": "0,1"}, "9g"),

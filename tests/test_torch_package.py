@@ -24,7 +24,7 @@ from yolov10_3d_torch.nn.quant import Int8Config
 
 PKG_DIR = Path(yolov10_3d_torch.__file__).resolve().parent
 REPO = PKG_DIR.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "yolov10_3d_tpu", "cv2", "PIL")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "msgpack", "yolov10_3d_tpu", "cv2", "PIL")
 SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG_DIR.rglob("*.py")) + ["chip_smoke.py"]
 
 # Blocks the forbidden names (a None entry in sys.modules makes an import
@@ -91,8 +91,29 @@ assert {{"mAP50", "metrics/3D", "fitness"}} <= set(out), out
                                  f"val: ImageSets/val.txt\\nnames:\\n  0: Car\\n")
 m3 = yolov10_3d_torch.YOLOv10("yolov10n_3D.yaml", device="cpu")
 st = m3.train(data=str(root / "kitti.yaml"), kitti_resolution=[192, 64], epochs=1, batch=2,
-              workers=0, save=False, save_dir=str(root / "train"))
+              workers=0, save_dir=str(root / "train"))
 assert st.step == 1 and "metrics/3D" in m3.trainer.last_metrics
+# its checkpoint (the port's own msgpack codec) reloads and validates
+r3 = yolov10_3d_torch.YOLOv10(str(root / "train" / "weights" / "last.ckpt"), device="cpu")
+out = r3.val(data=str(root / "kitti.yaml"), batch=2, kitti_resolution=[192, 64],
+             save_dir=str(root / "val2"))
+assert "metrics/3D" in out
+# 2D training with validation and checkpoints on the same frames, then the
+# reloaded best.ckpt's 2D validation
+(root / "yolo" / "images").mkdir(parents=True)
+(root / "yolo" / "labels").mkdir()
+for i in range(4):
+    (root / "yolo" / "images" / f"{{i}}.png").write_bytes(
+        (root / "training" / "image_2" / f"{{i % 2:06d}}.png").read_bytes())
+    (root / "yolo" / "labels" / f"{{i}}.txt").write_text("0 0.5 0.54 0.2 0.42\\n")
+(root / "yolo.yaml").write_text(f"path: {{root / 'yolo'}}\\ntrain: images\\nval: images\\n"
+                                "names:\\n  0: car\\n")
+m2 = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu")
+st = m2.train(data=str(root / "yolo.yaml"), imgsz=64, batch=2, epochs=1, device_aug=True,
+              close_mosaic=0, workers=0, save_dir=str(root / "train2d"))
+assert st.step == 2 and "mAP50" in m2.trainer.last_metrics
+r2 = yolov10_3d_torch.YOLOv10(str(root / "train2d" / "weights" / "best.ckpt"), device="cpu")
+assert "mAP50" in r2.val(data=str(root / "yolo.yaml"), imgsz=64, batch=2)
 # the dynamic-batching server over HTTP on localhost, a PNG body from above
 import json, urllib.request
 from yolov10_3d_torch.engine.server import InferenceServer
@@ -115,8 +136,11 @@ def test_port_imports_and_serves_without_jax():
     """In a subprocess: tests/conftest.py has already imported jax here. The
     subprocess also runs the training path (device augmentation, one train
     step), a 3D KITTI validation (the port's PNG reader, warp, validator
-    and AP40 evaluator), one epoch of 3D training with its validation, and
-    one request to the inference server (``engine/server.py``; every
+    and AP40 evaluator), one epoch of 3D training with its validation,
+    its checkpoint reloaded (the port's own msgpack codec: msgpack is
+    blocked too) and validated, one epoch of 2D training with validation
+    and its reloaded best.ckpt's 2D validation, and one request to the
+    inference server (``engine/server.py``; every
     module, ``cfg/cli.py`` too, is imported first)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
@@ -171,8 +195,8 @@ def test_unported_serving_options_raise(option):
 
 
 def test_checkpoints_and_unknown_sources_raise():
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        YOLOv10("yolov10s.ckpt", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 20"):  # the reference's .pt files
+        YOLOv10("yolov10s.pt", device="cpu")
     model = YOLOv10("yolov10n.yaml", device="cpu")
     with pytest.raises(NotImplementedError, match="unsupported source"):
         model.predict("bus.jpg")

@@ -317,8 +317,7 @@ def test_train3d_needs_a_card_unless_cpu_is_asked(kitti, monkeypatch):
 
 @pytest.mark.parametrize("option,item", [
     ({"distillation": True}, "item 14"), ({"fgdm_supervision": True}, "item 14"),
-    ({"dino_path": "dino.pt"}, "item 14"), ({"pretrained": "yolov10n.ckpt"}, "item 5-ckpt"),
-    ({"save": True}, "item 9d"), ({"resume": True}, "item 9d"), ({"rect": True}, "item 9e"),
+    ({"dino_path": "dino.pt"}, "item 14"), ({"rect": True}, "item 9e"),
     ({"multi_scale": True}, "item 9e"), ({"cache": "ram"}, "item 9e"),
     ({"device": "0,1"}, "item 9g"), ({"data": "waymo.yaml"}, "item 11b"),
     ({"data": "omni3d.yaml"}, "item 11b"),

@@ -168,8 +168,12 @@ def test_unported_val_paths_raise(val3d, tmp_path):
     for name in ("waymo.yaml", "omni3d.yaml"):
         with pytest.raises(NotImplementedError, match="11b"):
             TV.build_3d_dataset(name, tmp_path, "val")
-    with pytest.raises(NotImplementedError, match="9b"):
-        YOLOv10("yolov10n.yaml", device="cpu").val(data=str(val3d["yaml"]))
+    # a 2D model validates with the 2D validator (engine/validator.py)
+    from test_torch_augment import make_png_tree
+
+    out = YOLOv10("yolov10n.yaml", device="cpu").val(
+        data=str(make_png_tree(tmp_path / "pngs", n=4)), imgsz=64, batch=2)
+    assert {"mAP50", "mAP50-95", "fitness"} <= set(out) and "metrics/3D" not in out
     with pytest.raises(KeyError, match="imgsz"):
         val3d["port"].val(data=str(val3d["yaml"]), imgsz=320)
 

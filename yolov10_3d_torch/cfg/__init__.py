@@ -37,6 +37,8 @@ DEFAULTS: Dict[str, Any] = {
     "batch": 32,
     "save": True,
     "save_dir": None,
+    "save_period": -1,
+    "ckpt_period_steps": 0,
     "val": True,
     "cache": False,
     "workers": 4,

@@ -1,11 +1,14 @@
 """YOLO-format detection dataset and loader (port of
-``yolov10_3d_tpu/data/dataset.py``, tile mode: the host half of the
-device-augmentation path).
+``yolov10_3d_tpu/data/dataset.py``: tile mode, the host half of the
+device-augmentation path, and the validation mode).
 
-``YOLODataset`` returns, per sample, the four letterboxed uint8 tiles of a
-mosaic (the sample and three partners drawn from ``self.rng``) with their
-labels in tile-frame pixels; ``ops/device_aug.py`` does the rest on the
-device. ``DataLoader`` batches them in a seeded per-epoch order.
+In tile mode (``augment=True``) ``YOLODataset`` returns, per sample, the
+four letterboxed uint8 tiles of a mosaic (the sample and three partners
+drawn from ``self.rng``) with their labels in tile-frame pixels;
+``ops/device_aug.py`` does the rest on the device. In validation mode
+(``augment=False``) it returns the image letterboxed without upscaling and
+its labels padded to ``max_boxes``. ``DataLoader`` batches either, in a
+seeded per-epoch order or in file order.
 
 Images are decoded without cv2 or PIL: 8-bit PNG only (``decode_png``).
 """
@@ -120,12 +123,14 @@ def _load_image(path: str) -> np.ndarray:
 
 
 class YOLODataset:
-    """Detection dataset over YOLO-format labels, in tile mode: item ``i`` is
-    {tiles (4, H, W, 3) uint8, tile_labels (4, M, 5) cls + xyxy px in the
-    tile frame, tile_mask (4, M) bool} for the mosaic of sample i and three
-    partners drawn from ``self.rng``. ``img_path`` is a directory of images
-    or a .txt list of image paths; labels live under the parallel ``labels``
-    directory."""
+    """Detection dataset over YOLO-format labels. With ``augment`` (tile
+    mode), item ``i`` is {tiles (4, H, W, 3) uint8, tile_labels (4, M, 5) cls
+    + xyxy px in the tile frame, tile_mask (4, M) bool} for the mosaic of
+    sample i and three partners drawn from ``self.rng``; without, {img (H, W,
+    3) uint8 letterboxed to imgsz without upscaling, gt_labels (M,), gt_bboxes
+    (M, 4) normalized xywh, mask_gt (M,), im_id} (the JAX validation item).
+    ``img_path`` is a directory of images or a .txt list of image paths;
+    labels live under the parallel ``labels`` directory."""
 
     def __init__(
         self,
@@ -136,12 +141,14 @@ class YOLODataset:
         fraction: float = 1.0,
         single_cls: bool = False,
         seed: int = 0,
+        augment: bool = True,
     ):
         hyp = dict(hyp or {})
-        if not hyp.get("mosaic", 1.0) > 0:
+        if augment and not hyp.get("mosaic", 1.0) > 0:
             raise NotImplementedError(
-                "YOLODataset runs in tile mode only (mosaic > 0); the host augmentation and "
-                "validation paths are ROADMAP queue 1, items 9a and 9b")
+                "YOLODataset trains in tile mode only (mosaic > 0); the host augmentation "
+                "path is ROADMAP queue 1, item 9a")
+        self.augment = augment
         self.imgsz = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
         self.hyp = hyp
         self.max_boxes = max_boxes
@@ -254,7 +261,33 @@ class YOLODataset:
     def tiles_item(self, i: int) -> Dict[str, np.ndarray]:
         return self.load_tiles(self.tile_indices(i))
 
-    __getitem__ = tiles_item
+    def val_item(self, i: int) -> Dict[str, np.ndarray]:
+        """Image ``i`` letterboxed to imgsz without upscaling, its labels in
+        the fixed (max_boxes, ...) layout."""
+        img, labels = self._raw(i)
+        img, ratio, (dw, dh) = letterbox(img, self.imgsz, scaleup=False)
+        if len(labels):
+            labels = labels.copy()
+            labels[:, [1, 3]] = labels[:, [1, 3]] * ratio + dw
+            labels[:, [2, 4]] = labels[:, [2, 4]] * ratio + dh
+        h, w = img.shape[:2]
+        M = self.max_boxes
+        gt_labels = np.zeros((M,), np.int32)
+        gt_bboxes = np.zeros((M, 4), np.float32)
+        mask = np.zeros((M,), bool)
+        n = min(len(labels), M)
+        if n:
+            lab = labels[:n]
+            gt_labels[:n] = lab[:, 0].astype(np.int32)
+            xyxy = lab[:, 1:5]
+            xywh = np.concatenate([(xyxy[:, :2] + xyxy[:, 2:]) / 2, xyxy[:, 2:] - xyxy[:, :2]], -1)
+            gt_bboxes[:n] = xywh / np.array([w, h, w, h], np.float32)
+            mask[:n] = (xywh[:, 2] > 1) & (xywh[:, 3] > 1)
+        return {"img": np.ascontiguousarray(img), "gt_labels": gt_labels, "gt_bboxes": gt_bboxes,
+                "mask_gt": mask, "im_id": np.asarray(i, np.int64)}
+
+    def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
+        return self.tiles_item(i) if self.augment else self.val_item(i)
 
 
 class _Failure:
@@ -266,9 +299,10 @@ _END = object()
 
 
 class DataLoader:
-    """Training batches of a tile-mode dataset as torch tensors (pinned when
-    asked), in the order of ``np.random.default_rng(seed + epoch)``, the
-    short last batch dropped.
+    """Batches of a ``YOLODataset`` as torch tensors (pinned when asked): in
+    the order of ``np.random.default_rng(seed + epoch)`` with ``shuffle``,
+    else in file order; the short last batch dropped with ``drop_last``
+    (training), kept without (validation).
 
     ``workers=0`` loads in the caller's thread. Otherwise a producer thread
     draws every sample's mosaic partners in order (so a batch does not
@@ -279,25 +313,33 @@ class DataLoader:
     PREFETCH = 2
 
     def __init__(self, dataset: YOLODataset, batch_size: int, seed: int = 0, workers: int = 4,
-                 pin_memory: bool = False):
+                 pin_memory: bool = False, shuffle: bool = True, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.workers = max(0, int(workers))
         self.pin_memory = pin_memory
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.epoch = 0
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self._batches())
 
     def _batches(self) -> List[np.ndarray]:
         idx = np.arange(len(self.dataset))
-        np.random.default_rng(self.seed + self.epoch).shuffle(idx)
-        return [idx[b * self.batch_size:(b + 1) * self.batch_size] for b in range(len(self))]
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        bs = self.batch_size
+        batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
+        return [b for b in batches if len(b) == bs] if self.drop_last else batches
 
     def _collate(self, sel: np.ndarray, map_fn=map) -> Dict[str, torch.Tensor]:
-        idxs = [self.dataset.tile_indices(int(i)) for i in sel]  # draws in order
-        items = list(map_fn(self.dataset.load_tiles, idxs))
+        if self.dataset.augment:
+            idxs = [self.dataset.tile_indices(int(i)) for i in sel]  # draws in order
+            items = list(map_fn(self.dataset.load_tiles, idxs))
+        else:
+            items = list(map_fn(self.dataset.val_item, [int(i) for i in sel]))
         out = {k: torch.from_numpy(np.stack([it[k] for it in items])) for k in items[0]}
         return {k: v.pin_memory() for k, v in out.items()} if self.pin_memory else out
 

@@ -5,13 +5,19 @@ hooks the 3D trainer, ``engine/trainer3d.py``, overrides).
 The host loop builds the model with the dataset's nc and the head's bias
 init (``init_params``), the datasets (``build_dataset``) and the training
 loader, the optimizer and the train step (its loss from ``make_loss``);
-then, per epoch, it steps through the loader in a seeded order with the
-epoch's extra batch keys (``epoch_batch_extras``), hands the epoch's mean
-loss terms to ``on_epoch_losses``, validates every ``val_period`` epochs
-(``get_validator``, ``run_val``), appends the terms, lr and validation
-metrics to ``results.csv``, tracks the best fitness and stops early after
-``patience`` epochs without a better one. The options a task has not ported
-raise ``NotImplementedError`` naming their ROADMAP item (queue 1, item 9).
+with ``resume`` it restores the model, EMA, optimizer and step from
+``last.ckpt`` and re-enters the saved epoch, skipping the batches a
+mid-epoch save recorded. Then, per epoch, it steps through the loader in a
+seeded order with the epoch's extra batch keys (``epoch_batch_extras``),
+hands the epoch's mean loss terms to ``on_epoch_losses``, validates the EMA
+weights every ``val_period`` epochs (``get_validator``, ``run_val``),
+appends the terms, lr and validation metrics to ``results.csv``, tracks the
+best fitness, writes ``last.ckpt``, ``best.ckpt`` and every ``save_period``
+epochs ``epoch{n}.ckpt`` (and every ``ckpt_period_steps`` micro-steps a
+mid-epoch ``last.ckpt``) in the JAX package's format on a writer thread,
+and stops early after ``patience`` epochs without a better fitness. The
+options a task has not ported raise ``NotImplementedError`` naming their
+ROADMAP item (queue 1, item 9).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import logging
 import math
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -36,6 +42,9 @@ from ..ops.device_aug import device_train_augment
 from ..train.loss import v10_detect_loss
 from ..train.optim import Optimizer, resolve_auto_optimizer
 from ..train.state import TrainState, make_train_step
+from ..utils.checkpoint import AsyncCheckpointer, host_copy, load_checkpoint
+from ..utils.weights import flax_to_torch_state_dict, load_flax_variables
+from .validator import DetectionValidator
 
 LOGGER = logging.getLogger(__name__)
 TILE_KEYS = ("tiles", "tile_labels", "tile_mask")
@@ -48,8 +57,6 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 def check_ported(args: Dict[str, Any], task: str = "detect") -> None:
     """Raise for every training option of the JAX trainer that the port
     lacks for ``task`` ("detect" or "detect3d")."""
-    if args["save"] or args["resume"]:
-        raise _not_ported("save=True / resume (checkpoints)", "9d")
     for k in ("rect", "multi_scale", "cache"):
         if args[k]:
             raise _not_ported(f"{k}={args[k]!r}", "9e")
@@ -58,8 +65,6 @@ def check_ported(args: Dict[str, Any], task: str = "detect") -> None:
         raise _not_ported(f"multi-GPU training (device={dev!r})", "9g")
     if task != "detect":
         return
-    if args["val"]:
-        raise _not_ported("val=True (the validator)", "9b")
     if not args["device_aug"] or any(float(args[k] or 0.0) for k in
                                      ("degrees", "shear", "perspective")):
         raise _not_ported("the host augmentation path (device_aug=False, or non-zero "
@@ -104,6 +109,8 @@ class DetectionTrainer:
         self.device = resolve_device(args["device"] or "cuda")
         self.save_dir = Path(args["save_dir"] or "runs/train")
         self.state: Optional[TrainState] = None
+        self._ckpt_writer: Optional[AsyncCheckpointer] = None
+        self.snapshot_ms: List[float] = []  # the train thread's part of each save
 
     # -- the hooks a task overrides --
     def init_params(self, model, spec) -> None:
@@ -112,7 +119,9 @@ class DetectionTrainer:
 
     def build_dataset(self, path, mode: str):
         args = self.args
-        return YOLODataset(path, imgsz=args["imgsz"], hyp=args, fraction=args["fraction"],
+        train = mode == "train"
+        return YOLODataset(path, imgsz=args["imgsz"], augment=train, hyp=args,
+                           fraction=args["fraction"] if train else 1.0,
                            single_cls=args["single_cls"], seed=args["seed"])
 
     def build_loader(self, dataset, batch: int):
@@ -157,14 +166,24 @@ class DetectionTrainer:
     def on_epoch_losses(self, items: Dict[str, float]) -> None:
         """The epoch's mean loss terms, after its last step."""
 
+    def extra_ckpt_meta(self) -> Dict[str, Any]:
+        """Task state (JSON) merged into every checkpoint's meta."""
+        return {}
+
+    def on_resume_meta(self, meta: Dict[str, Any]) -> None:
+        """Restore the task state of ``extra_ckpt_meta`` from a resumed meta."""
+
     def get_validator(self, model, names):
         """The validator of ``model`` (the EMA weights) for ``run_val``."""
-        raise _not_ported("val=True (the validator)", "9b")
+        return DetectionValidator(model, self.spec, self.args, names)
 
     def run_val(self, state: TrainState, val_ds, batch_size: int) -> Dict[str, float]:
         """The validation metrics of the EMA weights, with a ``fitness`` key;
         the validator stays on ``self.validator``."""
-        raise _not_ported("val=True (the validator)", "9b")
+        loader = DataLoader(val_ds, batch_size, shuffle=False, drop_last=False,
+                            workers=self.args["workers"], pin_memory=self.device.type == "cuda")
+        self.validator = self.get_validator(self.eval_model(), self.names)
+        return self.validator(loader)
 
     # -- main --
     def train(self) -> TrainState:
@@ -200,45 +219,129 @@ class DetectionTrainer:
                                   preprocess_fn=self.make_preprocess_fn(),
                                   loss_fn=self.make_loss(spec), nhwc=self.nhwc)
         state = self.state = TrainState.create(model, opt)
+
+        start_epoch, skip_batches, resumed_best = 0, 0, None
+        if args["resume"]:
+            cand = self.save_dir / "weights" / "last.ckpt"
+            path = args["resume"] if isinstance(args["resume"], str) else str(cand)
+            if Path(path).exists():
+                meta = self.load_resume(path, state)
+                start_epoch = int(meta.get("epoch", -1)) + 1
+                resumed_best = meta.get("best_fitness")
+                # a mid-epoch save: re-enter its epoch and skip the batches it
+                # had run (the loader's order is seeded by the epoch)
+                skip_batches = int(meta.get("batches_done", 0))
+                if skip_batches:
+                    start_epoch = int(meta.get("epoch", start_epoch))
+                self.on_resume_meta(meta)
+
         self.validator = None
         stopper = EarlyStopping(args["patience"])
-        best_fitness = None
+        # a resumed best is kept, so that a worse first epoch does not
+        # overwrite best.ckpt
+        best_fitness = resumed_best if resumed_best else None
+        base_meta = {"model_yaml": str(args["model"]), "nc": spec.nc,
+                     "names": {int(k): v for k, v in self.names.items()}}
+        weights = self.save_dir / "weights"
+        ckpt_every = int(args["ckpt_period_steps"] or 0)
 
         csv_path = self.save_dir / "results.csv"
         self.save_dir.mkdir(parents=True, exist_ok=True)
         epochs = args["epochs"]
-        for epoch in range(epochs):
-            if (args["close_mixup"] and epoch == epochs - args["close_mixup"]
-                    and hasattr(train_ds, "mixup")):
-                train_ds.mixup = 0.0  # mixup's own closing epoch, apart from close_mosaic
-                LOGGER.info("Disabled mixup on dataset")
-            self.epoch = epoch
-            loader.epoch = epoch  # a fresh seeded order per epoch
-            extras = self.epoch_batch_extras(epoch)
-            t0 = time.time()
-            sums, n_run = None, 0  # running sums stay on the device
-            for b in loader:
-                state, metrics = step_fn(state, self.to_device({**b, **extras}))
-                sums = metrics if sums is None else {k: sums[k] + v for k, v in metrics.items()}
-                n_run += 1
-            agg = {k: float(v) / n_run for k, v in sums.items()} if sums else {}
-            if not all(math.isfinite(v) for v in agg.values()):
-                LOGGER.warning(f"non-finite loss terms at epoch {epoch}: {agg}")
-            self.on_epoch_losses(agg)
-            row = {"epoch": epoch, "time": time.time() - t0, **agg, "lr": opt.lr_fn(state.step)}
-            fitness = 0.0
-            if val_ds is not None and (epoch + 1) % max(args["val_period"], 1) == 0:
-                results = self.run_val(state, val_ds, batch)
-                fitness = results["fitness"]
-                row.update({k: v for k, v in results.items() if np.isscalar(v)})
-            self.last_metrics = row
-            self._write_csv(csv_path, row)
-            if best_fitness is None or fitness > best_fitness:
-                best_fitness = fitness
-            if stopper(epoch, fitness):
-                break
+        try:
+            for epoch in range(start_epoch, epochs):
+                if (args["close_mixup"] and epoch == epochs - args["close_mixup"]
+                        and hasattr(train_ds, "mixup")):
+                    train_ds.mixup = 0.0  # mixup's own closing epoch, apart from close_mosaic
+                    LOGGER.info("Disabled mixup on dataset")
+                self.epoch = epoch
+                loader.epoch = epoch  # a fresh seeded order per epoch
+                extras = self.epoch_batch_extras(epoch)
+                t0 = time.time()
+                sums, n_run, nb = None, 0, 0  # running sums stay on the device
+                for b in loader:
+                    nb += 1  # the loader position, skipped batches included
+                    if skip_batches > 0:
+                        skip_batches -= 1
+                        continue
+                    state, metrics = step_fn(state, self.to_device({**b, **extras}))
+                    sums = metrics if sums is None else {k: sums[k] + v
+                                                         for k, v in metrics.items()}
+                    n_run += 1
+                    if ckpt_every and nb % ckpt_every == 0 and args["save"]:
+                        self.save_ckpt(weights / "last.ckpt", state, {
+                            "epoch": epoch, "batches_done": nb,
+                            "best_fitness": best_fitness or 0.0, **base_meta,
+                            **self.extra_ckpt_meta()})
+                # the terms in sorted order, as JAX's device_get of the sums gives them
+                agg = {k: float(sums[k]) / n_run for k in sorted(sums)} if sums else {}
+                if not all(math.isfinite(v) for v in agg.values()):
+                    LOGGER.warning(f"non-finite loss terms at epoch {epoch}: {agg}")
+                self.on_epoch_losses(agg)
+                row = {"epoch": epoch, "time": time.time() - t0, **agg,
+                       "lr": opt.lr_fn(state.step)}
+                fitness = 0.0
+                if val_ds is not None and (epoch + 1) % max(args["val_period"], 1) == 0:
+                    results = self.run_val(state, val_ds, batch)
+                    fitness = results["fitness"]
+                    row.update({k: v for k, v in results.items() if np.isscalar(v)})
+                self.last_metrics = row
+                self._write_csv(csv_path, row)
+                # the meta is built after the update, so that last.ckpt never
+                # records a best that a resume would overwrite best.ckpt with
+                improved = best_fitness is None or fitness > best_fitness
+                if improved:
+                    best_fitness = fitness
+                if args["save"]:
+                    meta = {"epoch": epoch, "best_fitness": best_fitness or 0.0, **base_meta,
+                            "train_args": {k: v for k, v in args.items() if isinstance(
+                                v, (int, float, str, bool, list, type(None)))},
+                            **self.extra_ckpt_meta()}
+                    self.save_ckpt(weights / "last.ckpt", state, meta)
+                    if improved:
+                        self.save_ckpt(weights / "best.ckpt", state, meta)
+                    if args["save_period"] > 0 and (epoch + 1) % args["save_period"] == 0:
+                        self.save_ckpt(weights / f"epoch{epoch}.ckpt", state, meta)
+                if stopper(epoch, fitness):
+                    break
+        finally:
+            if self._ckpt_writer is not None:
+                self._ckpt_writer.close()  # every write on disk, the thread joined
         self.best_fitness = best_fitness or 0.0
         return state
+
+    @property
+    def ckpt_writer(self) -> AsyncCheckpointer:
+        if self._ckpt_writer is None or self._ckpt_writer.closed:
+            self._ckpt_writer = AsyncCheckpointer()
+        return self._ckpt_writer
+
+    def save_ckpt(self, path, state: TrainState, meta: Dict[str, Any]) -> None:
+        """Checkpoint ``state`` to ``path``: the flax-layout trees copied to
+        the host here (the only part the train loop pays, kept in
+        ``snapshot_ms``: one device-to-host copy per leaf), their encoding
+        and the atomic write on the writer thread."""
+        t0 = time.perf_counter()
+        trees = host_copy(state.checkpoint_trees())
+        self.snapshot_ms.append((time.perf_counter() - t0) * 1e3)
+        self.ckpt_writer.submit(path, **trees, meta={**meta, "step": int(state.step)})
+
+    @staticmethod
+    def load_resume(path, state: TrainState) -> Dict[str, Any]:
+        """Restore the optimizer, the model (parameters and BN statistics),
+        the EMA and the step of ``state`` from a checkpoint; returns its
+        meta. A checkpoint of the JAX package (an optax ``opt_state``)
+        raises ``ValueError`` before anything is restored: only its model
+        can move to the port."""
+        ckpt = load_checkpoint(path)
+        if ckpt.get("opt_state"):
+            state.optimizer.load_state_tree(ckpt["opt_state"])
+        load_flax_variables(state.model, {"params": ckpt["params"],
+                                          "batch_stats": ckpt.get("batch_stats") or {}})
+        state.load_ema(flax_to_torch_state_dict({"params": ckpt.get("ema_params")
+                                                 or ckpt["params"]}))
+        state.step = int(ckpt["meta"].get("step", 0))
+        return ckpt["meta"]
 
     def eval_model(self) -> torch.nn.Module:
         """A copy of the trained model carrying the EMA weights, in eval mode."""

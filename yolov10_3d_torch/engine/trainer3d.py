@@ -5,12 +5,13 @@ KITTI's training split (flip, crop and mixup on the host, optional FGDM
 depth-map targets) in a seeded shuffled order, the dual 3D loss
 (``train/loss3d.py``: one2many at ``tal_topk``, one2one at top-1), HTL's
 per-epoch loss weights (``htl``), the FGDM loss (``fgdm_loss``, with a
-``fgdm_predictor: true`` model YAML), the 3D head's bias init, and KITTI AP40
+``fgdm_predictor: true`` model YAML), the 3D head's bias init, a pretrained
+backbone grafted from a ``.ckpt`` (``pretrained=path``), KITTI AP40
 validation of the EMA weights every ``val_period`` epochs (fitness
-``metrics/3D``). ``device_aug`` and ``close_mosaic`` do nothing here, as in
-the JAX trainer: the KITTI dataset makes neither tiles nor mosaics. The
-options not ported yet raise ``NotImplementedError`` naming their ROADMAP
-item.
+``metrics/3D``), and HTL's state in every checkpoint's meta.
+``device_aug`` and ``close_mosaic`` do nothing here, as in the JAX trainer:
+the KITTI dataset makes neither tiles nor mosaics. The options not ported
+yet raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from ..train.fgdm import foreground_depth_map_loss
 from ..train.htl import HierarchicalTaskLearning
 from ..train.loss3d import ITEM_KEYS, detect3d_loss
 from ..train.state import TrainState
+from ..utils.weights import graft_backbone
 from .trainer import DetectionTrainer, _not_ported
 from .validator3d import Detection3DValidator, build_3d_dataset
 
@@ -41,9 +43,8 @@ def check_ported_3d(args: Dict[str, Any]) -> None:
         if args[k]:
             raise _not_ported(f"{k}={args[k]!r} (the DINO teacher)", "14")
     pretrained = args["pretrained"]
-    if isinstance(pretrained, str) and pretrained.endswith((".ckpt", ".pt")):
-        raise _not_ported(f"pretrained={pretrained!r} (backbone grafting from a checkpoint)",
-                          "5-ckpt")
+    if isinstance(pretrained, str) and pretrained.endswith(".pt"):
+        raise _not_ported(f"pretrained={pretrained!r} (the reference's .pt checkpoints)", "20")
     data = str(args["data"] or "").lower()
     if "waymo" in data or "omni" in data:
         raise _not_ported(f"the Waymo and Omni3D datasets ({args['data']})", "11b")
@@ -62,7 +63,16 @@ class Detection3DTrainer(DetectionTrainer):
         super().__init__(args)
 
     def init_params(self, model, spec) -> None:
+        """The 3D head's bias init; with ``pretrained=<.ckpt>``, every
+        non-head layer's leaves of matching name and shape copied from that
+        checkpoint's model (the JAX ``graft_backbone``)."""
         detect3d_bias_init(model.model[spec.head_index], spec.nc, spec.strides)
+        pretrained = self.args["pretrained"]
+        if isinstance(pretrained, str) and pretrained.endswith(".ckpt"):
+            from .model import YOLOv10
+
+            src = YOLOv10(pretrained, device="cpu")
+            self.grafted = graft_backbone(model, src.model.state_dict(), spec.head_index)
 
     def build_dataset(self, path, mode: str):
         return build_3d_dataset(self.args["data"], path, mode, self.args)
@@ -113,6 +123,22 @@ class Detection3DTrainer(DetectionTrainer):
             self._htl_weights = self._htl.compute_weight(np.zeros(len(ITEM_KEYS)), 0)
             self._htl.past_losses.clear()
         return {"htl_weights": self._htl_weights}
+
+    def extra_ckpt_meta(self) -> Dict[str, Any]:
+        if not hasattr(self, "_htl"):
+            return {}
+        return {"htl_state": self._htl.state_dict(),
+                "htl_epoch": int(getattr(self, "_htl_epoch", 0)),
+                "htl_weights": [float(v) for v in self._htl_weights]}
+
+    def on_resume_meta(self, meta: Dict[str, Any]) -> None:
+        """Continue the HTL ramp from a resumed checkpoint."""
+        if not meta.get("htl_state") or not self.args["htl"]:
+            return
+        self._htl = HierarchicalTaskLearning(max_epochs=int(self.args["epochs"]))
+        self._htl.load_state_dict(meta["htl_state"])
+        self._htl_epoch = int(meta.get("htl_epoch", 0))
+        self._htl_weights = np.asarray(meta.get("htl_weights"), np.float32)
 
     def on_epoch_losses(self, items: Dict[str, float]) -> None:
         if hasattr(self, "_htl"):

@@ -17,7 +17,7 @@ port uses torch.optim itself and keeps the chain's semantics around it:
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import numpy as np
 import torch
@@ -171,6 +171,52 @@ class Optimizer:
         self.updates += 1
         self.mini_step = 0
         return True
+
+    def state_tree(self) -> Dict[str, Any]:
+        """The whole optimizer state as a checkpoint's ``opt_state`` (the live
+        tensors, not copies): torch.optim's per-parameter state by flat index
+        over the three groups (AdamW exp_avg, exp_avg_sq, step; SGD
+        momentum_buffer), the gradient running mean ``acc`` and the
+        ``updates`` and ``mini_step`` counts. String keys and array leaves,
+        under ``torch_optim``: the JAX package's readers parse it, and the
+        key tells it from an optax state."""
+        state = self.opt.state_dict()["state"]
+        return {"torch_optim": {
+            "n_params": np.asarray(len(self.params), np.int64),
+            "state": {str(i): {k: v.detach() for k, v in s.items()
+                               if isinstance(v, torch.Tensor)} for i, s in state.items()},
+            "acc": {str(i): a.detach() for i, a in enumerate(self._acc)},
+            "updates": np.asarray(self.updates, np.int64),
+            "mini_step": np.asarray(self.mini_step, np.int64),
+        }}
+
+    def load_state_tree(self, tree: Dict[str, Any]) -> None:
+        """Restore ``state_tree``'s output (as a checkpoint gives it back),
+        checking the parameter count and every state's shape."""
+        if "torch_optim" not in tree:
+            raise ValueError(
+                "this opt_state is not the port's (an optax state written by the JAX "
+                "package): resuming would restart the optimizer's moments, so it is refused; "
+                "only the model moves across packages: YOLOv10(path) or pretrained=path")
+        t = tree["torch_optim"]
+        if int(t["n_params"]) != len(self.params):
+            raise ValueError(f"opt_state holds {int(t['n_params'])} parameters, the model "
+                             f"{len(self.params)}")
+        state = {}
+        for i, s in t["state"].items():
+            p = self.params[int(i)]
+            for k, v in s.items():
+                if np.ndim(v) and tuple(np.shape(v)) != tuple(p.shape):
+                    raise ValueError(f"opt_state {i}.{k}: shape {tuple(np.shape(v))}, "
+                                     f"parameter {tuple(p.shape)}")
+            state[int(i)] = {k: torch.from_numpy(np.array(v)) for k, v in s.items()}
+        self.opt.load_state_dict({"state": state,
+                                  "param_groups": self.opt.state_dict()["param_groups"]})
+        acc = t.get("acc") or {}
+        self._acc = [torch.from_numpy(np.array(acc[str(i)])).to(p.device, p.dtype)
+                     for i, p in enumerate(self.params)] if acc else []
+        self.updates = int(t["updates"])
+        self.mini_step = int(t["mini_step"])
 
 
 def ema_decay(updates: int, decay: float = 0.9999, tau: float = 2000.0) -> np.float32:

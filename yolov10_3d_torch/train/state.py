@@ -11,11 +11,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
+from ..utils.weights import torch_to_flax_variables
 from .loss import v10_detect_loss
 from .optim import Optimizer, ema_update
 
@@ -40,6 +42,22 @@ class TrainState:
         for (name, _), e in zip(self.model.named_parameters(), self.ema_params):
             sd[name] = e
         return sd
+
+    def checkpoint_trees(self) -> Dict[str, Any]:
+        """``params``, ``batch_stats``, ``ema_params`` and ``opt_state`` in
+        the flax layout, as views of the live tensors (``utils/checkpoint.py``
+        ``host_copy`` copies them for a writer)."""
+        variables = torch_to_flax_variables(self.model.state_dict())
+        ema = {name: e for (name, _), e in zip(self.model.named_parameters(), self.ema_params)}
+        return {"params": variables["params"], "batch_stats": variables["batch_stats"],
+                "ema_params": torch_to_flax_variables(ema)["params"],
+                "opt_state": self.optimizer.state_tree()}
+
+    @torch.no_grad()
+    def load_ema(self, ema: Dict[str, Any]) -> None:
+        """Set the EMA parameters from a {name: array} mapping."""
+        for (name, _), e in zip(self.model.named_parameters(), self.ema_params):
+            e.copy_(torch.as_tensor(np.array(ema[name])))
 
 
 def make_train_step(
@@ -66,11 +84,12 @@ def make_train_step(
         if preprocess_fn is not None and "tiles" in batch:
             batch = preprocess_fn(batch, state.step)
         img = batch["img"]
-        if nhwc:  # uint8 (B, H, W, 3) -> float NCHW on the batch's device
-            img = img.permute(0, 3, 1, 2).float().div(255.0).contiguous()
-        elif img.dtype == torch.uint8:
-            img = img.float() / 255.0
         model = state.model
+        dtype = next(model.parameters()).dtype  # float32; float64 for a reference run
+        if nhwc:  # uint8 (B, H, W, 3) -> float NCHW on the batch's device
+            img = img.permute(0, 3, 1, 2).to(dtype).div(255.0).contiguous()
+        elif img.dtype == torch.uint8:
+            img = img.to(dtype) / 255.0
         model.train()
         autocast = (torch.autocast(img.device.type, dtype=torch.bfloat16) if amp
                     else contextlib.nullcontext())

@@ -1,6 +1,9 @@
-"""JAX parameter tree -> the port's state_dict (the port's own copy of
+"""JAX parameter tree <-> the port's state_dict (the port's own copy of
 ``yolov10_3d_tpu/utils/torch_export.py`` ``flax_to_torch_state_dict``, cut
-to the YOLOv10 and YOLOv10-3D families).
+to the YOLOv10 and YOLOv10-3D families, its inverse
+``torch_to_flax_variables`` for the checkpoints both packages read, and
+``graft_backbone``, the copy of ``utils/torch_convert.py``'s on the port's
+state_dict).
 
 Input: the flax ``{'params', 'batch_stats'}`` tree as nested mappings of
 numpy arrays (or anything ``np.asarray`` takes). A flax path joined with
@@ -19,7 +22,7 @@ the reference's state_dict are not emitted either.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
@@ -92,3 +95,73 @@ def load_flax_variables(module: torch.nn.Module, variables: Mapping[str, Any]) -
         {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}, strict=True
     )
     return module
+
+
+def _flax_segments(dotted: str) -> List[str]:
+    """Dotted torch path -> flax path segments: each index joins the name
+    before it (``model.2.m.0`` -> ``model_2``, ``m_0``), as flax names the
+    members of a list attribute."""
+    segs: List[str] = []
+    for tok in dotted.split("."):
+        if tok.isdigit() and segs:
+            segs[-1] = f"{segs[-1]}_{tok}"
+        else:
+            segs.append(tok)
+    return segs
+
+
+def torch_to_flax_variables(state_dict: Mapping[str, Any]) -> Dict[str, Dict[str, Any]]:
+    """The port's state_dict -> the flax ``{'params', 'batch_stats'}`` tree
+    the JAX package builds for the same model, as nested dicts of the same
+    leaves (tensors stay tensors, on their device; anything else becomes a
+    numpy array): weight (O, I/g, kH, kW) -> kernel (kH, kW, I/g, O) (a
+    permuted view), BN and GroupNorm weight/bias -> scale/bias, running
+    mean/var -> batch_stats mean/var; ``num_batches_tracked`` is dropped.
+    The inverse of ``flax_to_torch_state_dict``."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for key, value in state_dict.items():
+        prefix, leaf = key.rsplit(".", 1)
+        if leaf == "num_batches_tracked":
+            continue
+        w = value.detach() if isinstance(value, torch.Tensor) else np.asarray(value)
+        if leaf in ("running_mean", "running_var"):
+            coll, name = "batch_stats", {"running_mean": "mean", "running_var": "var"}[leaf]
+        elif leaf == "weight":
+            coll = "params"
+            if w.ndim == 1:  # BatchNorm and GroupNorm
+                name = "scale"
+            elif w.ndim == 4:
+                name = "kernel"
+                w = (w.permute(2, 3, 1, 0) if isinstance(w, torch.Tensor)
+                     else w.transpose(2, 3, 1, 0))
+            else:
+                raise ValueError(f"{key}: no flax leaf for a weight of shape {w.shape}")
+        elif leaf == "bias":
+            coll, name = "params", "bias"
+        else:
+            raise ValueError(f"{key}: no flax leaf for {leaf!r}")
+        node = out[coll]
+        for seg in _flax_segments(prefix):
+            node = node.setdefault(seg, {})
+        node[name] = w
+    return out
+
+
+@torch.no_grad()
+def graft_backbone(model: torch.nn.Module, source: Mapping[str, Any], head_index: int
+                   ) -> List[str]:
+    """Copy into ``model`` every entry of the ``source`` state_dict that lies
+    outside layer ``head_index`` and matches a parameter or BN statistic of
+    ``model`` by name and shape (the JAX ``utils/torch_convert.py``
+    ``graft_backbone``: a pretrained 2D backbone in a new 3D model); the rest
+    keeps its init. Returns the copied keys."""
+    head = f"model.{head_index}."
+    copied = []
+    for key, dst in model.state_dict().items():
+        if key.startswith(head) or key.endswith("num_batches_tracked") or key not in source:
+            continue
+        src = torch.as_tensor(source[key])
+        if tuple(src.shape) == tuple(dst.shape):
+            dst.copy_(src)
+            copied.append(key)
+    return copied
