@@ -121,9 +121,28 @@ Phases, each fatal on failure:
   6. train    - YOLOv10("yolov10s.yaml").train(...) on a synthetic set of 160
                 PNGs (640x480, painted boxes) that the script writes to a
                 temporary directory: imgsz 640, batch 16, one epoch, device
-                augmentation, the JAX defaults otherwise (AdamW, nbs 64, amp);
-                then a shorter float32 run (amp=False). K4 must launch once
-                per step; the epoch's loss means must be finite.
+                augmentation, the JAX defaults otherwise (AdamW, nbs 64, amp).
+                K4 must launch once per step; the epoch's loss means must be
+                finite.
+  6b. host-aug - the host augmentation's C++ library (native/host_aug.cc,
+                built with g++) against its numpy twins (data/cv2_rules.py;
+                this host has no cv2): host-mode items of the same set from
+                one seed, 32 at the JAX defaults and 8 with degrees 10,
+                shear 2, perspective 5e-4 and mosaic9 0.5, equal bit for bit
+                in every key and in the generator's final state; ms library
+                against twin (warpAffine and warpPerspective 1280²→640², HSV
+                at 640², one sample); the loader's img/s alone at workers 0,
+                2 and 4, beside os.cpu_count().
+  6c. train-host - YOLOv10("yolov10s.yaml").train at the JAX defaults
+                (device_aug False: the host augmentation; amp, workers 4) on
+                the same set at 640, batch 16, 2 epochs with close_mosaic=1:
+                ms a step in the loop per epoch (mosaic, then letterbox),
+                img/s and loader-wait share an epoch, the device's busy and
+                idle share (torch.profiler, 3 steps), the step with no
+                loader, beside [train]'s device-augmentation figures; no K4.
+                Then device_aug=True, close_mosaic=1, half the set, 2
+                epochs: tile batches and K4 in the first, host batches in
+                the second.
   7. ckpt     - YOLOv10("yolov10s.yaml").train(...) on 64 synthetic PNGs at
                 640x640, batch 16, 2 epochs, device augmentation, validation
                 every epoch and checkpoints (last, best, a mid-epoch save every
@@ -150,19 +169,34 @@ Phases, each fatal on failure:
                 for key: yolov10n-3D on 8 synthetic KITTI frames at 320x96, 300
                 epochs, AdamW, checkpoints; YOLOv10(".../last.ckpt").val must
                 reach mAP50 >= 0.9 and metrics/3D >= 7.0.
+  10. learn2d - the JAX 2D learn-proof (tests/test_overfit_ap.py:188-223),
+                key for key: yolov10n on 8 synthetic 96x96 frames (a numpy
+                mirror of tests/_helpers.py make_overfit2d_tree, written as
+                PNG) at 64, 900 epochs, mosaic 0 (the host letterbox path),
+                checkpoints; YOLOv10(".../last.ckpt").val must reach mAP50
+                >= 0.9 and mp >= 0.8; the int8 reference: the same file's
+                predict(int8=True) on the 8 frames, scored by
+                utils/metrics.py, must reach mAP50 >= 0.9 (K2, K3 and
+                int8_conv_f32 on trained weights), the float32 predict
+                scored beside it.
 
-Each path (serving, serve3d, server, val3d, train, ckpt, val2d, learn3d) is driven with
-the launch counts set to 0 just before it and read just after. The last three lines are
+Each path (serving, serve3d, server, val3d, train, train-host, ckpt, val2d, learn3d,
+learn2d) is driven with the launch counts set to 0 just before it and read just after. The last three lines are
 the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
 {...}}.
 Imports no JAX.
 
-    python3 chip_smoke.py --sweep stem,k1,int8,k2tiles,serve [--package-root DIR]
+    python3 chip_smoke.py --sweep NAMES [--package-root DIR]
 
-runs the card line, the build of the named kernels and their timings only
+with NAMES a comma-separated subset of stem, k1, int8, k2tiles, val2d-std05,
+learn2d-epoch, serve3d-std05 and serve, runs the card line, the build of the
+named kernels and their timings only
 (the stem and K1 as in phase 3, the int8 convs as in phase 3b and K2 as in
-phase 3, "k2tiles" every tile K2 compiles, "serve" the device kernels of
-one float32 request), with the ``yolov10_3d_torch``
+phase 3, "k2tiles" every tile K2 compiles, "val2d-std05" [val2d] at
+BatchNorm std 0.5, "learn2d-epoch" [learn2d]'s epoch with and without its
+saves, "serve3d-std05" [serve3d]'s std 0.5 check on frames upsampled by
+cv2's rule and the witnesses of its miss, "serve" the device kernels of one float32 request), with the
+``yolov10_3d_torch``
 package found under DIR (default: this checkout), so that two checkouts'
 kernels can be timed in one call on one card.
 """
@@ -172,8 +206,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import csv
+import itertools
 import json
 import math
+import os
 import statistics
 import struct
 import subprocess
@@ -216,6 +252,7 @@ SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8
 SERVE3D_KERNELS = ("stem_conv",)
 SERVER_KERNELS = ("decode_detect", "stem_conv")
 TRAIN_KERNELS = ("hsv_jitter",)
+TRAIN_FIGURES: dict = {}  # [train]'s figures, printed again beside [train-host]
 
 IMGSZ = 640
 SCORE_TOL = 1e-4  # end-to-end bars of tests/test_torch_predictor.py
@@ -296,8 +333,11 @@ def phase_card():
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device: chip_smoke.py needs an NVIDIA GPU")
     line = card_line()
-    print(f"[card] {line} | torch {torch.__version__} cuda {torch.version.cuda} "
-          f"| {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    cpu = next((ln.split(":", 1)[1].strip() for ln in Path("/proc/cpuinfo").read_text()
+                .splitlines() if ln.startswith("model name")), "unknown")
+    print(f"[card] {line} | torch {torch.__version__} cuda {torch.version.cuda} cudnn "
+          f"{torch.backends.cudnn.version()} | {torch.cuda.get_device_name(0)} "
+          f"x{torch.cuda.device_count()} | host {cpu}, {os.cpu_count()} CPUs")
     return line
 
 
@@ -1333,22 +1373,29 @@ def float32_gap_3d(cpu, x) -> dict:
     return branch_gaps_3d(a, b, cpu.spec.nc)
 
 
-def std05_vs_float64(frames, x, imgsz) -> dict:
-    """``kitti_b8`` on a second YOLOv10-S-3D calibrated to the 2D requests'
-    BatchNorm std 0.5, where float32 rounding grows to the size of the
-    absolute bars: served once on the card (one stem launch, finite 3D
-    rows); then the card's dense one2one maps, with the unfused stem and
-    with the fused one (the served route, BatchNorm folded), each held to a
-    float64 CPU run of the same weights and input, per branch within twice
-    the distance of the CPU's float32 run of the same route."""
-    import torch
-
+def std05_net(x):
+    """A second YOLOv10-S-3D on the card, calibrated on ``x`` to the 2D
+    requests' BatchNorm std 0.5."""
     from yolov10_3d_torch import YOLOv10
-    from yolov10_3d_torch.kernels import launch_counts
     from yolov10_3d_torch.utils.parity import calibrate
 
     gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
     calibrate(gpu.model, x, bn_std=0.5)
+    return gpu
+
+
+def std05_vs_float64(gpu, frames, x, imgsz) -> dict:
+    """``kitti_b8`` on ``std05_net``, where float32 rounding grows to the
+    size of the absolute bars: served once on the card (one stem launch,
+    finite 3D rows); then the card's dense one2one maps, with the unfused
+    stem and with the fused one (the served route, BatchNorm folded), each
+    held to a float64 CPU run of the same weights and input, per branch
+    within twice the distance of the CPU's float32 run of the same route."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts
+
     before = dict(launch_counts)
     res = gpu.predict(frames, imgsz=imgsz, batch=8, conf=CONF, max_det=50)
     got = {k: launch_counts[k] - before[k] for k in launch_counts}
@@ -1503,7 +1550,7 @@ def phase_serve3d(card: str):
               f"{stats['max_center3d_err']:.3g} px (bar {BOX_TOL}), s3d "
               f"{stats['max_s3d_err']:.3g}, dep_un {stats['max_dep_un_err']:.3g} (bar "
               f"{REG_TOL_3D}); reference took {ref_s:.1f} s")
-    std05_vs_float64(frames, x, imgsz)
+    std05_vs_float64(std05_net(x), frames, x, imgsz)
     print(f"[serve3d] main-path launches: {launches}")
     return launches
 
@@ -2144,9 +2191,10 @@ def isolated_steps(trainer, amp: bool, n: int = 5) -> list:
     return times
 
 
-def phase_train(card: str) -> dict:
-    """YOLOv10.train on the synthetic set: the amp (bf16) run, then a shorter
-    float32 one. Returns the launch counts of the amp run."""
+def phase_train(card: str, data: Path) -> dict:
+    """YOLOv10.train on the synthetic set ``data`` in amp (bf16 autocast;
+    no float32 run: the script's time goes to the learn-proofs, and the last
+    float32 figures are PERF.md's). Returns the launch counts."""
     import torch
 
     from yolov10_3d_torch import YOLOv10
@@ -2154,61 +2202,50 @@ def phase_train(card: str) -> dict:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    launches = None
+    times = []
+    model = YOLOv10("yolov10s.yaml")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    profiled = (6, 7, 8)  # steady steps, timed apart
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        data = synthetic_set(Path(tmp) / "set")
-        n_img = len(list(data.parent.glob("images/*.png")))
-        print(f"[train] synthetic set: {n_img} PNGs 640x480 written in "
-              f"{time.perf_counter() - t0:.1f} s")
-        for amp, fraction in ((True, 1.0), (False, 0.6)):
-            times = []
-            model = YOLOv10("yolov10s.yaml")
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            reset_launch_counts()
-            prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                      torch.profiler.ProfilerActivity.CUDA])
-            profiled = (6, 7, 8) if amp else (4, 5)  # steady steps, timed apart
-            t0 = time.perf_counter()
-            with timed_train_steps(times, prof, profiled):
-                state = model.train(data=str(data), imgsz=IMGSZ, batch=16, epochs=1,
-                                    device_aug=True, val=False, save=False, workers=4, amp=amp,
-                                    fraction=fraction, save_dir=str(Path(tmp) / f"run{int(amp)}"))
-            wall = time.perf_counter() - t0
-            counts = dict(launch_counts)
-            row = model.trainer.last_metrics
-            steps = state.step
-            if counts["hsv_jitter"] != steps or steps < 3:
-                raise AssertionError(f"train: {steps} steps launched K4 {counts['hsv_jitter']} times")
-            terms = {k: v for k, v in row.items() if k not in ("epoch", "time", "lr")}
-            if not all(math.isfinite(v) for v in terms.values()):
-                raise AssertionError(f"train: non-finite epoch loss means {terms}")
-            steady = [t for i, t in enumerate(times) if i >= 2 and i not in profiled]
-            ms = statistics.median(steady)
-            traced_ms = sum(times[i] for i in profiled)
-            peak = torch.cuda.max_memory_allocated() / 2**30
-            print(f"[train] YOLOv10-S amp={amp} ({'bf16 autocast' if amp else 'float32, TF32 off'}) "
-                  f"{steps} micro-steps of 16 at 640x640, {state.optimizer.updates} optimizer "
-                  f"updates (accumulate {state.optimizer.accumulate}): median {ms:.1f} ms/step "
-                  f"({len(steady)} steady steps, not traced; all: "
-                  f"{', '.join(f'{t:.0f}' for t in times)} ms), "
-                  f"{16 / ms * 1e3:.1f} img/s; epoch {row['time']:.1f} s "
-                  f"({16 * steps / row['time']:.1f} img/s with the loader), call {wall:.1f} s; "
-                  f"peak device memory {peak:.2f} GiB ({card})")
-            print(f"[train] amp={amp} profile of steps {[i + 1 for i in profiled]} (traced: "
-                  f"{traced_ms / len(profiled):.1f} ms/step): "
-                  f"{profile_report(prof, traced_ms, len(profiled))}")
-            iso = isolated_steps(model.trainer, amp)
-            print(f"[train] amp={amp} the same step with no loader running (a cached batch, "
-                  f"{len(iso)} steps): median {statistics.median(iso):.1f} ms/step "
-                  f"({', '.join(f'{t:.0f}' for t in iso)} ms)")
-            print(f"[train] amp={amp} epoch loss means: " + ", ".join(
-                f"{k} {v:.5g}" for k, v in terms.items()) + f"; lr {row['lr']:.3g}; launches "
-                f"{counts}")
-            if launches is None:
-                launches = counts
-    return launches
+        with timed_train_steps(times, prof, profiled):
+            state = model.train(data=str(data), imgsz=IMGSZ, batch=16, epochs=1, device_aug=True,
+                                val=False, save=False, workers=4, save_dir=str(Path(tmp) / "run"))
+        wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    row = model.trainer.last_metrics
+    steps = state.step
+    if counts["hsv_jitter"] != steps or steps < 3:
+        raise AssertionError(f"train: {steps} steps launched K4 {counts['hsv_jitter']} times")
+    terms = {k: v for k, v in row.items() if k not in ("epoch", "time", "lr")}
+    if not all(math.isfinite(v) for v in terms.values()):
+        raise AssertionError(f"train: non-finite epoch loss means {terms}")
+    steady = [t for i, t in enumerate(times) if i >= 2 and i not in profiled]
+    ms = statistics.median(steady)
+    traced_ms = sum(times[i] for i in profiled)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[train] YOLOv10-S amp (bf16 autocast) {steps} micro-steps of 16 at 640x640, "
+          f"{state.optimizer.updates} optimizer updates (accumulate {state.optimizer.accumulate}): "
+          f"median {ms:.1f} ms/step ({len(steady)} steady steps, not traced; all: "
+          f"{', '.join(f'{t:.0f}' for t in times)} ms), {16 / ms * 1e3:.1f} img/s; epoch "
+          f"{row['time']:.1f} s ({16 * steps / row['time']:.1f} img/s with the loader), call "
+          f"{wall:.1f} s; peak device memory {peak:.2f} GiB ({card})")
+    report = profile_report(prof, traced_ms, len(profiled))
+    print(f"[train] profile of steps {[i + 1 for i in profiled]} (traced: "
+          f"{traced_ms / len(profiled):.1f} ms/step): {report}")
+    iso = isolated_steps(model.trainer, True)
+    idle = report.split("idle share ")[1].split(";")[0] if "idle share " in report else None
+    TRAIN_FIGURES.update(loop_ms=ms, iso_ms=statistics.median(iso),
+                         img_s=16 * steps / row["time"], idle=idle)
+    print(f"[train] the same step with no loader running (a cached batch, {len(iso)} steps): "
+          f"median {statistics.median(iso):.1f} ms/step ({', '.join(f'{t:.0f}' for t in iso)} ms)")
+    print(f"[train] epoch loss means: " + ", ".join(f"{k} {v:.5g}" for k, v in terms.items())
+          + f"; lr {row['lr']:.3g}; launches {counts}")
+    return counts
 
 
 TRAIN3D_FRAMES = 32  # [train3d]'s synthetic KITTI tree; its val split is the first 16
@@ -2322,9 +2359,9 @@ def phase_train3d_lockstep(card: str) -> dict:
 
 def phase_train3d(card: str) -> dict:
     """YOLOv10("yolov10s_3D.yaml").train on a synthetic KITTI tree: two
-    epochs with per-epoch AP40 validation in amp (bf16 autocast), one in
-    float32, then one epoch of a ``fgdm_predictor: true`` model with the
-    depth maps, the FGDM loss and HTL. Returns the hand kernels' launches."""
+    epochs with per-epoch AP40 validation in amp (bf16 autocast), then one
+    epoch of a ``fgdm_predictor: true`` model with the depth maps, the FGDM
+    loss and HTL. Returns the hand kernels' launches."""
     import torch
 
     from yolov10_3d_torch import YOLOv10
@@ -2345,9 +2382,9 @@ def phase_train3d(card: str) -> dict:
         fgdm_yaml = Path(tmp) / "yolov10s_3D_fgdm.yaml"
         fgdm_yaml.write_text(resolve_model_cfg("yolov10s_3D").read_text()
                              + "fgdm_predictor: true\n")
+        # no float32 run: the script's time goes to the learn-proofs (its last
+        # float32 figures are PERF.md's)
         runs = (("amp", "yolov10s_3D.yaml", dict(amp=True, epochs=2, val=True)),
-                # one float32 epoch: the run's time goes to [learn3d]
-                ("float32", "yolov10s_3D.yaml", dict(amp=False, epochs=1, val=True)),
                 ("fgdm+htl", str(fgdm_yaml), dict(amp=True, epochs=1, val=False, htl=True,
                                                   load_depth_maps=True, fgdm_loss=True)))
         for name, cfg, kw in runs:
@@ -2358,8 +2395,7 @@ def phase_train3d(card: str) -> dict:
             reset_launch_counts()
             prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
                                                       torch.profiler.ProfilerActivity.CUDA])
-            # epoch 2's middle steps; the float32 epoch's last two
-            profiled = (5, 6) if kw["epochs"] == 2 else (2, 3) if name == "float32" else ()
+            profiled = (5, 6) if kw["epochs"] == 2 else ()  # epoch 2's middle steps
             t0 = time.perf_counter()
             with timed_train_steps(times, prof, profiled):
                 state = model.train(data=str(data), kitti_resolution=[1280, 384], batch=8,
@@ -3012,8 +3048,463 @@ def phase_learn3d(card: str) -> dict:
     return got
 
 
+HOST_AUG_SAMPLES = 32  # [host-aug]'s default-hyp samples, library against twins
+HOST_AUG_WARP = {"degrees": 10.0, "shear": 2.0, "perspective": 5e-4, "mosaic9": 0.5}
+
+
+def _median_ms(fn, n: int) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_host_aug(card: str, data: Path) -> None:
+    """The host augmentation's library (``native/host_aug.cc``, built here
+    with g++) against its numpy twins (``data/cv2_rules.py``) on this host,
+    which has no cv2: host-mode items of the [train] set from one seed,
+    32 at the JAX defaults and 8 with warps, perspective and mosaic9, equal
+    bit for bit in every key and in the generator's final state; per-op ms
+    library against twin; the loader's img/s alone at workers 0, 2, 4."""
+    import numpy as np
+
+    from yolov10_3d_torch.cfg import get_cfg
+    from yolov10_3d_torch.data import augment as A
+    from yolov10_3d_torch.data import cv2_rules
+    from yolov10_3d_torch.data.dataset import DataLoader, YOLODataset
+    from yolov10_3d_torch.native import host_aug
+
+    t_phase = time.perf_counter()
+    host_aug.get_lib()
+    print(f"[host-aug] library {host_aug._LIBRARY.path().name} built with g++ "
+          f"{' '.join(host_aug.gxx_flags())} in {time.perf_counter() - t_phase:.1f} s")
+    images = data.parent / "images"
+    hyp = get_cfg()
+    sample_ms = {}
+    for case, over, n in (("defaults", {}, HOST_AUG_SAMPLES), ("warp", HOST_AUG_WARP, 8)):
+        runs = {}
+        for name, ops in (("library", A.NATIVE), ("twin", A.TWIN)):
+            ds = YOLODataset(images, imgsz=IMGSZ, hyp={**hyp, **over}, seed=11, device_aug=False,
+                             ops=ops)
+            items, ms = [], []
+            for i in range(n):
+                t0 = time.perf_counter()
+                items.append(ds[(7 * i) % len(ds)])
+                ms.append((time.perf_counter() - t0) * 1e3)
+            runs[name] = (items, ds.rng.bit_generator.state, ms)
+        (lib, lib_state, lib_ms), (twin, twin_state, twin_ms) = runs["library"], runs["twin"]
+        bad = [(i, k) for i, (a, b) in enumerate(zip(lib, twin)) for k in a
+               if not np.array_equal(a[k], b[k])]
+        n_boxes = sum(int(it["mask_gt"].sum()) for it in lib)
+        sample_ms[case] = (statistics.median(lib_ms), statistics.median(twin_ms))
+        print(f"[host-aug] {case} ({over or 'JAX defaults'}): {n} samples at {IMGSZ}, "
+              f"{n_boxes} boxes; library vs twins: {len(bad)} keys differ "
+              f"{bad[:6]}, generator state {'equal' if lib_state == twin_state else 'DIFFERS'}; "
+              f"ms a sample (decode included), median: library {sample_ms[case][0]:.1f}, "
+              f"twins {sample_ms[case][1]:.1f}")
+        if bad or lib_state != twin_state:
+            raise AssertionError(f"host-aug: the library's items differ from the twins' ({case})")
+    rng = np.random.default_rng(0)
+    canvas = rng.integers(0, 256, (2 * IMGSZ, 2 * IMGSZ, 3), dtype=np.uint8)
+    M = np.array([[0.93, 0.05, -290.0], [-0.04, 1.08, -350.0]])
+    tile = np.ascontiguousarray(canvas[:IMGSZ, :IMGSZ])
+    lut = np.stack([np.arange(256) % 180, np.clip(np.arange(256) * 1.3, 0, 255),
+                    np.arange(256) * 0.7], -1).astype(np.uint8)
+    big, out = f"{2 * IMGSZ}²", f"{IMGSZ}²"
+    ops = {
+        f"warpAffine {big}→{out}": (lambda: host_aug.warp_affine(canvas, M, (IMGSZ, IMGSZ)),
+                                  lambda: cv2_rules.warp_affine(canvas, M, (IMGSZ, IMGSZ))),
+        f"warpPerspective {big}→{out}": (
+            lambda: host_aug.warp_perspective(canvas, np.vstack([M, [1e-4, -2e-4, 1.0]]),
+                                              (IMGSZ, IMGSZ)),
+            lambda: cv2_rules.warp_perspective(canvas, np.vstack([M, [1e-4, -2e-4, 1.0]]),
+                                               (IMGSZ, IMGSZ))),
+        f"HSV at {out}": (lambda: host_aug.hsv_lut(tile, lut),
+                          lambda: cv2_rules.hsv_lut(tile, lut)),
+    }
+    parts = []
+    for name, (lib_fn, twin_fn) in ops.items():
+        if not np.array_equal(lib_fn(), twin_fn()):
+            raise AssertionError(f"host-aug: {name} differs from its twin")
+        parts.append(f"{name} {_median_ms(lib_fn, 7):.2f} / {_median_ms(twin_fn, 2):.1f}")
+    print("[host-aug] ms, library / twin (median): " + "; ".join(parts) + "; one train_augment "
+          f"sample (defaults) {sample_ms['defaults'][0]:.1f} / {sample_ms['defaults'][1]:.1f}")
+    rates = []
+    for workers in (0, 2, 4):
+        loader = DataLoader(YOLODataset(images, imgsz=IMGSZ, hyp=hyp, seed=3, device_aug=False),
+                            16, seed=3, workers=workers)
+        it = iter(loader)
+        next(it)  # the threads started, the buffer warm
+        t0 = time.perf_counter()
+        n = sum(len(b["img"]) for b in itertools.islice(it, 5))
+        rates.append(f"workers {workers}: {n / (time.perf_counter() - t0):.1f}")
+        it.close()
+    print(f"[host-aug] the loader alone, YOLOv10-S's batch of 16 at {IMGSZ}, JAX defaults, img/s "
+          f"(up to 5 batches after the first): {'; '.join(rates)} (os.cpu_count() "
+          f"{os.cpu_count()}); "
+          f"phase {time.perf_counter() - t_phase:.1f} s ({card})")
+
+
+@contextlib.contextmanager
+def batch_kinds(record: list):
+    """Inside: every batch a DetectionTrainer moves to the device appends
+    (epoch, a tile batch?) to ``record``."""
+    from yolov10_3d_torch.engine.trainer import DetectionTrainer
+
+    real = DetectionTrainer.to_device
+
+    def recording(self, batch):
+        record.append((self.epoch, "tiles" in batch))
+        return real(self, batch)
+
+    DetectionTrainer.to_device = recording
+    try:
+        yield
+    finally:
+        DetectionTrainer.to_device = real
+
+
+def phase_train_host(card: str, data: Path) -> dict:
+    """``YOLOv10("yolov10s.yaml").train`` at the JAX defaults on the [train]
+    set (host augmentation, amp, 640², batch 16, workers 4): 2 epochs with
+    close_mosaic=1, so that epoch 2 runs the letterbox path; ms a step in
+    the loop and with no loader, img/s and the loader-wait share an epoch,
+    the device's busy and idle share (torch.profiler, 3 steady steps).
+    Then device_aug=True with close_mosaic=1 on half the set for 2 epochs:
+    tiles and K4 in epoch 1, host batches in epoch 2. Returns the launches."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        times, kinds = [], []
+        model = YOLOv10("yolov10s.yaml")
+        reset_launch_counts()
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        profiled = (6, 7, 8)
+        t0 = time.perf_counter()
+        with timed_train_steps(times, prof, profiled), batch_kinds(kinds):
+            state = model.train(data=str(data), imgsz=IMGSZ, batch=16, epochs=2, close_mosaic=1,
+                                val=False, save=False, workers=4, save_dir=str(Path(tmp) / "host"))
+        wall = time.perf_counter() - t0
+        counts = dict(launch_counts)
+        with open(Path(tmp) / "host" / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        per_epoch = len(times) // 2
+        if (counts["hsv_jitter"] or any(tiles for _, tiles in kinds) or len(rows) != 2
+                or model.trainer.train_ds.hyp["mosaic"] != 0.0):
+            raise AssertionError(f"train-host: {counts}, tile batches "
+                                 f"{sum(t for _, t in kinds)}, {len(rows)} epochs")
+        terms = {k: float(v) for k, v in rows[-1].items() if k not in ("epoch", "time", "lr")}
+        if not all(math.isfinite(float(v)) for r in rows for k, v in r.items() if k != "epoch"):
+            raise AssertionError(f"train-host: non-finite epoch means {rows}")
+        parts = []
+        for e, r in enumerate(rows):
+            ep = times[e * per_epoch:(e + 1) * per_epoch]
+            steady = [t for i, t in enumerate(ep) if (i >= 2 or e) and e * per_epoch + i
+                      not in profiled] or ep
+            secs = float(r["time"])
+            parts.append(f"epoch {e + 1} ({'mosaic' if e == 0 else 'closed: letterbox'}): "
+                         f"median {statistics.median(steady):.1f} ms/step in the loop "
+                         f"({', '.join(f'{t:.0f}' for t in ep)}), {16 * len(ep) / secs:.1f} "
+                         f"img/s, loader-wait share {max(0.0, 1 - sum(ep) / 1e3 / secs):.3f}")
+        traced = sum(times[i] for i in profiled)
+        iso = isolated_steps(model.trainer, True)
+        ref = TRAIN_FIGURES
+        print(f"[train-host] YOLOv10-S at the JAX defaults (host augmentation, amp), batch 16 at "
+              f"{IMGSZ}, 2 epochs, close_mosaic=1, workers 4: " + "; ".join(parts)
+              + f"; call {wall:.1f} s ({card})")
+        print(f"[train-host] profile of steps {[i + 1 for i in profiled]} (mosaic epoch; "
+              f"traced {traced / len(profiled):.1f} ms/step): "
+              f"{profile_report(prof, traced, len(profiled))}")
+        print(f"[train-host] the same step with no loader (a cached letterbox batch, "
+              f"{len(iso)} steps): median {statistics.median(iso):.1f} ms/step; beside "
+              f"[train]'s device augmentation in this run: {ref.get('loop_ms', float('nan')):.1f} "
+              f"ms/step in the loop, {ref.get('iso_ms', float('nan')):.1f} with no loader, "
+              f"{ref.get('img_s', float('nan')):.1f} img/s an epoch, idle "
+              f"{ref.get('idle') or 'not measured'}; loss means {terms}")
+        kinds.clear()
+        reset_launch_counts()
+        with batch_kinds(kinds):
+            state = YOLOv10("yolov10s.yaml").train(
+                data=str(data), imgsz=IMGSZ, batch=16, epochs=2, close_mosaic=1, device_aug=True,
+                fraction=0.5, val=False, save=False, workers=4, save_dir=str(Path(tmp) / "dev"))
+        k4 = launch_counts["hsv_jitter"]
+        want = [(0, True)] * (state.step // 2) + [(1, False)] * (state.step // 2)
+        print(f"[train-host] device_aug=True, close_mosaic=1, half the set, 2 epochs: batches "
+              f"(epoch, tiles) {kinds}; K4 launches {k4} ({card})")
+        if kinds != want or k4 != state.step // 2:
+            raise AssertionError(f"train-host: device_aug run saw {kinds}, K4 {k4}")
+        counts["hsv_jitter"] += k4
+    print(f"[train-host] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+LEARN2D_BARS = {"mAP50": 0.9, "mp": 0.8}  # tests/test_overfit_ap.py:220-223
+LEARN2D_EPOCHS = 900  # the JAX recipe's
+# tests/test_overfit_ap.py:194-217, key for key (epochs apart); plus save=True
+LEARN2D_RECIPE = dict(imgsz=64, batch=8, workers=2, warmup_epochs=0.0, close_mosaic=0,
+                      mosaic=0.0, mixup=0.0, fliplr=0.0, hsv_h=0.0, hsv_s=0.0, hsv_v=0.0,
+                      scale=0.0, translate=0.0, patience=10000, amp=False, lr0=0.003, lrf=0.2,
+                      optimizer="AdamW", nbs=8, val_period=10**6, save=True)
+LEARN2D_JAX = 0.995  # JAX's calibration of mAP50 at this recipe
+
+
+def overfit2d_tree(root: Path, n: int = 8) -> Path:
+    """A numpy mirror of tests/_helpers.py ``make_overfit2d_tree``: the same
+    draws, 96x96 frames of grey 30 with two solid red or green rectangles in
+    disjoint halves, val == train. The helper writes JPEG (cv2, BGR order);
+    this writes the same RGB pixels as PNG, since the port decodes no JPEG
+    yet (ROADMAP item 9f)."""
+    import numpy as np
+
+    for split in ("train", "val"):
+        (root / "images" / split).mkdir(parents=True)
+        (root / "labels" / split).mkdir(parents=True)
+        for i in range(n):
+            r = np.random.default_rng(i)
+            img = np.full((96, 96, 3), 30, np.uint8)
+            lines = []
+            for x0, x1lim in ((2, 44), (50, 92)):
+                c = int(r.integers(0, 2))
+                w = min(int(r.integers(24, 40)), x1lim - x0)
+                h = int(r.integers(24, 44))
+                x1 = x0 + int(r.integers(0, max(x1lim - x0 - w, 1)))
+                y1 = int(r.integers(2, 96 - h - 2))
+                img[y1:y1 + h, x1:x1 + w] = (220, 40, 40) if c == 0 else (40, 220, 40)
+                lines.append(f"{c} {(x1 + w / 2) / 96:.6f} {(y1 + h / 2) / 96:.6f} "
+                             f"{w / 96:.6f} {h / 96:.6f}")
+            write_png(root / "images" / split / f"{i}.png", img)
+            (root / "labels" / split / f"{i}.txt").write_text("\n".join(lines))
+    (root / "data.yaml").write_text(f"path: {root}\ntrain: images/train\nval: images/val\n"
+                                    "names:\n  0: red\n  1: green\n")
+    return root / "data.yaml"
+
+
+def predict_map50(model, root: Path, int8: bool) -> dict:
+    """``model.predict`` on the frames of ``root``'s val split (imgsz 64,
+    conf 0.001, max_det 300), scored by the port's ``utils/metrics.py``
+    against the label files."""
+    import numpy as np
+
+    from yolov10_3d_torch.data.dataset import decode_png
+    from yolov10_3d_torch.utils.metrics import DetMetrics
+
+    metrics = DetMetrics(nc=2)
+    for path in sorted((root / "images" / "val").glob("*.png")):
+        img = decode_png(path.read_bytes())
+        (res,) = model.predict(img, imgsz=64, conf=0.001, max_det=300, int8=int8)
+        lab = np.loadtxt(root / "labels" / "val" / f"{path.stem}.txt", ndmin=2)
+        h, w = img.shape[:2]
+        xywh = lab[:, 1:5] * [w, h, w, h]
+        gt = np.concatenate([xywh[:, :2] - xywh[:, 2:] / 2, xywh[:, :2] + xywh[:, 2:] / 2], 1)
+        d = res.boxes.data
+        metrics.process_batch(d[:, :4], d[:, 4], d[:, 5], gt, lab[:, 0])
+    return metrics.results()
+
+
+def phase_learn2d(card: str) -> dict:
+    """The JAX package's 2D learn-proof (tests/test_overfit_ap.py:188-223),
+    key for key, through the port on the card: yolov10n on 8 frames at 64²,
+    900 epochs, batch 8, no mosaic (the host letterbox path), AdamW lr0
+    0.003, lrf 0.2, float32, nbs 8, no validation during the run; plus
+    save=True. ``YOLOv10(last.ckpt).val`` on the same frames must reach
+    mAP50 >= 0.9 and mp >= 0.8 (JAX calibrated mAP50 0.995). Then the int8
+    reference: the trained file served with ``predict(int8=True)`` (K2, K3,
+    ``int8_conv_f32`` on trained weights) and scored by ``utils/metrics.py``
+    must reach mAP50 >= 0.9; the float32 predict is scored the same way.
+    Returns the hand kernels' launches of the reload, val and predicts."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "overfit"
+        data = overfit2d_tree(root)
+        model = YOLOv10("yolov10n.yaml", device="cuda")
+        t0 = time.perf_counter()
+        model.train(data=str(data), epochs=LEARN2D_EPOCHS, save_dir=str(Path(tmp) / "run"),
+                    **LEARN2D_RECIPE)
+        wall = time.perf_counter() - t0
+        with open(Path(tmp) / "run" / "results.csv") as f:
+            rows = list(csv.DictReader(f))
+        print(f"[learn2d] yolov10n 64², 8 frames (PNG: the JAX test writes JPEG, which the port "
+              f"cannot decode yet), batch 8, {len(rows)} epochs (AdamW lr0 0.003, float32, TF32 off, "
+              f"no mosaic): {wall:.1f} s ({wall / len(rows) * 1e3:.1f} ms an epoch, checkpoints "
+              f"included; {card}); loss by epoch: " + ", ".join(
+                  f"{r['epoch']}: {float(r['loss']):.4f}" for r in rows
+                  if int(r["epoch"]) % 100 == 0 or int(r["epoch"]) == len(rows) - 1))
+        last = Path(tmp) / "run" / "weights" / "last.ckpt"
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        trained = YOLOv10(str(last), device="cuda")
+        res = trained.val(data=str(data), imgsz=64, batch=8)
+        got = {k: float(res[k]) for k in LEARN2D_BARS}
+        print(f"[learn2d] last.ckpt {last.stat().st_size / 2**20:.1f} MiB; YOLOv10(last.ckpt).val "
+              f"on the 8 frames ({time.perf_counter() - t0:.1f} s): mAP50 {got['mAP50']:.4f} "
+              f"(bar {LEARN2D_BARS['mAP50']}, JAX {LEARN2D_JAX}), mp {got['mp']:.4f} (bar "
+              f"{LEARN2D_BARS['mp']}), mr {float(res['mr']):.4f}, mAP50-95 "
+              f"{float(res['mAP50-95']):.4f}")
+        scored = {int8: predict_map50(trained, root, int8) for int8 in (False, True)}
+        counts = dict(launch_counts)
+        print(f"[learn2d] the int8 reference: predict(int8=True) on the 8 frames, scored by "
+              f"utils/metrics.py: mAP50 {scored[True]['mAP50']:.4f} (bar 0.9), mp "
+              f"{scored[True]['mp']:.4f}, mAP50-95 {scored[True]['mAP50-95']:.4f}; float32 "
+              f"predict the same way: mAP50 {scored[False]['mAP50']:.4f}, mp "
+              f"{scored[False]['mp']:.4f}, mAP50-95 {scored[False]['mAP50-95']:.4f}; hand-kernel "
+              f"launches of the reload, val and predicts {counts}; phase "
+              f"{time.perf_counter() - t_phase:.1f} s")
+    missed = {k: v for k, v in got.items() if not v >= LEARN2D_BARS[k]}
+    if not scored[True]["mAP50"] >= LEARN2D_BARS["mAP50"]:
+        missed["int8 mAP50"] = scored[True]["mAP50"]
+    if missed:
+        raise AssertionError(f"learn2d: the trained 2D net misses its bars {missed}")
+    if not all(counts[k] for k in ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused",
+                                   "int8_conv_f32", "stem_conv")):
+        raise AssertionError(f"learn2d: a kernel of the path did not launch: {counts}")
+    return counts
+
+
+def from_layer0(model, x, y0):
+    """``model``'s dense one2one maps of ``x`` with layer 0's output
+    replaced by ``y0``."""
+    hook = model.model[0].register_forward_hook(lambda m, a, out: y0)
+    try:
+        return model(x, fast_eval=True)["one2one"]
+    finally:
+        hook.remove()
+
+
+def std05_stem_witness(gpu, x) -> None:
+    """Where a miss of ``std05_vs_float64`` comes from, per branch against
+    the CPU's float64 run: the card's float64 forward (does the card's path
+    compute the CPU's function?); layer 0's output by each route (the stem
+    kernel, its twin on the CPU, the unfused conv + BatchNorm + SiLU on the
+    card and on the CPU), its distance from float64, and the maps when it is
+    run on in float64 (layer 0's rounding alone); and float64's layer 0 run
+    on in the card's and the CPU's float32 (the rest's rounding alone)."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels.stem import stem_conv_torch
+
+    nc = gpu.spec.nc
+    cpu = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+    cpu.model.load_state_dict(gpu.model.state_dict())
+    xc = x.cpu()
+    m64 = copy.deepcopy(cpu.model).double()
+    fmt = lambda g: ", ".join(f"{k} {v:.3g}" for k, v in g.items())  # noqa: E731
+    with torch.inference_mode():
+        ref = m64(xc.double(), fast_eval=True)["one2one"]
+        card64 = copy.deepcopy(gpu.model).double()(x.double(), fast_eval=True)["one2one"]
+        print("[sweep] serve3d-std05 witness: the card's float64 forward vs the CPU's (max abs): "
+              + fmt(branch_gaps_3d(card64, ref, nc)))
+        del card64
+        y64 = m64.model[0](xc.double())
+        layer0 = {"the stem kernel": gpu.model.model[0].fused_stem(x),
+                  "its twin on the CPU": cpu.model.model[0].fused_stem(xc),
+                  "the unfused stem on the card": gpu.model.model[0](x),
+                  "the unfused stem on the CPU": cpu.model.model[0](xc)}
+        for name, y in layer0.items():
+            y = y.cpu().double()
+            print(f"[sweep] serve3d-std05 witness: layer 0 by {name}, max abs "
+                  f"{float((y - y64).abs().max()):.3g} from float64's; run on in float64, the "
+                  f"maps vs the CPU's float64 run: " + fmt(branch_gaps_3d(
+                      from_layer0(m64, xc.double(), y), ref, nc)))
+        _, w, b = gpu.model.model[0].stem_cache  # folded on the card
+        _, wc, bc = cpu.model.model[0].stem_cache  # folded on the CPU
+        kern = layer0["the stem kernel"].cpu()
+        print(f"[sweep] serve3d-std05 witness: the stem kernel vs its twin on the CPU, layer 0 max "
+              f"abs {float((kern - layer0['its twin on the CPU']).abs().max()):.3g}; vs the twin "
+              f"on the CPU with the card's folded weights "
+              f"{float((kern - stem_conv_torch(xc, w.cpu(), b.cpu())).abs().max()):.3g}; the "
+              f"BatchNorm folded on the card vs on the CPU: weights max abs "
+              f"{float((w.cpu() - wc).abs().max()):.3g}, bias {float((b.cpu() - bc).abs().max()):.3g}")
+        for name, model, xin in (("card", gpu.model, x), ("CPU", cpu.model, xc)):
+            got = from_layer0(model, xin, y64.float().to(xin.device))
+            print(f"[sweep] serve3d-std05 witness: float64's layer 0 run on in the {name}'s "
+                  f"float32, the maps vs the CPU's float64 run: " + fmt(branch_gaps_3d(got, ref, nc)))
+
+
+def serve3d_std05_witness() -> None:
+    """[serve3d]'s BatchNorm std 0.5 check (``std05_vs_float64``) on the
+    same seeded coarse noise upsampled by ``resize_linear`` (cv2's rule)
+    instead of ``smooth_images``' own edge rule: printed, not held (ROADMAP
+    queue 3); then ``std05_stem_witness`` on those frames."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch.data.preprocess import resize_linear
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+
+    rng = np.random.default_rng(3)
+    frames = [resize_linear(rng.integers(0, 256, (375 // 8, 1242 // 8, 3), dtype=np.uint8),
+                            (1242, 375)) for _ in range(8)]
+    x = serve_preprocess(torch.from_numpy(np.stack(frames)).cuda(), KITTI_HW)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gpu = std05_net(x)
+    try:
+        std05_vs_float64(gpu, frames, x, [KITTI_HW[1], KITTI_HW[0]])
+        print("[sweep] serve3d-std05 on cv2-upsampled frames: within the bar")
+    except AssertionError as e:
+        print(f"[sweep] serve3d-std05 on cv2-upsampled frames: {e}")
+    t0 = time.perf_counter()
+    std05_stem_witness(gpu, x)
+    print(f"[sweep] serve3d-std05 witness took {time.perf_counter() - t0:.1f} s")
+
+
+def learn2d_epoch_sweep(card: str, epochs: int = 60) -> None:
+    """Where [learn2d]'s epoch goes: its recipe for ``epochs`` epochs with
+    save=False, with save=True, and with save=True but the writer's submits
+    dropped (the snapshot alone), twice each in turns: ms an epoch, the
+    step's median (host clock between synchronisations), the snapshot's
+    and the writer's median ms."""
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.utils.checkpoint import AsyncCheckpointer
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    real_submit = AsyncCheckpointer.submit
+    with tempfile.TemporaryDirectory() as tmp:
+        data = overfit2d_tree(Path(tmp) / "overfit")
+        for run, (name, save) in enumerate([("save off", False), ("save on", True),
+                                            ("snapshot only", True)] * 2):
+            times = []
+            if name == "snapshot only":
+                AsyncCheckpointer.submit = lambda self, path, **kw: None
+            try:
+                model = YOLOv10("yolov10n.yaml", device="cuda")
+                t0 = time.perf_counter()
+                with timed_train_steps(times):
+                    model.train(data=str(data), epochs=epochs, save_dir=f"{tmp}/{run}",
+                                **{**LEARN2D_RECIPE, "save": save})
+                wall = time.perf_counter() - t0
+            finally:
+                AsyncCheckpointer.submit = real_submit
+            trainer = model.trainer
+            writes = trainer._ckpt_writer.write_seconds if trainer._ckpt_writer else []
+            print(f"[sweep] learn2d-epoch {name}: {wall / epochs * 1e3:.1f} ms an epoch, the step "
+                  f"{statistics.median(times[5:]):.1f} ms (median), the snapshot "
+                  f"{statistics.median(trainer.snapshot_ms or [0.0]):.1f} ms, the writer "
+                  f"{statistics.median(writes or [0.0]) * 1e3:.1f} ms a save ({epochs} epochs; "
+                  f"{card})")
+
+
 SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "stem": "stem_conv",
-          "k1": "decode_detect", "val2d-std05": "decode_detect"}
+          "k1": "decode_detect", "val2d-std05": "decode_detect", "learn2d-epoch": "decode_detect",
+          "serve3d-std05": "stem_conv"}
 
 
 def sweep_only(argv) -> int:
@@ -3023,8 +3514,9 @@ def sweep_only(argv) -> int:
     subset of int8 (phase 3b, then K2 at both sites at B=1, 8 and 32 beside
     torch._int_mm), k2tiles (every tile K2 compiles at those six shapes),
     stem (the stem at 640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
-    32) and val2d-std05 (``val2d_std05_witness``), so that two checkouts'
-    kernels are timed in one call on one card;
+    32), val2d-std05 (``val2d_std05_witness``), learn2d-epoch
+    (``learn2d_epoch_sweep``) and serve3d-std05 (``serve3d_std05_witness``),
+    so that two checkouts' kernels are timed in one call on one card;
     "serve" adds the device kernels of one float32 request (which builds
     every source)."""
     names = argv[argv.index("--sweep") + 1].split(",")
@@ -3050,10 +3542,24 @@ def sweep_only(argv) -> int:
         k2_tile_sweep()
     if "val2d-std05" in names:
         val2d_std05_witness(card)
+    if "learn2d-epoch" in names:
+        learn2d_epoch_sweep(card)
+    if "serve3d-std05" in names:
+        serve3d_std05_witness()
     if "serve" in names:
         request_kernels()
     print(card_line())
     return 0
+
+
+def train_set(root: Path) -> Path:
+    """[train]'s synthetic set, written under ``root``."""
+    t0 = time.perf_counter()
+    data = synthetic_set(root / "set")
+    n_img = len(list(data.parent.glob("images/*.png")))
+    print(f"[train] synthetic set: {n_img} PNGs 640x480 written in "
+          f"{time.perf_counter() - t0:.1f} s")
+    return data
 
 
 def main() -> int:
@@ -3094,13 +3600,19 @@ def main() -> int:
     except AssertionError as e:
         failed.append(f"train-lockstep: {e}")
         print(f"[train-lockstep] FAILED: {e}")
-    train = phase_train(card)
+    with tempfile.TemporaryDirectory() as tmp:
+        data = train_set(Path(tmp))
+        train = phase_train(card, data)
+        done("train-lockstep, train")
+        phase_host_aug(card, data)
+        done("host-aug")
+        train_host = phase_train_host(card, data)
+        done("train-host")
     try:  # as above: [train3d] runs even when its lockstep misses a bar
         phase_train3d_lockstep(card)
     except AssertionError as e:
         failed.append(f"train3d-lockstep: {e}")
         print(f"[train3d-lockstep] FAILED: {e}")
-    done("train-lockstep, train")
     phase_train3d(card)
     done("train3d-lockstep, train3d")
     if failed:
@@ -3113,8 +3625,11 @@ def main() -> int:
         done("val2d")
     phase_learn3d(card)
     done("learn3d")
+    learn2d = phase_learn2d(card)
+    done("learn2d")
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}
-    for counts in (ckpt["train"], ckpt["reload"], val2d):  # K4 and K1; K1 and the stem; K1
+    # K4 and K1; K1 and the stem; K1; K4; K1, the stem, K2, K3 and int8_conv_f32
+    for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, learn2d):
         for k in KERNELS:
             launches[k] += counts[k]
     for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too

@@ -327,9 +327,16 @@ def test_train_one_epoch_on_cpu(png_tree, tmp_path, monkeypatch):
     ({"device": "0,1"}, "9g"),
 ])
 def test_unported_training_options_raise(png_tree, option, item):
-    """Each training option of the JAX trainer this slice lacks raises and
-    names its ROADMAP item, instead of training some other way."""
+    """Each training option of the JAX trainer the port lacks raises and
+    names its ROADMAP item, instead of training some other way. The three
+    of item 9a are ported (the host augmentation): they train, as in the
+    JAX trainer, on the host path."""
     kw = dict(data=str(png_tree), imgsz=64, batch=2, epochs=1, device_aug=True, val=False,
               save=False, workers=0)
+    if item == "9a":
+        model = YOLOv10("yolov10n.yaml", device="cpu")
+        assert model.train(**{**kw, **option}).step == 5
+        assert not model.trainer.train_ds.tile_mode
+        return
     with pytest.raises(NotImplementedError, match=f"item {item}"):
         YOLOv10("yolov10n.yaml", device="cpu").train(**{**kw, **option})

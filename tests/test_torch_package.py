@@ -1,6 +1,6 @@
 """Package rules of the PyTorch port: it imports neither JAX nor the JAX
 package (nor cv2 or PIL), serves (2D, int8 and 3D, and over HTTP), trains
-and validates in 3D without them,
+(on the host augmentation too) and validates in 3D without them,
 runs on the card unless the caller asks for the CPU, and refuses the serving
 options it has not ported."""
 
@@ -114,6 +114,13 @@ st = m2.train(data=str(root / "yolo.yaml"), imgsz=64, batch=2, epochs=1, device_
 assert st.step == 2 and "mAP50" in m2.trainer.last_metrics
 r2 = yolov10_3d_torch.YOLOv10(str(root / "train2d" / "weights" / "best.ckpt"), device="cpu")
 assert "mAP50" in r2.val(data=str(root / "yolo.yaml"), imgsz=64, batch=2)
+# 2D training at the defaults: the host augmentation (the g++ library, no
+# cv2) on worker threads, its last epoch with the mosaic closed
+m2h = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu")
+st = m2h.train(data=str(root / "yolo.yaml"), imgsz=64, batch=2, epochs=2, close_mosaic=1,
+               degrees=5.0, mosaic9=0.5, workers=2, val=False, save=False,
+               save_dir=str(root / "train2d_host"))
+assert st.step == 4 and m2h.trainer.train_ds.hyp["mosaic"] == 0.0
 # the dynamic-batching server over HTTP on localhost, a PNG body from above
 import json, urllib.request
 from yolov10_3d_torch.engine.server import InferenceServer
@@ -128,6 +135,8 @@ srv.stop()
 assert reply["shape"] == [60, 200] and reply["detections"], reply
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
+import shutil
+shutil.rmtree(root)  # the trees and checkpoints above, about half a GB
 print("isolated ok")
 """
 
@@ -139,7 +148,8 @@ def test_port_imports_and_serves_without_jax():
     and AP40 evaluator), one epoch of 3D training with its validation,
     its checkpoint reloaded (the port's own msgpack codec: msgpack is
     blocked too) and validated, one epoch of 2D training with validation
-    and its reloaded best.ckpt's 2D validation, and one request to the
+    and its reloaded best.ckpt's 2D validation, two epochs of 2D training
+    on the host augmentation (cv2 is blocked), and one request to the
     inference server (``engine/server.py``; every
     module, ``cfg/cli.py`` too, is imported first)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,

@@ -1,6 +1,7 @@
 """Serving preprocess of the PyTorch port against the JAX package: letterbox
-geometry, the numpy host resize (cv2 INTER_LINEAR in the JAX package) and the
-device letterbox (jax.image.resize bilinear, antialiased on downscale)."""
+geometry, the numpy host resize (cv2 INTER_LINEAR in the JAX package, equal
+bit for bit on downscales and upscales) and the device letterbox
+(jax.image.resize bilinear, antialiased on downscale)."""
 
 import cv2
 import jax.numpy as jnp
@@ -26,17 +27,13 @@ def test_letterbox_geometry_matches_jax(hw):
 
 @pytest.mark.parametrize("hw", SOURCES)
 def test_host_letterbox_matches_jax(hw):
-    """The numpy resize reproduces cv2's fixed-point INTER_LINEAR: at most one
-    grey level apart (measured: equal on downscales; 0.2% of the pixels one
-    level off on the two upscales); pure padding is exact."""
+    """The numpy resize is cv2's fixed-point INTER_LINEAR: the letterbox
+    equals JAX's bit for bit on every source, the upscales included."""
     img = np.random.default_rng(sum(hw)).integers(0, 256, (*hw, 3), dtype=np.uint8)
     got, r, pad = TD.letterbox(img, (128, 128))
     want, wr, wpad = JD.letterbox(img, (128, 128))
     assert (r, pad) == (wr, wpad)
-    diff = np.abs(got.astype(int) - want.astype(int))
-    assert diff.max() <= 1
-    if min(128 / hw[0], 128 / hw[1]) <= 1:  # downscale or no resize
-        assert diff.max() == 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_resize_linear_matches_cv2_exactly_on_downscale():
@@ -45,6 +42,23 @@ def test_resize_linear_matches_cv2_exactly_on_downscale():
         np.testing.assert_array_equal(
             TD.resize_linear(img, size), cv2.resize(img, size, interpolation=cv2.INTER_LINEAR)
         )
+
+
+# (source h, w) -> (w, h): upscales both ways, one axis up and one down, and
+# a one-row or one-column source
+UPSCALES = [((48, 64), (85, 64)), ((100, 100), (128, 128)), ((33, 47), (128, 92)),
+            ((50, 70), (128, 91)), ((64, 8), (8, 85)), ((120, 40), (90, 200)), ((1, 7), (9, 5)),
+            ((7, 1), (4, 13))]
+
+
+@pytest.mark.parametrize("hw,size", UPSCALES)
+def test_resize_linear_matches_cv2_exactly_on_upscale(hw, size):
+    """A row mapped above the source's first (or below its last) keeps its
+    fractional weights on the edge row taken twice, which cv2 rounds in two
+    products: the columns clamp to weight 1, the rows do not."""
+    img = np.random.default_rng(sum(hw)).integers(0, 256, (*hw, 3), dtype=np.uint8)
+    np.testing.assert_array_equal(TD.resize_linear(img, size),
+                                  cv2.resize(img, size, interpolation=cv2.INTER_LINEAR))
 
 
 def test_preprocess_batch_matches_jax():

@@ -68,10 +68,14 @@ DEFAULTS: Dict[str, Any] = {
     "hsv_s": 0.7,
     "hsv_v": 0.4,
     "degrees": 0.0,
+    "scale": 0.4,
     "shear": 0.0,
     "perspective": 0.0,
+    "flipud": 0.0,
     "fliplr": 0.5,
     "mosaic": 1.0,
+    "mosaic9": 0.0,
+    "copy_paste": 0.0,  # the segment task's (item 13); detection draws nothing for it
     "patience": 150,
     "val_period": 1,
     "pretrained": True,

@@ -1,13 +1,17 @@
 """YOLO-format detection dataset and loader (port of
-``yolov10_3d_tpu/data/dataset.py``: tile mode, the host half of the
-device-augmentation path, and the validation mode).
+``yolov10_3d_tpu/data/dataset.py``: the host augmentation mode, the tile
+mode of the device-augmentation path, and the validation mode).
 
-In tile mode (``augment=True``) ``YOLODataset`` returns, per sample, the
-four letterboxed uint8 tiles of a mosaic (the sample and three partners
-drawn from ``self.rng``) with their labels in tile-frame pixels;
-``ops/device_aug.py`` does the rest on the device. In validation mode
-(``augment=False``) it returns the image letterboxed without upscaling and
-its labels padded to ``max_boxes``. ``DataLoader`` batches either, in a
+In host mode (``augment=True, device_aug=False``, or ``device_aug=True``
+once ``mosaic`` is 0) ``YOLODataset`` returns the sample augmented on the
+host by ``data/augment.py`` ``train_augment``, its mosaic partners served
+from a buffer of recently decoded samples, with its labels padded to
+``max_boxes``. In tile mode (``augment=True, device_aug=True`` while
+``mosaic > 0``) it returns the four letterboxed uint8 tiles of a mosaic (the
+sample and three partners drawn from ``self.rng``) with their labels in
+tile-frame pixels; ``ops/device_aug.py`` does the rest on the device. In
+validation mode (``augment=False``) it returns the image letterboxed without
+upscaling and its labels padded. ``DataLoader`` batches any of them, in a
 seeded per-epoch order or in file order.
 
 Images are decoded without cv2 or PIL: 8-bit PNG only (``decode_png``).
@@ -17,6 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import queue
+from collections import deque
 import struct
 import threading
 import zlib
@@ -27,9 +32,11 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .augment import NATIVE, HostOps, train_augment
 from .preprocess import letterbox
 
 IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
+PARTNER_BUFFER = 32  # samples kept for host mode's mosaic partners (JAX's buffer_size)
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # grey, RGB, grey + alpha, RGBA
 
@@ -123,14 +130,15 @@ def _load_image(path: str) -> np.ndarray:
 
 
 class YOLODataset:
-    """Detection dataset over YOLO-format labels. With ``augment`` (tile
-    mode), item ``i`` is {tiles (4, H, W, 3) uint8, tile_labels (4, M, 5) cls
-    + xyxy px in the tile frame, tile_mask (4, M) bool} for the mosaic of
-    sample i and three partners drawn from ``self.rng``; without, {img (H, W,
-    3) uint8 letterboxed to imgsz without upscaling, gt_labels (M,), gt_bboxes
-    (M, 4) normalized xywh, mask_gt (M,), im_id} (the JAX validation item).
-    ``img_path`` is a directory of images or a .txt list of image paths;
-    labels live under the parallel ``labels`` directory."""
+    """Detection dataset over YOLO-format labels. In tile mode item ``i`` is
+    {tiles (4, H, W, 3) uint8, tile_labels (4, M, 5) cls + xyxy px in the
+    tile frame, tile_mask (4, M) bool} for the mosaic of sample i and three
+    partners drawn from ``self.rng``; in host and validation mode it is {img
+    (H, W, 3) uint8, gt_labels (M,), gt_bboxes (M, 4) normalized xywh,
+    mask_gt (M,), im_id}, the image augmented (``train_augment`` with
+    ``self.rng``, the cv2 operations from ``ops``) or letterboxed to imgsz
+    without upscaling. ``img_path`` is a directory of images or a .txt list
+    of image paths; labels live under the parallel ``labels`` directory."""
 
     def __init__(
         self,
@@ -142,15 +150,14 @@ class YOLODataset:
         single_cls: bool = False,
         seed: int = 0,
         augment: bool = True,
+        device_aug: bool = True,
+        ops: HostOps = NATIVE,
     ):
-        hyp = dict(hyp or {})
-        if augment and not hyp.get("mosaic", 1.0) > 0:
-            raise NotImplementedError(
-                "YOLODataset trains in tile mode only (mosaic > 0); the host augmentation "
-                "path is ROADMAP queue 1, item 9a")
         self.augment = augment
+        self.device_aug = device_aug
+        self.ops = ops
         self.imgsz = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
-        self.hyp = hyp
+        self.hyp = dict(hyp or {})
         self.max_boxes = max_boxes
         self.single_cls = single_cls
         self.rng = np.random.default_rng(seed)
@@ -159,6 +166,8 @@ class YOLODataset:
             self.im_files = self.im_files[: max(1, round(len(self.im_files) * fraction))]
         self.label_files = [img2label_path(f) for f in self.im_files]
         self.labels = self._load_labels(Path(img_path))
+        # the mosaic partners of host mode come from recently decoded samples
+        self._buffer: deque = deque(maxlen=PARTNER_BUFFER)
 
     # -- labels, cached in labels.cache.npz beside the images --
     def _labels_hash(self) -> str:
@@ -235,6 +244,48 @@ class YOLODataset:
                           -1).astype(np.float32)
         return img, labels
 
+    @property
+    def tile_mode(self) -> bool:
+        """Tiles for the device augmentation, until ``close_mosaic``."""
+        return self.augment and self.device_aug and self.hyp.get("mosaic", 1.0) > 0
+
+    def close_mosaic(self) -> None:
+        """No mosaic and no mixup from here on: the last epochs' host path."""
+        self.hyp["mosaic"] = 0.0
+        self.hyp["mixup"] = 0.0
+
+    def _make_buffered_raw(self, primary: int, rng: Optional[np.random.Generator] = None,
+                           buf: Optional[deque] = None, fresh: Optional[list] = None):
+        """``get_item(i)`` for ``train_augment``: the primary sample is always
+        decoded (and joins the buffer); a partner is drawn from the buffer
+        once it holds min(maxlen, 4) samples, else decoded and added. ``rng``
+        and ``buf`` default to the dataset's own; the decoded samples are
+        also appended to ``fresh``."""
+        rng = self.rng if rng is None else rng
+        buf = self._buffer if buf is None else buf
+
+        def get_item(i: int):
+            if i != primary and buf.maxlen and len(buf) >= min(buf.maxlen, 4):
+                img, labels = buf[int(rng.integers(len(buf)))]
+                return img, labels.copy()
+            img, labels = self._raw(i)
+            if buf.maxlen:
+                buf.append((img, labels))
+                if fresh is not None:
+                    fresh.append((img, labels))
+            return img, labels.copy()
+
+        return get_item
+
+    def host_item(self, i: int, rng: Optional[np.random.Generator] = None,
+                  buf: Optional[deque] = None, fresh: Optional[list] = None
+                  ) -> Dict[str, np.ndarray]:
+        """Sample i augmented on the host, in the fixed (max_boxes, ...) layout."""
+        img, labels = train_augment(self._make_buffered_raw(i, rng, buf, fresh), i, len(self),
+                                    self.rng if rng is None else rng, self.imgsz, self.hyp,
+                                    self.ops)
+        return self._format_detect(img, labels, i)
+
     def tile_indices(self, i: int) -> List[int]:
         """Sample i and its three mosaic partners, drawn from ``self.rng``."""
         return [i] + [int(self.rng.integers(0, len(self))) for _ in range(3)]
@@ -270,6 +321,10 @@ class YOLODataset:
             labels = labels.copy()
             labels[:, [1, 3]] = labels[:, [1, 3]] * ratio + dw
             labels[:, [2, 4]] = labels[:, [2, 4]] * ratio + dh
+        return self._format_detect(img, labels, i)
+
+    def _format_detect(self, img: np.ndarray, labels: np.ndarray, i: int) -> Dict[str, np.ndarray]:
+        """(n, 5) cls + xyxy px labels padded to the fixed (M, ...) layout."""
         h, w = img.shape[:2]
         M = self.max_boxes
         gt_labels = np.zeros((M,), np.int32)
@@ -287,7 +342,9 @@ class YOLODataset:
                 "mask_gt": mask, "im_id": np.asarray(i, np.int64)}
 
     def __getitem__(self, i: int) -> Dict[str, np.ndarray]:
-        return self.tiles_item(i) if self.augment else self.val_item(i)
+        if self.tile_mode:
+            return self.tiles_item(i)
+        return self.host_item(i) if self.augment else self.val_item(i)
 
 
 class _Failure:
@@ -304,11 +361,15 @@ class DataLoader:
     else in file order; the short last batch dropped with ``drop_last``
     (training), kept without (validation).
 
-    ``workers=0`` loads in the caller's thread. Otherwise a producer thread
-    draws every sample's mosaic partners in order (so a batch does not
-    depend on thread timing) and decodes them on a pool of ``workers``
-    threads, two batches ahead; the threads are stopped and joined when the
-    iteration ends, fails or is abandoned."""
+    ``workers=0`` loads in the caller's thread, item by item, as the JAX
+    loader does on one thread. Otherwise a producer thread makes the draws
+    that order the batch (so a batch does not depend on thread timing) and
+    loads the items on a pool of ``workers`` threads, two batches ahead: in
+    tile mode it draws every sample's mosaic partners in order; in host mode
+    it draws one generator seed per sample in order, each sample's partners
+    come from the buffer as it stood at the batch's start, and the samples it
+    decoded join the buffer in order after the batch. The threads are
+    stopped and joined when the iteration ends, fails or is abandoned."""
 
     PREFETCH = 2
 
@@ -334,12 +395,29 @@ class DataLoader:
         batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
         return [b for b in batches if len(b) == bs] if self.drop_last else batches
 
-    def _collate(self, sel: np.ndarray, map_fn=map) -> Dict[str, torch.Tensor]:
-        if self.dataset.augment:
-            idxs = [self.dataset.tile_indices(int(i)) for i in sel]  # draws in order
-            items = list(map_fn(self.dataset.load_tiles, idxs))
+    def _collate(self, sel: np.ndarray, map_fn=None) -> Dict[str, torch.Tensor]:
+        ds = self.dataset
+        if ds.tile_mode:
+            idxs = [ds.tile_indices(int(i)) for i in sel]  # draws in order
+            items = list((map_fn or map)(ds.load_tiles, idxs))
+        elif not ds.augment:
+            items = list((map_fn or map)(ds.val_item, [int(i) for i in sel]))
+        elif map_fn is None:
+            items = [ds.host_item(int(i)) for i in sel]
         else:
-            items = list(map_fn(self.dataset.val_item, [int(i) for i in sel]))
+            seeds = [int(ds.rng.integers(2**63)) for _ in sel]  # draws in order
+            start = tuple(ds._buffer)
+
+            def load(k: int):
+                fresh: list = []
+                buf = deque(start, maxlen=ds._buffer.maxlen)
+                item = ds.host_item(int(sel[k]), np.random.default_rng(seeds[k]), buf, fresh)
+                return item, fresh
+
+            done = list(map_fn(load, range(len(sel))))
+            items = [item for item, _ in done]
+            for _, fresh in done:
+                ds._buffer.extend(fresh)
         out = {k: torch.from_numpy(np.stack([it[k] for it in items])) for k in items[0]}
         return {k: v.pin_memory() for k, v in out.items()} if self.pin_memory else out
 

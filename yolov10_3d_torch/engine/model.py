@@ -6,8 +6,9 @@ weights; ``YOLOv10("run/weights/best.ckpt")`` loads a checkpoint written by
 either package (the EMA weights when it has them; its names, and its
 training ``imgsz`` and ``max_det`` as defaults). ``.predict(source,
 **kwargs)`` serves it, in int8 with ``int8=True``; ``.val(data=...)`` gives
-its mAP (``engine/validator.py``); ``.train(data=..., device_aug=True)``
-trains a fresh model of the same YAML on a dataset (2D detection), writing
+its mAP (``engine/validator.py``); ``.train(data=...)`` trains a fresh
+model of the same YAML on a dataset (2D detection, the host augmentation or
+with ``device_aug=True`` the device's), writing
 checkpoints and validating as it goes, and then serves the trained EMA
 weights. A v10-3D YAML (``yolov10s_3D.yaml``) makes a ``detect3d`` model,
 whose Results carry ``boxes3d``; ``.val(data="kitti.yaml")`` gives its
@@ -121,8 +122,9 @@ class YOLOv10:
 
     def train(self, **kwargs) -> TrainState:
         """Train a fresh model of this YAML with the dataset's nc on this
-        facade's device (the JAX ``YOLOv10.train``): 2D detection with device
-        augmentation, or 3D detection on a KITTI dataset YAML
+        facade's device (the JAX ``YOLOv10.train``): 2D detection (the host
+        augmentation, or the device's with ``device_aug``), or 3D detection on
+        a KITTI dataset YAML
         (``Detection3DTrainer``); afterwards the facade serves and validates
         the EMA weights."""
         args = get_cfg({**self.overrides, "model": self.model_cfg, "device": str(self.device),

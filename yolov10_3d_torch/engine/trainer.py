@@ -1,6 +1,7 @@
 """Training loop (port of ``yolov10_3d_tpu/engine/trainer.py``
-``DetectionTrainer``: 2D detection on the device-augmentation path, and the
-hooks the 3D trainer, ``engine/trainer3d.py``, overrides).
+``DetectionTrainer``: 2D detection on the host augmentation path or the
+device-augmentation path, and the hooks the 3D trainer,
+``engine/trainer3d.py``, overrides).
 
 The host loop builds the model with the dataset's nc and the head's bias
 init (``init_params``), the datasets (``build_dataset``) and the training
@@ -9,7 +10,9 @@ with ``resume`` it restores the model, EMA, optimizer and step from
 ``last.ckpt`` and re-enters the saved epoch, skipping the batches a
 mid-epoch save recorded. Then, per epoch, it steps through the loader in a
 seeded order with the epoch's extra batch keys (``epoch_batch_extras``),
-hands the epoch's mean loss terms to ``on_epoch_losses``, validates the EMA
+closes the mosaic for the last ``close_mosaic`` epochs (a resumed run past
+that boundary starts closed), hands the epoch's mean loss terms to
+``on_epoch_losses``, validates the EMA
 weights every ``val_period`` epochs (``get_validator``, ``run_val``),
 appends the terms, lr and validation metrics to ``results.csv``, tracks the
 best fitness, writes ``last.ckpt``, ``best.ckpt`` and every ``save_period``
@@ -54,24 +57,14 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
 
 
-def check_ported(args: Dict[str, Any], task: str = "detect") -> None:
-    """Raise for every training option of the JAX trainer that the port
-    lacks for ``task`` ("detect" or "detect3d")."""
+def check_ported(args: Dict[str, Any]) -> None:
+    """Raise for every training option of the JAX trainer that the port lacks."""
     for k in ("rect", "multi_scale", "cache"):
         if args[k]:
             raise _not_ported(f"{k}={args[k]!r}", "9e")
     dev = args["device"]
     if isinstance(dev, (list, tuple)) or "," in str(dev or ""):
         raise _not_ported(f"multi-GPU training (device={dev!r})", "9g")
-    if task != "detect":
-        return
-    if not args["device_aug"] or any(float(args[k] or 0.0) for k in
-                                     ("degrees", "shear", "perspective")):
-        raise _not_ported("the host augmentation path (device_aug=False, or non-zero "
-                          "degrees/shear/perspective)", "9a")
-    if args["close_mosaic"] and args["close_mosaic"] <= args["epochs"]:
-        raise _not_ported(f"close_mosaic={args['close_mosaic']} within {args['epochs']} epochs "
-                          "(its last epochs train on the host augmentation path)", "9a")
 
 
 class EarlyStopping:
@@ -101,10 +94,10 @@ class DetectionTrainer:
     ``args['device']`` (the card unless "cpu" is asked for)."""
 
     task = "detect"
-    nhwc = False  # the 2D batch images are NCHW (the device augmentation makes them)
+    nhwc = True  # the loader's images are NHWC uint8 (the device augmentation returns NCHW)
 
     def __init__(self, args: Dict[str, Any]):
-        check_ported(args, self.task)
+        check_ported(args)
         self.args = args
         self.device = resolve_device(args["device"] or "cuda")
         self.save_dir = Path(args["save_dir"] or "runs/train")
@@ -117,19 +110,32 @@ class DetectionTrainer:
         """The head's bias init, in place."""
         detect_bias_init(model.model[spec.head_index], spec.nc, spec.strides)
 
+    def device_aug_active(self) -> bool:
+        """``device_aug``, unless degrees, shear or perspective ask for the
+        host path (the device augmentation has no warp)."""
+        return bool(self.args["device_aug"]) and not any(
+            float(self.args[k] or 0.0) for k in ("degrees", "shear", "perspective"))
+
     def build_dataset(self, path, mode: str):
         args = self.args
         train = mode == "train"
         return YOLODataset(path, imgsz=args["imgsz"], augment=train, hyp=args,
                            fraction=args["fraction"] if train else 1.0,
-                           single_cls=args["single_cls"], seed=args["seed"])
+                           single_cls=args["single_cls"], seed=args["seed"],
+                           device_aug=self.device_aug_active())
 
     def build_loader(self, dataset, batch: int):
         return DataLoader(dataset, batch, seed=self.args["seed"], workers=self.args["workers"],
                           pin_memory=self.device.type == "cuda")
 
     def make_preprocess_fn(self):
+        """The device augmentation of tile batches, or None on the host path."""
         args = self.args
+        if not self.device_aug_active():
+            if args["device_aug"]:
+                LOGGER.warning("device_aug=True ignored: degrees/shear/perspective need the "
+                               "host augmentation (the dataset stays on the host path)")
+            return None
         imgsz = args["imgsz"]
         hw = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
         gains = (args["hsv_h"], args["hsv_s"], args["hsv_v"])
@@ -248,8 +254,16 @@ class DetectionTrainer:
         csv_path = self.save_dir / "results.csv"
         self.save_dir.mkdir(parents=True, exist_ok=True)
         epochs = args["epochs"]
+        # the last close_mosaic epochs train without mosaic, on the host path
+        # (a 3D dataset has no mosaic); a run shorter than that never closes
+        close_at = epochs - args["close_mosaic"] if args["close_mosaic"] else -1
+        closed = not hasattr(train_ds, "close_mosaic")
         try:
             for epoch in range(start_epoch, epochs):
+                if not closed and 0 <= close_at <= epoch:
+                    train_ds.close_mosaic()
+                    closed = True
+                    LOGGER.info(f"closed the mosaic at epoch {epoch}")
                 if (args["close_mixup"] and epoch == epochs - args["close_mixup"]
                         and hasattr(train_ds, "mixup")):
                     train_ds.mixup = 0.0  # mixup's own closing epoch, apart from close_mosaic

@@ -73,20 +73,23 @@ def make_train_step(
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build ``train_step(state, batch)``. A batch holds either ``img`` (B, 3,
     H, W) uint8 or float [0, 1] with its targets, or the tile keys that
-    ``preprocess_fn(batch, step)`` turns into such a batch; with ``nhwc`` the
-    image is (B, H, W, 3), as the KITTI dataset stacks it. ``loss_fn(preds,
+    ``preprocess_fn(batch, step)`` turns into such a batch. With ``nhwc`` a
+    batch's own ``img`` is (B, H, W, 3), as the loaders stack it; the
+    preprocess's is NCHW either way, so one run may mix both kinds. ``loss_fn(preds,
     batch) -> (total, terms)`` replaces the v10 dual loss (the 3D trainer's
     hook); it reads the batch keys it needs (``htl_weights``, ``depth_map``)
     and ignores the rest. ``amp`` runs the forward under bfloat16 autocast;
     the loss is float32 either way."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        channels_last = nhwc
         if preprocess_fn is not None and "tiles" in batch:
             batch = preprocess_fn(batch, state.step)
+            channels_last = False
         img = batch["img"]
         model = state.model
         dtype = next(model.parameters()).dtype  # float32; float64 for a reference run
-        if nhwc:  # uint8 (B, H, W, 3) -> float NCHW on the batch's device
+        if channels_last:  # uint8 (B, H, W, 3) -> float NCHW on the batch's device
             img = img.permute(0, 3, 1, 2).to(dtype).div(255.0).contiguous()
         elif img.dtype == torch.uint8:
             img = img.to(dtype) / 255.0

@@ -27,7 +27,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.preprocess import resize_linear
+from ..data.preprocess import _linear_taps, _resample
 from ..nn.heads3d import BRANCHES, V10Detect3d
 
 # 3D regression branches after calibration: (mean, std) of every channel.
@@ -146,14 +146,17 @@ def o2m_near_o2o(model: nn.Module, rel: float = 0.02, seed: int = 0) -> nn.Modul
 
 def smooth_images(rng: np.random.Generator, shapes, cell: int = 8):
     """Seeded HWC uint8 images of the given (h, w): coarse noise, one value
-    per ``cell`` x ``cell`` block, bilinearly upsampled."""
-    return [
-        resize_linear(
-            rng.integers(0, 256, (max(h // cell, 2), max(w // cell, 2), 3), dtype=np.uint8),
-            (w, h),
-        )
-        for h, w in shapes
-    ]
+    per ``cell`` x ``cell`` block, bilinearly upsampled. The upsampling
+    takes the edge pixel with weight 1 outside the source on both axes (cv2
+    does so on the columns only, ``resize_linear``): these are the frames
+    every parity test's and card probe's bars were set on, and they stay
+    the same bytes."""
+    out = []
+    for h, w in shapes:
+        coarse = rng.integers(0, 256, (max(h // cell, 2), max(w // cell, 2), 3), dtype=np.uint8)
+        out.append(_resample(coarse, _linear_taps(w, coarse.shape[1], True),
+                             _linear_taps(h, coarse.shape[0], True)))
+    return out
 
 
 def _clear_of_cutoffs(scores: np.ndarray, conf: float, tol: float) -> np.ndarray:
