@@ -90,6 +90,25 @@ Phases, each fatal on failure:
                 K1 and one stem launch per device batch. Then YOLOv10-S-3D at
                 384x1280, max_batch 2, four frames from two threads, held
                 likewise. Both servers stopped, no thread left behind.
+  4e. sources - prediction over files as users call it. On the host (no
+                cv2, no PIL here): every file of tests/data/codec decoded by
+                cv2's and PIL's rules equals the digests of cv2's and PIL's
+                pixels committed beside it, every enc_*.png encodes to the
+                digests of PIL's and cv2's JPEG bytes, and each codec stage
+                of the library equals its numpy rule (data/codec_rules.py).
+                Then YOLOv10-S at 640 (seeded, calibrated) predicts a folder
+                of 32 frames of 480x640 (28 JPEG written by the port's
+                encoder, 3 PNG, 1 BMP) at batch 1 and 8, with save, save_txt
+                and save_crop, and with stream=True: the Results equal, bit
+                for bit, those of the same frames passed as ndarrays, and
+                every saved file equals what its Results give (the annotated
+                JPEG, the label lines, the crops). img/s over files, the
+                decode ms of a 640x480 JPEG and the decode share of a
+                request. A .pt in the JAX package's export format, written
+                here with torch.save from the port's model, serves bit for bit
+                as the model it came from (YOLOv10-S, and YOLOv10-S-3D at
+                384x1280). One JPEG request to the InferenceServer, its rows
+                held to the direct call. K1 and the stem once per forward.
   4c. val3d  - KITTI AP40 validation, YOLOv10("yolov10s_3D.yaml").val(...), on a
                 synthetic KITTI tree the script writes to a temporary directory:
                 16 frames of 375x1242 PNGs (smooth background, painted
@@ -172,7 +191,7 @@ Phases, each fatal on failure:
   10. learn2d - the JAX 2D learn-proof (tests/test_overfit_ap.py:188-223),
                 key for key: yolov10n on 8 synthetic 96x96 frames (a numpy
                 mirror of tests/_helpers.py make_overfit2d_tree, written as
-                PNG) at 64, 900 epochs, mosaic 0 (the host letterbox path),
+                JPEG by the port's encoder: the helper's cv2.imwrite bytes) at 64, 900 epochs, mosaic 0 (the host letterbox path),
                 checkpoints; YOLOv10(".../last.ckpt").val must reach mAP50
                 >= 0.9 and mp >= 0.8; the int8 reference: the same file's
                 predict(int8=True) on the 8 frames, scored by
@@ -180,7 +199,7 @@ Phases, each fatal on failure:
                 int8_conv_f32 on trained weights), the float32 predict
                 scored beside it.
 
-Each path (serving, serve3d, server, val3d, train, train-host, ckpt, val2d, learn3d,
+Each path (serving, serve3d, server, sources, val3d, train, train-host, ckpt, val2d, learn3d,
 learn2d) is driven with the launch counts set to 0 just before it and read just after. The last three lines are
 the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
 {...}}.
@@ -251,6 +270,9 @@ SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8
                    "stem_conv")
 SERVE3D_KERNELS = ("stem_conv",)
 SERVER_KERNELS = ("decode_detect", "stem_conv")
+SOURCES_KERNELS = ("decode_detect", "stem_conv")
+SOURCES_FRAMES = 32  # 640x480: 28 JPEG, 3 PNG, 1 BMP
+BRANCHES_3D = ("cls", "o2d", "s2d", "o3d", "s3d", "hd", "dep", "dep_un")  # o2o_heads.{j}
 TRAIN_KERNELS = ("hsv_jitter",)
 TRAIN_FIGURES: dict = {}  # [train]'s figures, printed again beside [train-host]
 
@@ -1903,6 +1925,270 @@ def _row_gaps(stats: dict) -> str:
         f", heading bins differing {stats['n_bin_flips']}"
 
 
+def bmp_bytes(img) -> bytes:
+    """A 24-bit bottom-up BMP of an HWC RGB uint8 image."""
+    import numpy as np
+
+    h, w, _ = img.shape
+    stride = (w * 3 + 3) // 4 * 4
+    rows = np.zeros((h, stride), np.uint8)
+    rows[:, :w * 3] = img[::-1, :, ::-1].reshape(h, -1)
+    head = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, rows.size, 2835, 2835, 0, 0)
+    return b"BM" + struct.pack("<IHHI", 54 + rows.size, 0, 0, 54) + head + rows.tobytes()
+
+
+def reference_pt(model, path: Path, model_yaml: str) -> None:
+    """A .pt of the port's model in the JAX package's export format
+    (yolov10_3d_tpu/utils/torch_export.py export_torch_checkpoint): the
+    state_dict with the keys a reference model has beside the port's (the
+    DFL's arange; the 3D head's o2o_heads.{j} aliases of its branches), the
+    YAML, names and train args, written with torch.save."""
+    import torch
+
+    sd = {k: v.detach().cpu().clone() for k, v in model.model.state_dict().items()}
+    head = f"model.{model.spec.head_index}"
+    sd[f"{head}.dfl.conv.weight"] = torch.arange(16, dtype=torch.float32).reshape(1, 16, 1, 1)
+    if model.task == "detect3d":
+        for key in [k for k in sd if k.startswith(head + ".")]:
+            rest = key[len(head) + 1:]
+            for j, br in enumerate(BRANCHES_3D):
+                if rest.startswith(br + "."):
+                    sd[f"{head}.o2o_heads.{j}.{rest[len(br) + 1:]}"] = sd[key]
+                    break
+    torch.save({"state_dict": sd, "model_yaml": model_yaml, "names": model.names,
+                "train_args": {"imgsz": IMGSZ}, "format": "yolov10_3d_tpu.torch_export/1"}, path)
+
+
+def codec_on_host() -> str:
+    """The codec library on this host against the committed digests of
+    tests/data/codec (cv2's and PIL's decoded pixels, PIL's and cv2's JPEG
+    bytes) and, stage by stage, against data/codec_rules.py."""
+    import hashlib
+
+    import numpy as np
+
+    from yolov10_3d_torch.data import codec_rules as R
+    from yolov10_3d_torch.data import image_io
+    from yolov10_3d_torch.native import image_codec
+
+    def sha(b):
+        return hashlib.sha256(b).hexdigest()
+
+    fx = Path(__file__).resolve().parent / "tests" / "data" / "codec"
+    digests = json.loads((fx / "digests.json").read_text())
+    n_dec = n_stage = 0
+    for name, want in sorted(digests["decoded"].items()):
+        data = (fx / name).read_bytes()
+        for rule in ("cv2", "pil"):
+            got = image_io.decode_bytes(data, rule, name)
+            if [sha(got.tobytes()), list(got.shape)] != want[rule]:
+                raise AssertionError(f"sources: {name} by {rule}'s rule is not its digest")
+            n_dec += 1
+        if name.endswith(".jpg"):
+            coded = image_codec.jpeg_decode_stages(data)
+            for k in coded.components:
+                if not np.array_equal(R.blocks_to_plane(R.idct_islow(k.coefs, k.qtable)), k.plane):
+                    raise AssertionError(f"sources: {name}'s IDCT is not its rule")
+            if not np.array_equal(R.decode_pixels(coded), coded.output):
+                raise AssertionError(f"sources: {name}'s upsampling and colour are not the rule")
+            n_stage += 2
+    n_enc = 0
+    for name, want in sorted(digests["encoded"].items()):
+        img = image_io.imread(fx / name)
+        for style in ("pil", "cv2"):
+            if sha(image_io.encode_jpeg(img, style)) != want[style]:
+                raise AssertionError(f"sources: {name} encoded in {style}'s style is not its digest")
+            n_enc += 1
+            coded = image_codec.jpeg_encode_stages(img, image_io.JPEG_QUALITY[style])
+            for k, full in zip(coded.components, R.rgb_to_ycc(img)):
+                plane = R.downsample(full, coded.hmax // k.h, k.plane.shape[1], k.plane.shape[0],
+                                     coded.vmax)
+                coefs = R.encode_coefficients(k.plane, k.qtable, k.coefs.shape[:2],
+                                              k.blocks_real, k.h, k.v)
+                if not (np.array_equal(plane, k.plane) and np.array_equal(coefs, k.coefs)):
+                    raise AssertionError(f"sources: {name}'s encoding stages are not the rules")
+                n_stage += 2
+    raw = np.random.default_rng(2).integers(0, 256, (64, 1 + 3 * 97), dtype=np.uint8)
+    raw[:, 0] = np.arange(64) % 5
+    if not np.array_equal(image_codec.png_unfilter(raw, 64, 3 * 97, 3, "rows"),
+                          R.png_unfilter(raw, 64, 3 * 97, 3)):
+        raise AssertionError("sources: the PNG unfilter is not its rule")
+    return (f"{n_dec} decodes of {len(digests['decoded'])} files equal their cv2/PIL digests, "
+            f"{n_enc} encodes equal PIL's and cv2's bytes, {n_stage + 1} stages equal "
+            "data/codec_rules.py")
+
+
+def phase_sources(card: str) -> dict:
+    """[sources]: prediction over files on the card (the docstring's 4e).
+    Returns the launch counts of its forwards."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data import image_io
+    from yolov10_3d_torch.engine.server import InferenceServer
+    from yolov10_3d_torch.native import image_codec
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.utils.parity import (calibrate, compare_results, smooth_images,
+                                               summary_results)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    print(f"[sources] codec on the card machine's host: {codec_on_host()} "
+          f"({time.perf_counter() - t0:.1f} s)")
+
+    def same(a, b, what):
+        if len(a) != len(b) or any(not np.array_equal(x.boxes.data, y.boxes.data)
+                                   for x, y in zip(a, b)):
+            raise AssertionError(f"sources: {what} differ")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        folder = Path(tmp) / "frames"
+        folder.mkdir()
+        imgs = smooth_images(np.random.default_rng(13), [(480, 640)] * SOURCES_FRAMES)
+        for i, im in enumerate(imgs):
+            if i < SOURCES_FRAMES - 4:
+                (folder / f"f{i:02d}.jpg").write_bytes(image_io.encode_jpeg(im, "pil"))
+            elif i < SOURCES_FRAMES - 1:
+                (folder / f"f{i:02d}.png").write_bytes(png_bytes(im))
+            else:
+                (folder / f"f{i:02d}.bmp").write_bytes(bmp_bytes(im))
+        files = sorted(str(p) for p in folder.iterdir())
+        decode_ms, stage_ms = [], {"output only": [], "every stage": []}
+        for f in files[:SOURCES_FRAMES - 4]:
+            t0 = time.perf_counter()
+            image_io.imread(f)
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            data = Path(f).read_bytes()
+            for name, fn in (("output only", image_codec.jpeg_decode),
+                             ("every stage", image_codec.jpeg_decode_stages)):
+                t0 = time.perf_counter()
+                fn(data)
+                stage_ms[name].append((time.perf_counter() - t0) * 1e3)
+        frames = [image_io.imread(f) for f in files]
+        model = YOLOv10("yolov10s.yaml", device="cuda", seed=0)
+        calibrate(model.model, serve_preprocess(torch.from_numpy(np.stack(frames[:16])).cuda(),
+                                                (IMGSZ, IMGSZ)))
+        kw = dict(imgsz=IMGSZ, conf=CONF)
+        for b in (1, 8):  # each batch size's first call captures its graph
+            model.predict(frames[:b], batch=b, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        forwards, rate = 0, {}
+        for b in (1, 8):
+            t0 = time.perf_counter()
+            from_files = model.predict(str(folder), batch=b, **kw)
+            rate[b] = SOURCES_FRAMES / (time.perf_counter() - t0)
+            if [r.path for r in from_files] != files:
+                raise AssertionError("sources: the folder's frames came in another order")
+            same(from_files, model.predict(frames, batch=b, **kw), f"batch {b}: files and arrays")
+            out = Path(tmp) / f"out{b}"
+            t0 = time.perf_counter()
+            saved = model.predict(str(folder), batch=b, save=True, save_txt=True, save_crop=True,
+                                  save_dir=str(out), max_det=20, **kw)
+            rate[f"{b}_save"] = SOURCES_FRAMES / (time.perf_counter() - t0)
+            n_files = check_saved(saved, out)
+            forwards += 3 * -(-SOURCES_FRAMES // b)
+        streamed = list(model.predict(str(folder), stream=True, **kw))
+        forwards += SOURCES_FRAMES
+        same(streamed, model.predict(str(folder), batch=1, **kw), "stream=True and the list")
+        forwards += SOURCES_FRAMES
+        # .pt in the JAX export format, served as the model it came from
+        pt = Path(tmp) / "yolov10s.pt"
+        reference_pt(model, pt, "yolov10s.yaml")
+        reloaded = YOLOv10(str(pt), device="cuda")
+        same(reloaded.predict(frames[:8], batch=8, **kw), model.predict(frames[:8], batch=8, **kw),
+             "the .pt's and its source model's Results")
+        forwards += 2
+        files_counts = dict(launch_counts)  # one K1 and one stem launch a forward
+        if any(files_counts[k] != forwards for k in SOURCES_KERNELS):
+            raise AssertionError(f"sources: launches {files_counts} for {forwards} forwards")
+        # one JPEG request to the server, rows held to the direct call
+        before = set(threading.enumerate())
+        srv = InferenceServer(model, imgsz=IMGSZ, conf=CONF, max_batch=1)
+        http = srv.serve(port=0, blocking=False, warmup=True)
+        url = f"http://127.0.0.1:{http.server_address[1]}/predict"
+        req = urllib.request.Request(url, data=Path(files[0]).read_bytes(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            reply = json.loads(r.read())
+        srv.stop()
+        _joined(before, "[sources] server")
+        direct = model.predict(image_io.imread(files[0], "pil"), **kw)
+        cmp = compare_results(direct, [summary_results(reply["detections"], frames[0].shape)],
+                              conf=CONF, score_tol=SCORE_TOL, box_tol=BOX_TOL)
+    counts = dict(launch_counts)
+    # 3D: a .pt of YOLOv10-S-3D at 384x1280
+    kitti = smooth_images(np.random.default_rng(3), [(375, 1242)] * 2)
+    m3 = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+    calibrate(m3.model, serve_preprocess(torch.from_numpy(np.stack(kitti)).cuda(), KITTI_HW),
+              bn_std=BN_STD_3D)
+    with tempfile.TemporaryDirectory() as tmp:
+        reference_pt(m3, Path(tmp) / "yolov10s_3D.pt", "yolov10s_3D.yaml")
+        r3 = YOLOv10(str(Path(tmp) / "yolov10s_3D.pt"), device="cuda")
+        imgsz3 = [KITTI_HW[1], KITTI_HW[0]]
+        a, b = (m.predict(kitti, imgsz=imgsz3, batch=2, conf=CONF) for m in (m3, r3))
+        if any(not np.array_equal(x.boxes3d.data, y.boxes3d.data) for x, y in zip(a, b)):
+            raise AssertionError("sources: the 3D .pt does not serve as its source model")
+    dec = statistics.median(decode_ms)
+    request_ms = 1e3 / rate[1]
+    print(f"[sources] YOLOv10-S at {IMGSZ}, a folder of {SOURCES_FRAMES} 480x640 frames (28 JPEG "
+          f"from the port's encoder, 3 PNG, 1 BMP): {rate[1]:.1f} img/s at batch 1, "
+          f"{rate[8]:.1f} at batch 8; with save, save_txt, save_crop (max_det 20) "
+          f"{rate['1_save']:.1f} / {rate['8_save']:.1f} img/s, {n_files} files each, every one "
+          f"equal to its Results; decode of a 640x480 JPEG {dec:.2f} ms (median of 28; "
+          f"min {min(decode_ms):.2f}), {dec / request_ms:.3f} of a batch-1 request's "
+          f"{request_ms:.2f} ms; the library's decode of the same bytes, median of 28 in turn: "
+          f"output only {statistics.median(stage_ms['output only']):.3f} ms, every stage copied "
+          f"out {statistics.median(stage_ms['every stage']):.3f} ms ({card})")
+    print(f"[sources] files = arrays bit for bit at batch 1 and 8; stream=True = the list; "
+          f"YOLOv10(.pt) serves bit for bit as its source model, 2D and 3D (384x1280); one JPEG "
+          f"request to the server: {len(reply['detections'])} rows, {cmp['n_compared']} compared, "
+          f"max score err {cmp['max_score_err']:.2e}, box {cmp['max_box_err']:.2e} px; launches "
+          f"{ {k: files_counts[k] for k in SOURCES_KERNELS} } for the {forwards} forwards over "
+          f"files, { {k: counts[k] for k in SOURCES_KERNELS} } with the server's")
+    print(f"[sources] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def check_saved(results, out: Path) -> int:
+    """Every file ``_save_outputs`` wrote under ``out`` equals what its
+    Results give: the annotated JPEG, the label lines, the crops. Returns
+    the number of files."""
+    import numpy as np
+
+    from yolov10_3d_torch.data import image_io
+
+    n = 0
+    for r in results:
+        stem = Path(r.path).stem
+        if (out / f"{stem}.jpg").read_bytes() != image_io.encode_jpeg(r.plot(), "pil"):
+            raise AssertionError(f"sources: {stem}.jpg is not its Results' plot")
+        tmp = out.parent / "check.txt"
+        r.save_txt(tmp, save_conf=True)
+        if (out / "labels" / f"{stem}.txt").read_text() != tmp.read_text():
+            raise AssertionError(f"sources: labels/{stem}.txt is not its Results' lines")
+        tmp.unlink()
+        n += 2
+        for j in range(len(r.boxes)):
+            x1, y1, x2, y2 = (int(v) for v in r.boxes.xyxy[j])
+            crop = r.orig_img[max(y1, 0):max(y2, 1), max(x1, 0):max(x2, 1)]
+            c = int(r.boxes.cls[j])
+            f = out / "crops" / str(r.names.get(c, c)) / f"{stem}_{j}.jpg"
+            if crop.size:
+                if f.read_bytes() != image_io.encode_jpeg(np.ascontiguousarray(crop), "pil"):
+                    raise AssertionError(f"sources: {f.name} is not its crop")
+                n += 1
+    if n != sum(1 for p in out.rglob("*") if p.is_file()):
+        raise AssertionError(f"sources: {out} holds files that no Results gave")
+    return n
+
+
 def png_bytes(img) -> bytes:
     """An 8-bit RGB PNG of an HWC uint8 image (filter 0, zlib level 1)."""
     h, w, _ = img.shape
@@ -2594,29 +2880,86 @@ def record_best_ema(record: dict):
         DetectionTrainer.save_ckpt = real
 
 
+class PinnedBody:
+    """The trainer's snapshot without a device image: the body's bytes
+    between arrays written once into a kept pinned host buffer, each leaf
+    on the card copied straight into its slot there (one grouped call of
+    asynchronous copies, then one synchronisation). Timed against
+    ``Snapshot`` in ``snapshot_ab``; the port keeps the faster."""
+
+    def __init__(self):
+        self.key = None
+
+    def __call__(self, params, batch_stats=None, ema_params=None, opt_state=None):
+        import numpy as np
+        import torch
+
+        from yolov10_3d_torch.utils import msgpack
+        from yolov10_3d_torch.utils.checkpoint import _sorted, to_numpy_tree
+
+        tree = _sorted({"params": params, "batch_stats": batch_stats or {},
+                        "ema_params": ema_params or {},
+                        "opt_state": opt_state if opt_state is not None else {}})
+        leaves = []
+        key = msgpack.layout(tree, leaves)
+        if key != self.key:
+            heads, raws = msgpack.pack_segments(to_numpy_tree(tree))
+            image, slots = bytearray(), []
+            for head, raw in zip(heads, raws + [b""]):
+                image += head
+                if len(slots) < len(raws):
+                    slots.append((len(image), len(raw)))
+                image += raw
+            self.host = torch.frombuffer(image, dtype=torch.uint8).pin_memory()
+            self.views = [self.host[off:off + n] for off, n in slots]
+            self.key = key
+        dst, src = [], []
+        body = self.host.numpy()
+        for leaf, view in zip(leaves, self.views):
+            if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+                dst.append(view)
+                src.append(leaf.detach().contiguous().reshape(-1).view(torch.uint8))
+            else:
+                off = view.data_ptr() - self.host.data_ptr()
+                body[off:off + view.numel()] = np.frombuffer(
+                    msgpack._array_parts(leaf)[2], np.uint8, view.numel())
+        if dst:
+            torch._foreach_copy_(dst, src, non_blocking=True)
+        torch.cuda.synchronize()
+        return body
+
+
 def snapshot_ab(state) -> dict:
-    """The train thread's snapshot of ``state`` (``host_copy``: a copy a
-    leaf into pageable memory) against the same copies into pinned memory,
-    five of each in turn with no write in flight: median ms."""
+    """The train thread's snapshot of ``state`` three ways, five of each in
+    turn with no write in flight: ``Snapshot`` (the port's: the file's body
+    encoded in an image on the card, one transfer to a pinned buffer),
+    ``PinnedBody`` (no image on the card: each leaf copied into a kept
+    pinned buffer) and ``host_copy`` (the earlier snapshot: a copy a
+    leaf into pageable memory, encoded later on the writer thread). Median
+    ms of each, the bodies of the first two equal byte for byte, and the
+    memory each keeps: device bytes and pinned host bytes."""
+    import numpy as np
     import torch
 
-    from yolov10_3d_torch.utils.checkpoint import host_copy
+    from yolov10_3d_torch.utils.checkpoint import Snapshot, host_copy
 
-    def pinned(tree):
-        if isinstance(tree, dict):
-            return {k: pinned(v) for k, v in tree.items()}
-        if isinstance(tree, torch.Tensor):
-            return torch.empty(tree.shape, dtype=tree.dtype, pin_memory=True).copy_(tree)
-        return tree
-
-    times = {"pageable": [], "pinned": []}
+    snap, pinned = Snapshot(), PinnedBody()
+    body, release = snap(**state.checkpoint_trees())  # each layout built once
+    if not np.array_equal(body, pinned(**state.checkpoint_trees())):
+        raise AssertionError("ckpt: the two snapshots' bodies differ")
+    release()
+    times = {"snapshot": [], "pinned": [], "host_copy": []}
     for _ in range(5):
-        for name, fn in (("pageable", host_copy), ("pinned", pinned)):
+        for name, fn in (("snapshot", lambda t: snap(**t)[1]()), ("pinned", lambda t: pinned(**t)),
+                         ("host_copy", host_copy)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn(state.checkpoint_trees())
             times[name].append((time.perf_counter() - t0) * 1e3)
-    return {k: statistics.median(v) for k, v in times.items()}
+    out = {k: statistics.median(v) for k, v in times.items()}
+    out.update(image_mib=snap._image.numel() / 2**20, snapshot_pinned_mib=snap.host_bytes / 2**20,
+               pinned_mib=pinned.host.numel() / 2**20)
+    return out
 
 
 def phase_ckpt(card: str, data: Path) -> dict:
@@ -2662,6 +3005,7 @@ def phase_ckpt(card: str, data: Path) -> dict:
             raise AssertionError(f"ckpt: writes submitted {writer.submitted}, done "
                                  f"{writer.written}, superseded {writer.superseded}")
         snap, write = trainer.snapshot_ms, [s * 1e3 for s in writer.write_seconds]
+        held = trainer._snapshot.host_bytes / 2**20
         ab = snapshot_ab(state)
         rows = list(csv.DictReader(open(run / "results.csv")))
         print(f"[ckpt] YOLOv10-S {IMGSZ}x{IMGSZ}, batch 16, 2 epochs on {CKPT_SET} PNGs with "
@@ -2669,12 +3013,16 @@ def phase_ckpt(card: str, data: Path) -> dict:
               f"{last.stat().st_size / 2**20:.1f} MiB, best.ckpt (epoch "
               f"{record['best_epoch']}) {best.stat().st_size / 2**20:.1f} MiB; train thread's "
               f"snapshot per save: median {statistics.median(snap):.1f} ms (all "
-              f"{', '.join(f'{t:.1f}' for t in snap)}); writer thread's encode and write: median "
+              f"{', '.join(f'{t:.1f}' for t in snap)}); writer thread's write: median "
               f"{statistics.median(write):.1f} ms (all {', '.join(f'{t:.0f}' for t in write)}); "
               f"writes submitted {writer.submitted}, done {writer.written}, superseded "
               f"{writer.superseded}; the final state's snapshot with no write in flight, "
-              f"median of 5 alternating: host_copy (pageable) {ab['pageable']:.1f} ms, "
-              f"into pinned memory {ab['pinned']:.1f} ms a save; "
+              f"median of 5 alternating: Snapshot (the body, encoded on the card) "
+              f"{ab['snapshot']:.1f} ms, PinnedBody (no device image) {ab['pinned']:.1f} ms, "
+              f"host_copy (a copy a leaf) {ab['host_copy']:.1f} ms a save; memory kept: "
+              f"Snapshot's image {ab['image_mib']:.1f} MiB on the card and {held:.1f} MiB of "
+              f"pinned host buffers in the run ({ab['snapshot_pinned_mib']:.1f} alone), "
+              f"PinnedBody {ab['pinned_mib']:.1f} MiB pinned; "
               f"mAP50 by epoch {[float(r['mAP50']) for r in rows]}; "
               f"launches {train_counts} ({card})")
 
@@ -3004,7 +3352,7 @@ def phase_learn3d(card: str) -> dict:
         model = YOLOv10("yolov10n_3D.yaml", device="cuda")
         reset_launch_counts()
         t0 = time.perf_counter()
-        model.train(data=str(data), epochs=300, imgsz=LEARN3D_RES,
+        state = model.train(data=str(data), epochs=300, imgsz=LEARN3D_RES,
                     kitti_resolution=LEARN3D_RES, batch=8, workers=2, warmup_epochs=0.0,
                     fliplr=0.0, random_crop=0.0, mixup=0.0, patience=10000, amp=False,
                     lr0=0.003, lrf=0.2, optimizer="AdamW", nbs=8, val_period=10**6,
@@ -3024,11 +3372,22 @@ def phase_learn3d(card: str) -> dict:
                                                      kitti_resolution=LEARN3D_RES,
                                                      save_dir=str(Path(tmp) / "val"))
         got = {k: float(res[k]) for k in LEARN3D_BARS}
+        witness = last_ckpt_witness(model, state, last, data, Path(tmp))
         print(f"[learn3d] YOLOv10(last.ckpt).val on the 8 frames ({time.perf_counter() - t0:.1f} "
               f"s): mAP50 {got['mAP50']:.4f} (bar {LEARN3D_BARS['mAP50']}, JAX "
               f"{LEARN3D_JAX['mAP50']}), metrics/3D {got['metrics/3D']:.4f} (bar "
               f"{LEARN3D_BARS['metrics/3D']}, JAX {LEARN3D_JAX['metrics/3D']}), mAP50-95 "
               f"{float(res['mAP50-95']):.4f}; hand-kernel launches {dict(launch_counts)}")
+        ema = {k: float(witness["val"][k]) for k in (*LEARN3D_BARS, "mAP50-95")}
+        print(f"[learn3d] witness of the writer: last.ckpt's body = the final state's trees "
+              f"encoded directly (save_checkpoint of host_copy), {witness['bytes']} bytes, "
+              f"byte for byte; the trainer's EMA model before the save validates to "
+              + ", ".join(f"{k} {v:.4f}" for k, v in ema.items())
+              + f", the reloaded file to "
+              + ", ".join(f"{k} {float(res[k]):.4f}" for k in ema))
+        if ema != {k: float(res[k]) for k in ema}:
+            raise AssertionError(f"learn3d: last.ckpt validates to other metrics than the "
+                                 f"trainer's EMA model ({ema})")
         half = Path(tmp) / "last_fp16.ckpt"
         strip_optimizer(last, half)
         res16 = YOLOv10(str(half), device="cuda").val(data=str(data), batch=8,
@@ -3046,6 +3405,30 @@ def phase_learn3d(card: str) -> dict:
         raise AssertionError(f"learn3d: the trained 3D net misses its bars {missed} "
                              f"(bars {LEARN3D_BARS})")
     return got
+
+
+def last_ckpt_witness(model, state, last: Path, data: Path, tmp: Path) -> dict:
+    """That the trainer's checkpoint writer wrote the run's end state: the
+    body of ``last`` against the same state's trees encoded directly on the
+    host (``save_checkpoint`` of ``host_copy``, the path before the
+    ``Snapshot`` writer), byte for byte; and the validation of the
+    trainer's own EMA model (``model`` after ``train``), to be compared
+    with that of the reloaded file."""
+    from yolov10_3d_torch.utils.checkpoint import MAGIC, host_copy, save_checkpoint
+
+    direct = tmp / "direct.ckpt"
+    save_checkpoint(direct, **host_copy(state.checkpoint_trees()))
+
+    def body(path):
+        raw = path.read_bytes()
+        return raw[len(MAGIC) + 8 + int.from_bytes(raw[len(MAGIC):len(MAGIC) + 8], "little"):]
+
+    written = body(last)
+    if written != body(direct):
+        raise AssertionError("learn3d: last.ckpt's body is not the run's end state")
+    val = model.val(data=str(data), batch=8, kitti_resolution=LEARN3D_RES,
+                    save_dir=str(tmp / "val_ema"))
+    return {"bytes": len(written), "val": val}
 
 
 HOST_AUG_SAMPLES = 32  # [host-aug]'s default-hyp samples, library against twins
@@ -3258,10 +3641,12 @@ LEARN2D_JAX = 0.995  # JAX's calibration of mAP50 at this recipe
 def overfit2d_tree(root: Path, n: int = 8) -> Path:
     """A numpy mirror of tests/_helpers.py ``make_overfit2d_tree``: the same
     draws, 96x96 frames of grey 30 with two solid red or green rectangles in
-    disjoint halves, val == train. The helper writes JPEG (cv2, BGR order);
-    this writes the same RGB pixels as PNG, since the port decodes no JPEG
-    yet (ROADMAP item 9f)."""
+    disjoint halves, val == train, written as JPEG by the port's encoder in
+    cv2's style: the bytes of the helper's ``cv2.imwrite`` (held equal in
+    tests/test_torch_codec.py)."""
     import numpy as np
+
+    from yolov10_3d_torch.data.image_io import encode_jpeg
 
     for split in ("train", "val"):
         (root / "images" / split).mkdir(parents=True)
@@ -3279,7 +3664,7 @@ def overfit2d_tree(root: Path, n: int = 8) -> Path:
                 img[y1:y1 + h, x1:x1 + w] = (220, 40, 40) if c == 0 else (40, 220, 40)
                 lines.append(f"{c} {(x1 + w / 2) / 96:.6f} {(y1 + h / 2) / 96:.6f} "
                              f"{w / 96:.6f} {h / 96:.6f}")
-            write_png(root / "images" / split / f"{i}.png", img)
+            (root / "images" / split / f"{i}.jpg").write_bytes(encode_jpeg(img, "cv2"))
             (root / "labels" / split / f"{i}.txt").write_text("\n".join(lines))
     (root / "data.yaml").write_text(f"path: {root}\ntrain: images/train\nval: images/val\n"
                                     "names:\n  0: red\n  1: green\n")
@@ -3292,12 +3677,12 @@ def predict_map50(model, root: Path, int8: bool) -> dict:
     against the label files."""
     import numpy as np
 
-    from yolov10_3d_torch.data.dataset import decode_png
+    from yolov10_3d_torch.data.image_io import imread
     from yolov10_3d_torch.utils.metrics import DetMetrics
 
     metrics = DetMetrics(nc=2)
-    for path in sorted((root / "images" / "val").glob("*.png")):
-        img = decode_png(path.read_bytes())
+    for path in sorted((root / "images" / "val").glob("*.jpg")):
+        img = imread(path)
         (res,) = model.predict(img, imgsz=64, conf=0.001, max_det=300, int8=int8)
         lab = np.loadtxt(root / "labels" / "val" / f"{path.stem}.txt", ndmin=2)
         h, w = img.shape[:2]
@@ -3337,8 +3722,7 @@ def phase_learn2d(card: str) -> dict:
         wall = time.perf_counter() - t0
         with open(Path(tmp) / "run" / "results.csv") as f:
             rows = list(csv.DictReader(f))
-        print(f"[learn2d] yolov10n 64², 8 frames (PNG: the JAX test writes JPEG, which the port "
-              f"cannot decode yet), batch 8, {len(rows)} epochs (AdamW lr0 0.003, float32, TF32 off, "
+        print(f"[learn2d] yolov10n 64², 8 frames (JPEG, the JAX test's cv2.imwrite bytes), batch 8, {len(rows)} epochs (AdamW lr0 0.003, float32, TF32 off, "
               f"no mosaic): {wall:.1f} s ({wall / len(rows) * 1e3:.1f} ms an epoch, checkpoints "
               f"included; {card}); loss by epoch: " + ", ".join(
                   f"{r['epoch']}: {float(r['loss']):.4f}" for r in rows
@@ -3592,6 +3976,8 @@ def main() -> int:
     done("serve3d")
     server = phase_server(card)
     done("server")
+    sources = phase_sources(card)
+    done("sources")
     phase_val3d(card)
     done("val3d")
     failed = []
@@ -3636,6 +4022,8 @@ def main() -> int:
         launches[k] += serve3d[k]
     for k in SERVER_KERNELS:  # and the server's traffic K1 and the stem
         launches[k] += server[k]
+    for k in SOURCES_KERNELS:  # and prediction over files
+        launches[k] += sources[k]
     if not set(KERNELS) == set(kern) == set(launches) == set(serving):
         raise AssertionError(f"kernel tables disagree: {set(KERNELS)}, {set(kern)}, {set(launches)}")
     entries = [

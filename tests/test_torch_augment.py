@@ -191,11 +191,19 @@ def test_png_decoder_all_filters(channels, tmp_path):
 
 
 def test_png_decoder_refuses_other_formats(tmp_path):
-    Image.fromarray(np.zeros((4, 4, 3), np.uint8)).convert("P").save(tmp_path / "p.png")
-    with pytest.raises(NotImplementedError, match="item 9f"):
-        decode_png((tmp_path / "p.png").read_bytes())
+    """A palette PNG now decodes (to PIL's pixels); bytes that are not a PNG
+    still raise, and the formats the port leaves out name their item."""
+    img = np.random.default_rng(0).integers(0, 256, (4, 4, 3), np.uint8)
+    Image.fromarray(img).convert("P").save(tmp_path / "p.png")
+    want = np.asarray(Image.open(tmp_path / "p.png").convert("RGB"))
+    np.testing.assert_array_equal(decode_png((tmp_path / "p.png").read_bytes()), want)
     with pytest.raises(ValueError, match="not a PNG"):
         decode_png(b"\xff\xd8\xff")
+    from yolov10_3d_torch.data.dataset import _load_image
+
+    Image.fromarray(img).save(tmp_path / "x.webp")
+    with pytest.raises(NotImplementedError, match="item 21"):
+        _load_image(str(tmp_path / "x.webp"))
 
 
 def make_png_tree(root, n=10, seed=0):

@@ -88,7 +88,8 @@ LEAVES = {
 @pytest.mark.parametrize("kind", sorted(LEAVES))
 def test_codec_bytes_equal_flax(kind):
     """One leaf of each kind inside a tree of maps (fix and 16-bit widths),
-    lists and the Python scalars msgpack writes natively."""
+    lists and the Python scalars msgpack writes natively; ``pack_segments``
+    splits the same bytes at the arrays."""
     rng = np.random.default_rng(0)
     tree = {"leaf": LEAVES[kind](rng), "nested": {f"k{i}": i * 1000 - 7 for i in range(20)},
             "list": [None, True, 1.5, -40, 2**40, "x" * 40, b"\x01" * 300],
@@ -97,6 +98,9 @@ def test_codec_bytes_equal_flax(kind):
     got = PM.packb(tree)
     assert got == want
     assert_trees_equal(serialization.msgpack_restore(want), PM.unpackb(got))
+    heads, raws = PM.pack_segments(tree)
+    assert len(heads) == len(raws) + 1 == 3
+    assert b"".join(h + bytes(r) for h, r in zip(heads, raws + [b""])) == want
 
 
 def test_codec_bfloat16_both_ways():
@@ -300,9 +304,39 @@ def test_strip_optimizer_same_in_both(calibrated, trained_ckpt, tmp_path):
     assert np.isfinite(res.boxes.data).all()
 
 
-def test_pt_files_raise():
-    with pytest.raises(NotImplementedError, match="item 20"):
-        YOLOv10("yolov10s.pt", device="cpu")
+def test_pt_files_raise(tmp_path):
+    """``.pt`` files load now (tests/test_torch_pt.py); a missing file
+    raises, and so does a pickle whose classes cannot be imported."""
+    with pytest.raises(FileNotFoundError):
+        YOLOv10(str(tmp_path / "yolov10s.pt"), device="cpu")
+    from _pt_stub import missing_class_pickle
+
+    with pytest.raises(RuntimeError, match="ultralytics classes"):
+        YOLOv10(str(missing_class_pickle(tmp_path / "gone.pt")), device="cpu")
+
+
+def test_snapshot_body_is_the_file_body(tmp_path):
+    """The trainer's ``Snapshot`` (the body encoded in a kept image) gives
+    the bytes ``save_checkpoint`` encodes from the same trees, on its first
+    call and on a later one of the same layout with changed values;
+    ndarray, bfloat16 and empty leaves included."""
+    model, _ = build_model(resolve_model_cfg("yolov10n.yaml"), device="cpu")
+    snap = PC.Snapshot()
+    for step in range(2):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(0.25)
+        v = torch_to_flax_variables(model.state_dict())
+        opt = {"torch_optim": {"n_params": np.asarray(step, np.int64), "bf": torch.full(
+            (3,), step + 0.5, dtype=torch.bfloat16), "step": torch.tensor(float(step)),
+            "empty": torch.zeros(0)}}
+        trees = {"params": v["params"], "batch_stats": v["batch_stats"],
+                 "ema_params": v["params"], "opt_state": opt}
+        body, release = snap(**trees)
+        PC.save_checkpoint(tmp_path / "body.ckpt", body=body, meta={"step": step})
+        release()
+        PC.save_checkpoint(tmp_path / "trees.ckpt", **PC.host_copy(trees), meta={"step": step})
+        assert (tmp_path / "body.ckpt").read_bytes() == (tmp_path / "trees.ckpt").read_bytes()
 
 
 # ------------------------------------------------ the async writer
@@ -335,3 +369,62 @@ def test_async_checkpointer(tmp_path, monkeypatch):
     assert not (tmp_path / "bad.ckpt").exists()
     w.close()
     assert w.closed and not w._thread.is_alive()
+
+
+def test_saves_never_wait_on_the_writer(tmp_path, monkeypatch):
+    """With ``save_period=1`` an epoch's end saves last, best and
+    epoch{n}.ckpt. While the writer is held at its first write, every save
+    of a two-epoch run still returns (the snapshot makes a host buffer
+    rather than wait for one), and the files are the run's. Then writes
+    fail: the save after a failed write raises that write's error and
+    hands its buffer back (six saves: three writes, three errors), and no
+    save hangs or makes a buffer beyond those the run made."""
+    from test_torch_augment import make_png_tree
+
+    data = make_png_tree(tmp_path / "pngs", n=4)
+    trainer = DetectionTrainer(get_cfg({
+        "model": "yolov10n.yaml", "data": str(data), "imgsz": 64, "batch": 2, "epochs": 2,
+        "device_aug": True, "val": False, "workers": 0, "close_mosaic": 0, "nbs": 4,
+        "save_period": 1, "device": "cpu", "save_dir": str(tmp_path / "run")}))
+    real, held = PC.save_checkpoint, []
+
+    def gated(path, **kw):  # the first write waits until the run has taken all five snapshots
+        if not held:
+            deadline = time.monotonic() + 60
+            while len(trainer.snapshot_ms) < 5 and time.monotonic() < deadline:
+                time.sleep(0.01)
+            held.append(len(trainer.snapshot_ms))
+        return real(path, **kw)
+
+    monkeypatch.setattr(PC, "save_checkpoint", gated)
+    trainer.train()
+    assert held == [5] and len(trainer.snapshot_ms) == 5
+    weights = tmp_path / "run" / "weights"
+    assert sorted(p.name for p in weights.iterdir()) == [
+        "best.ckpt", "epoch0.ckpt", "epoch1.ckpt", "last.ckpt"]
+    assert PC.load_checkpoint(weights / "last.ckpt")["meta"]["epoch"] == 1
+    buffers = trainer._snapshot.host_bytes // trainer._snapshot._image.numel()
+    assert 2 <= buffers <= 5
+
+    def failing(path, **kw):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(PC, "save_checkpoint", failing)
+    errors = []
+
+    def save(n):
+        try:
+            trainer.save_ckpt(tmp_path / f"s{n}.ckpt", trainer.state, {"epoch": n})
+        except RuntimeError as e:
+            errors.append(e)
+
+    for n in range(6):
+        t = threading.Thread(target=save, args=(n,), daemon=True)
+        t.start()
+        t.join(60)
+        assert not t.is_alive(), f"save {n} hangs"
+        trainer._ckpt_writer._idle.wait(60)  # the failed write is done
+    assert len(errors) == 3 and all("async checkpoint write failed" in str(e) for e in errors)
+    assert trainer._snapshot.host_bytes // trainer._snapshot._image.numel() == buffers
+    trainer._ckpt_writer.close()  # the last save raised the last failure
+    assert not trainer._ckpt_writer._thread.is_alive()

@@ -231,9 +231,10 @@ def test_dict_loader_stacks_in_order_and_joins(tree):
 
 
 def test_unported_dataset_paths_raise(tree, tmp_path):
-    """JPEG frames raise (item 9f). The training split and the FGDM depth
-    maps are ported (tests/test_torch_kitti_train.py): the split augments,
-    and load_depth_maps without instance masks is the JAX dataset's
+    """JPEG frames decode now (PIL's rule, as the JAX dataset reads them);
+    WebP frames raise (item 21). The training split and the FGDM depth maps
+    are ported (tests/test_torch_kitti_train.py): the split augments, and
+    load_depth_maps without instance masks is the JAX dataset's
     FileNotFoundError."""
     assert TK.KITTIDataset(tree, "train").augmenting
     with pytest.raises(FileNotFoundError, match="segmentation"):
@@ -241,6 +242,11 @@ def test_unported_dataset_paths_raise(tree, tmp_path):
     ds = TK.KITTIDataset(tree, "val")
     png = ds.image_dir / "000000.png"
     ds.image_dir = tmp_path
-    (tmp_path / "000000.jpg").write_bytes(png.read_bytes())
-    with pytest.raises(NotImplementedError, match="9f"):
+    Image.open(png).save(tmp_path / "000000.jpg")
+    np.testing.assert_array_equal(
+        ds.get_image(0), np.asarray(Image.open(tmp_path / "000000.jpg").convert("RGB")))
+    (tmp_path / "000000.jpg").unlink()
+    Image.open(png).save(tmp_path / "000000.webp")
+    (tmp_path / "000000.jpg").write_bytes((tmp_path / "000000.webp").read_bytes())
+    with pytest.raises(NotImplementedError, match="item 21"):
         ds.get_image(0)

@@ -205,11 +205,15 @@ def test_unported_serving_options_raise(option):
 
 
 def test_checkpoints_and_unknown_sources_raise():
-    with pytest.raises(NotImplementedError, match="item 20"):  # the reference's .pt files
-        YOLOv10("yolov10s.pt", device="cpu")
+    with pytest.raises(FileNotFoundError):  # .pt files load (tests/test_torch_pt.py)
+        YOLOv10("no_such_yolov10s.pt", device="cpu")
     model = YOLOv10("yolov10n.yaml", device="cpu")
-    with pytest.raises(NotImplementedError, match="unsupported source"):
-        model.predict("bus.jpg")
+    with pytest.raises(FileNotFoundError):  # cv2.imread's None in the JAX load_source
+        model.predict("no_such_bus.jpg")
+    with pytest.raises(NotImplementedError, match="item 22"):  # video and live sources
+        model.predict("clip.mp4")
+    with pytest.raises(FileNotFoundError, match="unsupported source"):
+        model.predict("notes.txt")
     with pytest.raises(KeyError, match="unknown config keys"):
         model.predict(np.zeros((64, 64, 3), np.uint8), half=True)
 

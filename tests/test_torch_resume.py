@@ -216,5 +216,6 @@ def test_pretrained_ckpt_grafts_what_jax_grafts(tmp_path):
     src_sd = src.model.state_dict()
     for k in trainer.grafted:
         torch.testing.assert_close(sd[k], src_sd[k], rtol=0, atol=0, msg=k)
-    with pytest.raises(NotImplementedError, match="item 20"):
-        Detection3DTrainer(get_cfg({"pretrained": "yolov10s.pt", "device": "cpu"}))
+    with pytest.raises(FileNotFoundError):  # .pt files graft (tests/test_torch_pt.py)
+        Detection3DTrainer(get_cfg({"pretrained": "no_such_yolov10s.pt", "device": "cpu",
+                                    "model": "yolov10n_3D.yaml"})).init_params(model, spec)

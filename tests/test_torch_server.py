@@ -18,7 +18,7 @@ The rest holds the port's server to the JAX server's contract: concurrent
 posts coalesce into one device batch of a ladder size; both packages'
 ``DynamicBatcher`` driven by one fake predictor give the same ladder, the
 same padded call, histogram and ``/stats`` keys; the error paths answer 400
-(conf below the floor, a JPEG body naming item 9f, an empty body) and
+(conf below the floor, a WebP body naming item 21, an empty body) and
 ``devices=2`` raises naming item 12. Every port server is stopped and
 leaves no thread behind.
 """
@@ -84,10 +84,25 @@ def _start(srv, warmup=True):
     return f"http://127.0.0.1:{http.server_address[1]}"
 
 
-def _served_pair(cfg, shapes, imgsz, **cal):
+def jpeg_bytes(img: np.ndarray) -> bytes:
+    """PIL's JPEG of an HWC uint8 image, at its defaults."""
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(img).save(b, format="JPEG")
+    return b.getvalue()
+
+
+def _served_pair(cfg, shapes, imgsz, jpeg=False, **cal):
     """JAX and port facades of ``cfg`` with the same calibrated weights, a
-    server on each, and the PNG bodies of ``shapes``."""
+    server on each, and the PNG bodies of ``shapes`` (with ``jpeg``, their
+    JPEG bodies, and the frames as PIL decodes them: the served images)."""
     imgs = smooth_images(np.random.default_rng(0), shapes)
+    if jpeg:
+        from PIL import Image
+
+        bodies = [jpeg_bytes(im) for im in imgs]
+        imgs = [np.asarray(Image.open(io.BytesIO(b)).convert("RGB")) for b in bodies]
     jm = JaxFacade(cfg)
     port = YOLOv10(cfg, device="cpu")
     load_flax_variables(port.model, jm.variables)
@@ -97,7 +112,7 @@ def _served_pair(cfg, shapes, imgsz, **cal):
     jsrv = jax_server.InferenceServer(jm, imgsz=imgsz, conf=CONF, max_batch=1)
     psrv = port_server.InferenceServer(port, imgsz=imgsz, conf=CONF, max_batch=4,
                                        max_delay_ms=200.0)
-    return jsrv, psrv, [png_bytes(im) for im in imgs], imgs
+    return jsrv, psrv, bodies if jpeg else [png_bytes(im) for im in imgs], imgs
 
 
 @pytest.fixture(scope="module")
@@ -134,6 +149,20 @@ def _compare(urls, bodies, imgs, cols=None):
                             cols=cols)
     assert stats["n_compared"] >= 0.5 * (stats["n_ref"] + stats["n_got"]), stats
     return stats
+
+
+def test_server_jpeg_body_matches_jax():
+    """JPEG bodies (PIL's files, the weights calibrated on their decoded
+    frames): both servers decode them by PIL's rule and answer the same
+    rows at the bars."""
+    jsrv, psrv, bodies, imgs = _served_pair("yolov10n.yaml", [(96, 128), (128, 80)], IMGSZ,
+                                            jpeg=True)
+    urls = (_start(jsrv, warmup=False), _start(psrv, warmup=False))
+    try:
+        _compare(urls, bodies, imgs)
+    finally:
+        jsrv.stop()
+        psrv.stop()
 
 
 def test_server_detections_match_jax(servers2d):
@@ -191,10 +220,10 @@ def test_filters_and_error_paths(servers2d):
     assert only == [r for r in full if r["class"] in (0, 3)]
     from PIL import Image
 
-    jpeg = io.BytesIO()
-    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(jpeg, format="JPEG")
+    webp = io.BytesIO()  # JPEG bodies are answered (test_torch_sources.py); WebP is item 21
+    Image.fromarray(np.zeros((32, 32, 3), np.uint8)).save(webp, format="WEBP")
     for query, body, match in (("?conf=0.001", bodies[0], "below the server floor"),
-                               ("", jpeg.getvalue(), "9f"), ("", b"", "empty body"),
+                               ("", webp.getvalue(), "item 21"), ("", b"", "empty body"),
                                ("", b"\x89PNG\r\n\x1a\nbroken", "")):
         with pytest.raises(urllib.error.HTTPError) as e:
             _post(base + "/predict" + query, body)
@@ -203,6 +232,37 @@ def test_filters_and_error_paths(servers2d):
     with pytest.raises(urllib.error.HTTPError) as e:
         _get(base + "/nope")
     assert e.value.code == 404
+    assert psrv.batcher.stats["errors"] == 0
+
+
+def _huge_jpeg() -> bytes:
+    """A JPEG of under 1 KB whose frame header claims 65535 x 65535 pixels."""
+    from PIL import Image
+
+    b = io.BytesIO()
+    Image.fromarray(np.zeros((8, 8, 3), np.uint8)).save(b, format="JPEG")
+    data = bytearray(b.getvalue())
+    sof = data.index(b"\xff\xc0")
+    data[sof + 5:sof + 9] = b"\xff\xff\xff\xff"
+    return bytes(data)
+
+
+def test_oversized_and_truncated_bodies_answer_400(servers2d):
+    """Bodies the decoder must refuse before it allocates: a frame over
+    PIL's pixel limit, a PNG whose IHDR is cut short, a BMP cut inside its
+    header. The port answers 400 naming the cause; the JAX server refuses
+    them too (its PIL raises; the oversized JPEG is a 500 there)."""
+    _, psrv, urls, _, _ = servers2d
+    png = b"\x89PNG\r\n\x1a\n" + struct.pack(">I", 13) + b"IHDR" + b"\x00\x00\x01"
+    bmp = b"BM" + struct.pack("<IHHI", 0, 0, 0, 54) + struct.pack("<IiiHH", 40, 8, 8, 1, 24)
+    for body, match in ((_huge_jpeg(), "65535x65535 pixels, over the limit of 178956970"),
+                        (png, "truncated PNG header"), (bmp, "truncated BMP header")):
+        for url, codes in ((urls[1], {400}), (urls[0], {400, 500})):
+            with pytest.raises(urllib.error.HTTPError) as e:
+                _post(url + "/predict", body)
+            assert e.value.code in codes
+            if url == urls[1]:
+                assert match in json.loads(e.value.read())["error"]
     assert psrv.batcher.stats["errors"] == 0
 
 
@@ -279,7 +339,11 @@ def test_server_leaves_no_thread():
 
 
 def test_cli_serves_only():
+    """predict, val and train run now (tests/test_torch_sources.py); export
+    and benchmark name item 15, track item 19."""
     with pytest.raises(NotImplementedError, match="item 15"):
-        entrypoint(["predict", "model=yolov10n.yaml"])
+        entrypoint(["export", "model=yolov10n.yaml"])
+    with pytest.raises(NotImplementedError, match="item 19"):
+        entrypoint(["track", "model=yolov10n.yaml"])
     with pytest.raises(SystemExit, match="unknown serve keys"):
         make_server({"device": "cpu", "imgsz": 64, "bogus": 1})

@@ -29,6 +29,12 @@ DEFAULTS: Dict[str, Any] = {
     "classes": None,
     "int8": False,
     "spd_serving": True,
+    "device_preprocess": True,  # same-shape uint8 chunks letterboxed on the device
+    "source": None,
+    "stream": False,
+    "vid_stride": 1,
+    "save_txt": False,
+    "save_crop": False,
     # train
     "model": None,
     "data": None,

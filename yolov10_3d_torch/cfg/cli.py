@@ -1,25 +1,45 @@
-"""Command line of the port (the ``serve`` mode of ``yolov10_3d_tpu/cfg/cli.py``).
+"""Command line of the port (``yolov10_3d_tpu/cfg/cli.py``'s predict, val,
+train and serve modes).
 
-    python -m yolov10_3d_torch.cfg.cli serve model=yolov10s.yaml imgsz=640 \\
-        conf=0.25 batch=32 max_delay_ms=10 host=127.0.0.1 port=8000 [device=cpu]
+    python -m yolov10_3d_torch.cfg.cli [TASK] MODE key=value ...
 
-starts the dynamic-batching inference server (``engine/server.py``) on a
-model built from its YAML with seeded random weights (checkpoint loading is
-ROADMAP queue 1, item 5-ckpt), on the card unless ``device=cpu``. The other
-modes of the JAX command line (train, val, predict, export, benchmark,
-explorer) are ROADMAP queue 1, item 15.
+    predict model=yolov10s.pt source=images/ imgsz=640 save=True [device=cpu]
+    val model=runs/train/weights/best.ckpt data=coco128.yaml imgsz=640
+    train model=yolov10s.yaml data=coco128.yaml epochs=100 imgsz=640
+    detect3d train model=yolov10s_3D.yaml data=kitti.yaml
+    serve model=yolov10s.yaml imgsz=640 conf=0.25 batch=32 max_delay_ms=10 \\
+        host=127.0.0.1 port=8000
+
+``model`` is a YAML (seeded random weights), a ``.ckpt`` or a ``.pt``; the
+model runs on the card unless ``device=cpu``. TASK is optional, as in the
+JAX command line (the model's head decides). ``predict`` prints each
+frame's detections; ``val`` prints the metrics; ``train`` resumes from
+``save_dir/weights/last.ckpt`` when it exists and ``resume`` is not given.
+``serve`` starts the dynamic-batching inference server
+(``engine/server.py``). ``export`` and ``benchmark`` are ROADMAP queue 1,
+item 15; ``track`` is item 19.
 """
 
 from __future__ import annotations
 
 import ast
 import sys
+from pathlib import Path
 from typing import Any, Dict, List
 
-HELP = """python -m yolov10_3d_torch.cfg.cli serve key=value ...
+TASKS = {"detect", "detect3d", "segment", "classify", "pose", "obb"}
+MODES = {"train", "val", "predict", "export", "track", "benchmark"}
+UNPORTED_MODES = {"export": "15", "benchmark": "15", "track": "19"}
 
-  model=yolov10s.yaml imgsz=640 conf=0.25 batch=32 max_delay_ms=10
-  host=127.0.0.1 port=8000 device=cuda
+HELP = """python -m yolov10_3d_torch.cfg.cli [TASK] MODE key=value ...
+
+  MODE: predict | val | train | serve
+  predict model=yolov10s.pt source=images/ imgsz=640 save=True
+  val model=best.ckpt data=coco128.yaml imgsz=640
+  train model=yolov10s.yaml data=coco128.yaml epochs=100 imgsz=640
+  serve model=yolov10s.yaml imgsz=640 conf=0.25 batch=32 max_delay_ms=10
+        host=127.0.0.1 port=8000
+  every mode: device=cuda (default) or device=cpu
 """
 
 
@@ -64,12 +84,46 @@ def entrypoint(argv=None) -> int:
     if not argv or argv[0] in ("help", "-h", "--help"):
         print(HELP)
         return 0
-    if argv[0] != "serve":
-        raise NotImplementedError(
-            f"mode {argv[0]!r}: the port's command line has the serve mode only; the others "
-            "are ROADMAP queue 1, item 15")
-    srv, host, port = make_server(parse_kv(argv[1:]))
-    srv.serve(host=host, port=port)
+    if argv[0] == "serve":
+        srv, host, port = make_server(parse_kv(argv[1:]))
+        srv.serve(host=host, port=port)
+        return 0
+    task, mode, rest = None, None, []
+    for a in argv:
+        if a in TASKS and task is None:
+            task = a
+        elif a in MODES and mode is None:
+            mode = a
+        else:
+            rest.append(a)
+    kv = parse_kv(rest)
+    mode = mode or str(kv.pop("mode", "predict"))
+    if mode in UNPORTED_MODES:
+        raise NotImplementedError(f"mode {mode!r} is not ported: ROADMAP queue 1, item "
+                                  f"{UNPORTED_MODES[mode]}")
+    if mode not in ("predict", "val", "train"):
+        raise SystemExit(f"unknown mode {mode!r}\n\n{HELP}")
+    from ..engine.model import YOLOv10
+
+    model = YOLOv10(str(kv.pop("model", "yolov10n.yaml")), device=str(kv.pop("device", "cuda")))
+    if mode == "predict":
+        source = kv.pop("source", None)
+        if source is None:
+            raise SystemExit("predict requires source=...")
+        for r in model.predict(source, **kv):
+            print(f"{r.path}: {len(r)} detections")
+            for d in r.summary():
+                print(f"  {d['name']} {d['confidence']:.3f} {d['box']}")
+        return 0
+    if mode == "val":
+        res = model.val(**kv)
+        print({k: round(v, 5) for k, v in res.items() if isinstance(v, float)})
+        return 0
+    last = Path(str(kv.get("save_dir", "runs/train"))) / "weights" / "last.ckpt"
+    if "resume" not in kv and last.exists():
+        print(f"resuming from existing checkpoint {last}")
+        kv["resume"] = True
+    model.train(**kv)
     return 0
 
 

@@ -14,7 +14,8 @@ validation mode (``augment=False``) it returns the image letterboxed without
 upscaling and its labels padded. ``DataLoader`` batches any of them, in a
 seeded per-epoch order or in file order.
 
-Images are decoded without cv2 or PIL: 8-bit PNG only (``decode_png``).
+Images are decoded without cv2 or PIL, by cv2's rule (``data/image_io.py``:
+JPEG, PNG and BMP; ``decode_png`` is re-exported here).
 """
 
 from __future__ import annotations
@@ -22,9 +23,7 @@ from __future__ import annotations
 import hashlib
 import queue
 from collections import deque
-import struct
 import threading
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterator, List, Optional, Sequence, Tuple, Union
@@ -33,12 +32,10 @@ import numpy as np
 import torch
 
 from .augment import NATIVE, HostOps, train_augment
+from .image_io import IMG_FORMATS, decode_png, imread  # noqa: F401  (decode_png: re-exported)
 from .preprocess import letterbox
 
-IMG_FORMATS = {"bmp", "jpeg", "jpg", "png", "tif", "tiff", "webp"}
 PARTNER_BUFFER = 32  # samples kept for host mode's mosaic partners (JAX's buffer_size)
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # grey, RGB, grey + alpha, RGBA
 
 
 def img2label_path(img_path: str) -> str:
@@ -52,81 +49,10 @@ def img2label_path(img_path: str) -> str:
     return str(Path(p).with_suffix(".txt"))
 
 
-def _unfilter_row(ft: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
-    """One PNG scanline with its filter (0-4) undone."""
-    if ft == 0:
-        return line
-    if ft == 1:  # Sub: a running sum per channel, mod 256
-        return (np.cumsum(line.reshape(-1, bpp), 0, dtype=np.int64) & 255).astype(
-            np.uint8).reshape(-1)
-    if ft == 2:  # Up
-        return line + prior
-    if ft not in (3, 4):
-        raise ValueError(f"bad PNG filter type {ft}")
-    x, up, out = line.tolist(), prior.tolist(), [0] * len(line)
-    for i in range(len(x)):  # Average and Paeth depend on the decoded left pixel
-        a = out[i - bpp] if i >= bpp else 0
-        b = up[i]
-        if ft == 3:
-            pred = (a + b) >> 1
-        else:
-            c = up[i - bpp] if i >= bpp else 0
-            pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
-            pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
-        out[i] = (x[i] + pred) & 255
-    return np.asarray(out, np.uint8)
-
-
-def decode_png(data: bytes, name: str = "image") -> np.ndarray:
-    """8-bit, non-interlaced PNG (grey, grey + alpha, RGB or RGBA) -> HWC RGB
-    uint8; alpha is dropped. Anything else raises."""
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{name}: not a PNG file")
-    pos, header, idat = 8, None, []
-    while pos + 8 <= len(data):
-        length, ctype = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + length]
-        pos += 12 + length
-        if ctype == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif ctype == b"IDAT":
-            idat.append(body)
-        elif ctype == b"IEND":
-            break
-    if header is None:
-        raise ValueError(f"{name}: PNG without IHDR")
-    w, h, depth, color, compression, filtering, interlace = header
-    if depth != 8 or color not in _PNG_CHANNELS or interlace or compression or filtering:
-        raise NotImplementedError(
-            f"{name}: PNG with bit depth {depth}, colour type {color}, interlace {interlace}: "
-            "only 8-bit non-interlaced grey, RGB and RGBA PNGs are decoded "
-            "(ROADMAP queue 1, item 9f)")
-    bpp = _PNG_CHANNELS[color]
-    stride = w * bpp
-    rows = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if rows.size != h * (stride + 1):
-        raise ValueError(f"{name}: PNG data has {rows.size} bytes, expected {h * (stride + 1)}")
-    rows = rows.reshape(h, stride + 1)
-    if not rows[:, 0].any():  # no row filtered: one copy, no Python loop
-        out = rows[:, 1:]
-    else:
-        out = np.empty((h, stride), np.uint8)
-        prior = np.zeros(stride, np.uint8)
-        for y in range(h):
-            prior = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prior, bpp)
-    img = out.reshape(h, w, bpp)
-    if bpp <= 2:  # grey (+ alpha)
-        return np.repeat(img[..., :1], 3, axis=2)
-    return np.ascontiguousarray(img[..., :3])
-
-
 def _load_image(path: str) -> np.ndarray:
-    """HWC RGB uint8 of an image file (8-bit PNG)."""
-    if Path(path).suffix.lower() != ".png":
-        raise NotImplementedError(
-            f"{path}: the port decodes PNG images only; JPEG and other formats are "
-            "ROADMAP queue 1, item 9f")
-    return decode_png(Path(path).read_bytes(), path)
+    """HWC RGB uint8 of an image file by cv2's rule, as the JAX dataset reads
+    (``cv2.imread``, EXIF orientation applied; ``data/image_io.py``)."""
+    return imread(path, "cv2")
 
 
 class YOLODataset:

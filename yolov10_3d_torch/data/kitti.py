@@ -11,8 +11,8 @@ a random scale and shift, and blend in a partner frame of the same
 intrinsics (mixup), drawing from one ``np.random.default_rng(seed)`` per
 dataset in the JAX dataset's order; with ``load_depth_maps`` each item also
 carries the FGDM target ``depth_map``, built from the instance masks under
-``deepseg/training/image_2``. The frame is decoded by the port's own PNG
-reader; ``warp_affine_bilinear``, ``warp_affine_nearest`` and ``blend`` give
+``deepseg/training/image_2``. The frame is decoded by the port's own codec
+(``data/image_io.py``, PIL's rule, PNG or JPEG); ``warp_affine_bilinear``, ``warp_affine_nearest`` and ``blend`` give
 PIL's ``Image.transform(AFFINE, BILINEAR)``, ``Image.transform(AFFINE,
 NEAREST, fillcolor=...)`` and ``Image.blend`` bit for bit.
 """
@@ -25,7 +25,7 @@ from typing import Any, Dict, List, Mapping, Optional
 
 import numpy as np
 
-from .dataset import _load_image
+from .image_io import imread
 from .kitti_utils import (
     CLS2ID, CLS_MEAN_SIZE, CLASS_NAMES, Calibration, Object3d, affine_transform, angle2class,
     class2angle, get_affine_transform, get_objects_from_label,
@@ -188,11 +188,12 @@ class KITTIDataset:
 
     # -- raw accessors --
     def get_image(self, idx: int) -> np.ndarray:
-        """HWC RGB uint8 of frame ``idx`` (PNG; a JPEG raises, item 9f)."""
+        """HWC RGB uint8 of frame ``idx`` (``.png`` or ``.jpg``) by PIL's
+        rule, as the JAX dataset reads it (``Image.open(...).convert("RGB")``)."""
         for ext in (".png", ".jpg"):
             p = self.image_dir / f"{idx:06d}{ext}"
             if p.exists():
-                return _load_image(str(p))
+                return imread(p, "pil")
         raise FileNotFoundError(self.image_dir / f"{idx:06d}.png")
 
     def get_label(self, idx: int) -> List[Object3d]:
@@ -204,7 +205,7 @@ class KITTIDataset:
     def get_segmentation(self, idx: int) -> np.ndarray:
         """The (H, W) uint8 instance mask of frame ``idx``: each pixel the
         label-file row of its object, the background SEG_BACKGROUND."""
-        return _load_image(str(self.depth_dir / f"{idx:06d}_seg.png"))[..., 0]
+        return imread(self.depth_dir / f"{idx:06d}_seg.png", "pil")[..., 0]
 
     def sample_id(self, item: int) -> int:
         return int(self.idx_list[item])

@@ -14,8 +14,15 @@ weights. A v10-3D YAML (``yolov10s_3D.yaml``) makes a ``detect3d`` model,
 whose Results carry ``boxes3d``; ``.val(data="kitti.yaml")`` gives its
 KITTI AP40 (``engine/validator3d.py``) and ``.train(data="kitti.yaml",
 ...)`` trains it on KITTI's training split with per-epoch AP40 validation
-(``engine/trainer3d.py``). The reference's ``.pt`` checkpoints are not
-ported.
+(``engine/trainer3d.py``).
+
+``YOLOv10("x.pt")`` loads the reference's ``.pt`` files as the JAX
+``Model._load_torch`` does: the plain ``state_dict`` + ``model_yaml`` file
+that the JAX package's ``export_torch_checkpoint`` writes, or a pickled
+module (its EMA first) with a ``yaml`` dict, whose classes must be
+importable. ``predict`` takes every source of ``engine/predictor.py``
+``load_source``, ``stream=True`` for a generator, and writes annotated
+images, labels and crops with ``save``, ``save_txt`` and ``save_crop``.
 
 The facade keeps one Predictor per setting that shapes the forward (int8,
 spd_serving) from one ``predict`` call to the next, and with it the
@@ -32,6 +39,7 @@ import torch
 
 from ..cfg import get_cfg, load_dataset_yaml, resolve_model_cfg
 from ..data.dataset import DataLoader, DictLoader, YOLODataset
+from ..data.loaders import is_endless
 from ..device import resolve_device
 from ..nn.build import build_model
 from ..train.state import TrainState
@@ -42,6 +50,18 @@ from .trainer import DetectionTrainer
 from .trainer3d import Detection3DTrainer
 from .validator import DetectionValidator
 from .validator3d import Detection3DValidator, build_3d_dataset
+
+
+def _saving_stream(gen, save_kw):
+    """``gen``'s Results, each saved as it comes (``save``, ``save_txt``,
+    ``save_crop`` under ``save_dir``), its path suffixed ``#<index>``."""
+    for i, r in enumerate(gen):
+        r.path = f"{r.path}#{i}"
+        Predictor._save_outputs([r], save_kw.get("save", False), save_kw.get("save_txt", False),
+                                save_kw.get("save_crop", False),
+                                save_kw.get("save_dir", "runs/predict"))
+        yield r
+
 
 VAL_KEYS = {"detect": ("batch", "conf", "max_det", "imgsz", "save_json_path"),
             "detect3d": ("batch", "save_dir", "conf", "max_det", "use_o2m_depth",
@@ -55,10 +75,6 @@ class YOLOv10:
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
                  nc: Optional[int] = None):
         model = str(model)
-        if model.endswith(".pt"):
-            raise NotImplementedError(
-                f"{model}: the reference's .pt checkpoints are not ported (ROADMAP queue 1, "
-                "item 20); load a .ckpt or a model YAML")
         self.device = resolve_device(device)
         self.overrides: Dict[str, Any] = {}  # a checkpoint's training imgsz and max_det
         self.trainer = None
@@ -66,6 +82,8 @@ class YOLOv10:
         self.predictors: Dict[tuple, Predictor] = {}
         if model.endswith(".ckpt"):
             self._load_native(model, seed)
+        elif model.endswith(".pt"):
+            self._load_torch(model, seed)
         else:
             self._new(model, nc, seed)
 
@@ -94,6 +112,46 @@ class YOLOv10:
         self.overrides.update({k: v for k, v in (meta.get("train_args") or {}).items()
                                if k in ("imgsz", "max_det")})
 
+    def _load_torch(self, path: str, seed: int) -> None:
+        """A reference ``.pt`` file (the JAX ``Model._load_torch``), read with
+        ``torch.load(weights_only=False)``: the JAX package's export
+        (``state_dict`` + ``model_yaml``; names and the training args kept),
+        or a pickled module (``ema`` first, then ``model``) carrying its
+        ``yaml`` dict, whose ``nc`` sizes the model. The ``dfl`` buffer and
+        the 3D head's ``o2o_heads`` alias keys are dropped (the port decodes
+        the DFL in closed form and registers each 3D branch once) and the
+        rest loads strict. A pickle whose classes cannot be imported raises
+        ``RuntimeError``."""
+        try:
+            ckpt = torch.load(path, map_location="cpu", weights_only=False)
+        except ModuleNotFoundError as e:
+            raise RuntimeError(
+                f"loading {path} requires the original ultralytics classes on "
+                f"sys.path (pickled nn.Module checkpoints): {e}"
+            ) from e
+        if isinstance(ckpt, dict) and "state_dict" in ckpt and ckpt.get("model_yaml"):
+            self._new(Path(ckpt["model_yaml"]).stem, None, seed)
+            self._load_reference_state(ckpt["state_dict"])
+            if ckpt.get("names"):
+                self.names = {int(k): v for k, v in ckpt["names"].items()}
+            self.ckpt_train_args = dict(ckpt.get("train_args") or {})
+            return
+        module = (ckpt.get("ema") or ckpt.get("model") or ckpt) if isinstance(ckpt, dict) else ckpt
+        yaml_d = getattr(module, "yaml", None)
+        if yaml_d is None:
+            raise RuntimeError(f"{path}: no model yaml embedded")
+        self._new(Path(yaml_d.get("yaml_file", "yolov10n.yaml")).stem, yaml_d.get("nc"), seed)
+        self._load_reference_state(module.state_dict())
+        names = getattr(module, "names", None) or (ckpt.get("names") if isinstance(ckpt, dict)
+                                                   else None)
+        if names:
+            self.names = {int(k): v for k, v in dict(names).items()}
+
+    def _load_reference_state(self, sd) -> None:
+        sd = {k: (v.detach().float() if v.is_floating_point() else v.detach())
+              for k, v in sd.items() if "dfl" not in k and ".o2o_heads." not in k}
+        self.model.load_state_dict(sd, strict=True)
+
     def predictor(self, args) -> Predictor:
         """The Predictor for the settings in ``args`` (a ``get_cfg`` dict)
         that shape the forward, kept with its graphs; ``args`` supplies the
@@ -105,18 +163,29 @@ class YOLOv10:
         pred.args = args
         return pred
 
-    def predict(self, source, **kwargs):
-        """Detect on an HWC uint8 image or a list of them -> [Results]."""
+    def predict(self, source, stream: bool = False, **kwargs):
+        """Detect on ``source`` (any of ``engine/predictor.py``
+        ``load_source``'s) -> [Results], ``batch`` frames a forward; with
+        ``stream=True`` a generator of Results, one frame at a time. ``save``,
+        ``save_txt`` and ``save_crop`` write under ``save_dir`` (the JAX
+        ``Model.predict``; a streamed frame's path takes ``#<index>``). Live
+        and screen sources raise naming ROADMAP item 22."""
         args = get_cfg({**self.overrides, **kwargs})
         pred = self.predictor(args)
-        return pred(
-            source,
-            batch_size=kwargs.get("batch", 1),
+        common = dict(
             conf=kwargs.get("conf"),
             max_det=kwargs.get("max_det"),
             imgsz=kwargs.get("imgsz") or self.overrides.get("imgsz") or 640,
             classes=kwargs.get("classes"),
         )
+        save_kw = {k: kwargs[k] for k in ("save", "save_txt", "save_crop", "save_dir")
+                   if k in kwargs}
+        if stream or is_endless(source):  # an endless source raises here (item 22)
+            gen = pred.stream(source, vid_stride=kwargs.get("vid_stride", 1), **common)
+            if any(save_kw.get(k) for k in ("save", "save_txt", "save_crop")):
+                gen = _saving_stream(gen, save_kw)
+            return gen
+        return pred(source, batch_size=kwargs.get("batch", 1), **common, **save_kw)
 
     __call__ = predict
 

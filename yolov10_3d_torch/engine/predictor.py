@@ -45,16 +45,23 @@ CPU nothing is captured.
 from __future__ import annotations
 
 import dataclasses
+import glob
 import math
+import re
 import threading
 import time
 import warnings
 from collections import OrderedDict
+from pathlib import Path
 from typing import Any, Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from ..data.image_io import IMG_FORMATS, encode_jpeg, imread
+from ..data.loaders import UNPORTED as LOADERS_UNPORTED
+from ..data.loaders import (LoadScreenshots, LoadStreams, LoadTensor, is_endless,
+                            is_stream_source)
 from ..data.preprocess import preprocess_batch
 from ..kernels import add_launches, captured_launches
 from ..nn.heads3d import SPARSE_K
@@ -64,11 +71,18 @@ from ..ops.preprocess import serve_preprocess
 from .results import Results
 
 TASKS = {"v10Detect": "detect", "v10Detect3d": "detect3d"}
+VID_FORMATS = {"avi", "mkv", "mov", "mp4", "mpeg", "mpg", "webm"}
 GRAPH_CACHE = 8  # captured forwards kept per Predictor (JAX: lru_cache(maxsize=8))
 
 
 def load_source(source) -> Iterator:
-    """Yield (path, HWC RGB uint8) frames from an ndarray or a list of them."""
+    """Yield (path, HWC RGB uint8) frames, one at a time, from a file, a
+    directory (its images in sorted ``rglob`` order), a glob, an ndarray,
+    an object with ``convert`` (a PIL image, called as JAX calls it), a
+    numpy or torch tensor (``data/loaders.py`` ``LoadTensor``) or a list of
+    any of them (the JAX ``load_source``). Files are decoded by cv2's rule
+    (``data/image_io.py``); video files and screen sources raise naming
+    ROADMAP item 22."""
     if isinstance(source, (list, tuple)):
         for s in source:
             yield from load_source(s)
@@ -76,10 +90,32 @@ def load_source(source) -> Iterator:
     if isinstance(source, np.ndarray) and source.ndim == 3 and source.dtype == np.uint8:
         yield "array", source
         return
-    raise NotImplementedError(
-        f"unsupported source {type(source).__name__}: the port takes HWC uint8 "
-        "numpy images or lists of them"
-    )
+    if hasattr(source, "ndim") and getattr(source, "ndim", 0) in (3, 4):
+        yield from LoadTensor(source)
+        return
+    if isinstance(source, str) and re.fullmatch(r"screen\d*", source):
+        LoadScreenshots(source)  # raises: item 22
+    if hasattr(source, "convert"):  # PIL
+        yield "pil", np.asarray(source.convert("RGB"))
+        return
+    p = str(source)
+    path = Path(p)
+    if path.is_dir():
+        for f in sorted(path.rglob("*")):
+            if f.suffix[1:].lower() in IMG_FORMATS:
+                yield from load_source(str(f))
+        return
+    if "*" in p:
+        for f in sorted(glob.glob(p, recursive=True)):
+            yield from load_source(f)
+        return
+    suffix = path.suffix[1:].lower()
+    if suffix in VID_FORMATS:
+        raise NotImplementedError(f"video file {p}: {LOADERS_UNPORTED}")
+    if suffix in IMG_FORMATS:
+        yield p, imread(p, "cv2")
+        return
+    raise FileNotFoundError(f"unsupported source: {source!r}")
 
 
 def check_imgsz(imgsz, stride: int = 32):
@@ -248,10 +284,10 @@ class Predictor:
     @torch.inference_mode()
     def preprocess(self, imgs: Sequence[np.ndarray], imgsz):
         """The model input of HWC uint8 ``imgs`` letterboxed to ``imgsz``
-        (int or [w, h]) and its (h, w): same-shape images on the device,
-        mixed shapes on the host."""
+        (int or [w, h]) and its (h, w): same-shape images on the device
+        (``device_preprocess``, on by default), mixed shapes on the host."""
         shape = (imgsz, imgsz) if isinstance(imgsz, int) else (imgsz[1], imgsz[0])
-        if len({im.shape for im in imgs}) == 1:
+        if self.args.get("device_preprocess", True) and len({im.shape for im in imgs}) == 1:
             u8 = torch.from_numpy(np.stack(imgs)).to(self.device)
             return serve_preprocess(u8, tuple(shape)), tuple(shape)
         batch, _ = preprocess_batch(imgs, imgsz)
@@ -293,13 +329,81 @@ class Predictor:
         max_det: Optional[int] = None,
         imgsz=None,
         classes: Optional[Sequence[int]] = None,
+        save: bool = False,
+        save_txt: bool = False,
+        save_crop: bool = False,
+        save_dir: str = "runs/predict",
     ) -> List[Results]:
+        """Results of every frame of ``source``, ``batch_size`` frames a
+        forward, read as they are needed; then the annotated images, labels
+        and crops under ``save_dir`` as asked."""
+        if is_stream_source(source):
+            return list(self.stream(source, conf=conf, max_det=max_det, imgsz=imgsz,
+                                    classes=classes))
         conf, max_det, imgsz = self._resolve(conf, max_det, imgsz)
-        frames = list(load_source(source))
-        results = []
-        for i in range(0, len(frames), batch_size):
-            results.extend(
-                self._process_chunk(frames[i : i + batch_size], int(max_det), conf,
-                                    classes, imgsz)
-            )
+        results, chunk = [], []
+        for frame in load_source(source):
+            chunk.append(frame)
+            if len(chunk) == batch_size:
+                results.extend(self._process_chunk(chunk, int(max_det), conf, classes, imgsz))
+                chunk = []
+        if chunk:
+            results.extend(self._process_chunk(chunk, int(max_det), conf, classes, imgsz))
+        if save or save_txt or save_crop:
+            self._save_outputs(results, save, save_txt, save_crop, save_dir)
         return results
+
+    @staticmethod
+    def _save_outputs(results, save, save_txt, save_crop, save_dir):
+        """The JAX Predictor's files: ``<stem>.jpg`` (the annotated image),
+        ``labels/<stem>.txt`` (YOLO lines with conf) and
+        ``crops/<name>/<stem>_<j>.jpg``, JPEGs as PIL writes them. The stem
+        is the path's, ``#`` made ``_``; a repeated stem, and an array's,
+        tensor's or PIL image's, takes the result's index."""
+        out = Path(save_dir)
+        out.mkdir(parents=True, exist_ok=True)
+        used = set()
+        for i, r in enumerate(results):
+            stem = Path(str(r.path)).stem or f"image{i}"
+            stem = stem.replace("#", "_")
+            if stem in used or stem in ("array", "pil", "tensor"):
+                stem = f"{stem}{i}"
+            used.add(stem)
+            if save:
+                (out / f"{stem}.jpg").write_bytes(encode_jpeg(r.plot(), "pil"))
+            if save_txt:
+                (out / "labels").mkdir(exist_ok=True)
+                r.save_txt(out / "labels" / f"{stem}.txt", save_conf=True)
+            if save_crop and r.boxes is not None:
+                for j in range(len(r.boxes)):
+                    x1, y1, x2, y2 = (int(v) for v in r.boxes.xyxy[j])
+                    c = int(r.boxes.cls[j])
+                    d = out / "crops" / str(r.names.get(c, c))
+                    d.mkdir(parents=True, exist_ok=True)
+                    crop = r.orig_img[max(y1, 0):max(y2, 1), max(x1, 0):max(x2, 1)]
+                    if crop.size:
+                        (d / f"{stem}_{j}.jpg").write_bytes(encode_jpeg(crop, "pil"))
+
+    def stream(
+        self,
+        source,
+        conf: Optional[float] = None,
+        max_det: Optional[int] = None,
+        imgsz=None,
+        classes: Optional[Sequence[int]] = None,
+        vid_stride: int = 1,
+    ) -> Iterator[Results]:
+        """Results one frame at a time, as frames are read (the JAX
+        ``stream``). Live sources raise naming ROADMAP item 22 here, not at
+        the first ``next``."""
+        if is_stream_source(source):
+            LoadStreams(source, vid_stride=vid_stride)  # raises: item 22
+        if is_endless(source):
+            LoadScreenshots(source)  # raises: item 22
+        conf, max_det, imgsz = self._resolve(conf, max_det, imgsz)
+
+        def frames():
+            for frame in load_source(source):
+                yield from self._process_chunk([frame], int(max_det), conf, classes, imgsz)
+
+        return frames()

@@ -1,8 +1,10 @@
 """Results containers (port of ``yolov10_3d_tpu/engine/results.py``: 2D and 3D
-boxes, and ``summary``'s rows for them)."""
+boxes, ``summary``'s rows for them, ``save_txt``'s YOLO-format lines and
+``plot``'s annotated image)."""
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any, Dict, List, Optional
 
 import numpy as np
@@ -27,6 +29,21 @@ class Boxes:
     @property
     def cls(self):
         return self.data[:, 5]
+
+    @property
+    def xywh(self):
+        b = self.data[:, :4]
+        return np.concatenate([(b[:, :2] + b[:, 2:]) / 2, b[:, 2:] - b[:, :2]], -1)
+
+    @property
+    def xyxyn(self):
+        h, w = self.orig_shape
+        return self.xyxy / np.array([w, h, w, h])
+
+    @property
+    def xywhn(self):
+        h, w = self.orig_shape
+        return self.xywh / np.array([w, h, w, h])
 
     def __len__(self):
         return len(self.data)
@@ -111,3 +128,31 @@ class Results:
                 }
             out.append(row)
         return out
+
+    def save_txt(self, txt_file, save_conf: bool = False):
+        """YOLO-format lines ``cls cx cy w h [conf]``, normalised, 6 decimals."""
+        lines = []
+        b = self.boxes
+        if b is not None:
+            for i in range(len(b)):
+                parts = [str(int(b.cls[i]))] + [f"{v:.6f}" for v in b.xywhn[i]]
+                if save_conf:
+                    parts.append(f"{b.conf[i]:.6f}")
+                lines.append(" ".join(parts))
+        Path(txt_file).parent.mkdir(parents=True, exist_ok=True)
+        Path(txt_file).write_text("\n".join(lines) + ("\n" if lines else ""))
+        return txt_file
+
+    def plot(self, line_width: Optional[int] = None, font_scale: float = 0.5):
+        """The original image with each box and its ``name conf`` label
+        drawn (``utils/plotting.py``, PIL's rules and bitmap font)."""
+        from ..utils.plotting import Annotator, color_for
+
+        b = self.boxes
+        if b is None:
+            return self.orig_img.copy()
+        ann = Annotator(self.orig_img.copy(), line_width, names=self.names)
+        for i in range(len(b)):
+            c = int(b.cls[i])
+            ann.box_label(b.xyxy[i], f"{self.names.get(c, c)} {b.conf[i]:.2f}", color_for(c))
+        return ann.result()

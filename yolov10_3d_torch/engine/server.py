@@ -9,8 +9,9 @@ The batch fires when it holds ``max_batch`` requests or ``max_delay_ms``
 after its first arrival, whichever comes first.
 
 Endpoints:
-  POST /predict   body = raw 8-bit PNG bytes (JPEG and other formats are
-                  ROADMAP queue 1, item 9f: 400); query params ``conf``
+  POST /predict   body = raw image bytes (JPEG, PNG or BMP, decoded by PIL's
+                  rule; TIFF and WebP are ROADMAP queue 1, item 21: 400);
+                  query params ``conf``
                   (>= the server floor, applied as a post-filter so that
                   mixed-conf requests share one device batch) and ``classes``
                   (csv ints). Response JSON: ``detections``
@@ -27,10 +28,8 @@ Binds 127.0.0.1 by default: nothing here authenticates.
 from __future__ import annotations
 
 import json
-import struct
 import threading
 import time
-import zlib
 from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from queue import Empty, Queue
@@ -39,19 +38,18 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 
 from ..cfg import get_cfg
-from ..data.dataset import _PNG_SIGNATURE, decode_png
+from ..data.image_io import decode_bytes
 from .predictor import Predictor
 
 
 def decode_body(body: bytes) -> np.ndarray:
-    """HWC RGB uint8 of a request body; ValueError (HTTP 400) for anything
-    but an 8-bit non-interlaced PNG."""
-    if body[:8] != _PNG_SIGNATURE:
-        raise ValueError("the port's server decodes 8-bit PNG bodies only; JPEG and other "
-                         "formats are ROADMAP queue 1, item 9f")
+    """HWC RGB uint8 of a request body, decoded as the JAX server decodes it
+    (``Image.open(...).convert("RGB")``: PIL's rule, ``data/image_io.py``);
+    ValueError (HTTP 400) for a body it cannot decode, naming the item for
+    the formats not ported (TIFF and WebP, item 21)."""
     try:
-        return decode_png(body, "request body")
-    except (NotImplementedError, zlib.error, struct.error) as e:
+        return decode_bytes(body, "pil", "request body")
+    except NotImplementedError as e:
         raise ValueError(str(e)) from e
 
 

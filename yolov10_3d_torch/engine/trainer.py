@@ -45,7 +45,7 @@ from ..ops.device_aug import device_train_augment
 from ..train.loss import v10_detect_loss
 from ..train.optim import Optimizer, resolve_auto_optimizer
 from ..train.state import TrainState, make_train_step
-from ..utils.checkpoint import AsyncCheckpointer, host_copy, load_checkpoint
+from ..utils.checkpoint import AsyncCheckpointer, Snapshot, load_checkpoint
 from ..utils.weights import flax_to_torch_state_dict, load_flax_variables
 from .validator import DetectionValidator
 
@@ -103,6 +103,7 @@ class DetectionTrainer:
         self.save_dir = Path(args["save_dir"] or "runs/train")
         self.state: Optional[TrainState] = None
         self._ckpt_writer: Optional[AsyncCheckpointer] = None
+        self._snapshot = Snapshot()
         self.snapshot_ms: List[float] = []  # the train thread's part of each save
 
     # -- the hooks a task overrides --
@@ -331,14 +332,20 @@ class DetectionTrainer:
         return self._ckpt_writer
 
     def save_ckpt(self, path, state: TrainState, meta: Dict[str, Any]) -> None:
-        """Checkpoint ``state`` to ``path``: the flax-layout trees copied to
-        the host here (the only part the train loop pays, kept in
-        ``snapshot_ms``: one device-to-host copy per leaf), their encoding
-        and the atomic write on the writer thread."""
+        """Checkpoint ``state`` to ``path``: the flax-layout trees encoded
+        into the file's body here (``Snapshot``: one grouped copy into an
+        image on the device, one transfer to a host buffer; the only part
+        the train loop pays, kept in ``snapshot_ms``), the atomic write on
+        the writer thread, which then frees the buffer."""
         t0 = time.perf_counter()
-        trees = host_copy(state.checkpoint_trees())
+        body, release = self._snapshot(**state.checkpoint_trees())
         self.snapshot_ms.append((time.perf_counter() - t0) * 1e3)
-        self.ckpt_writer.submit(path, **trees, meta={**meta, "step": int(state.step)})
+        try:
+            self.ckpt_writer.submit(path, release, body=body,
+                                    meta={**meta, "step": int(state.step)})
+        except BaseException:  # an earlier write's error: the buffer was not handed over
+            release()
+            raise
 
     @staticmethod
     def load_resume(path, state: TrainState) -> Dict[str, Any]:

@@ -6,7 +6,7 @@ depth-map targets) in a seeded shuffled order, the dual 3D loss
 (``train/loss3d.py``: one2many at ``tal_topk``, one2one at top-1), HTL's
 per-epoch loss weights (``htl``), the FGDM loss (``fgdm_loss``, with a
 ``fgdm_predictor: true`` model YAML), the 3D head's bias init, a pretrained
-backbone grafted from a ``.ckpt`` (``pretrained=path``), KITTI AP40
+backbone grafted from a ``.ckpt`` or ``.pt`` (``pretrained=path``), KITTI AP40
 validation of the EMA weights every ``val_period`` epochs (fitness
 ``metrics/3D``), and HTL's state in every checkpoint's meta.
 ``device_aug`` and ``close_mosaic`` do nothing here, as in the JAX trainer:
@@ -42,9 +42,6 @@ def check_ported_3d(args: Dict[str, Any]) -> None:
     for k in ("distillation", "fgdm_supervision", "dino_path"):
         if args[k]:
             raise _not_ported(f"{k}={args[k]!r} (the DINO teacher)", "14")
-    pretrained = args["pretrained"]
-    if isinstance(pretrained, str) and pretrained.endswith(".pt"):
-        raise _not_ported(f"pretrained={pretrained!r} (the reference's .pt checkpoints)", "20")
     data = str(args["data"] or "").lower()
     if "waymo" in data or "omni" in data:
         raise _not_ported(f"the Waymo and Omni3D datasets ({args['data']})", "11b")
@@ -63,12 +60,12 @@ class Detection3DTrainer(DetectionTrainer):
         super().__init__(args)
 
     def init_params(self, model, spec) -> None:
-        """The 3D head's bias init; with ``pretrained=<.ckpt>``, every
-        non-head layer's leaves of matching name and shape copied from that
-        checkpoint's model (the JAX ``graft_backbone``)."""
+        """The 3D head's bias init; with ``pretrained=<.ckpt or .pt>``,
+        every non-head layer's leaves of matching name and shape copied from
+        that checkpoint's model (the JAX ``graft_backbone``)."""
         detect3d_bias_init(model.model[spec.head_index], spec.nc, spec.strides)
         pretrained = self.args["pretrained"]
-        if isinstance(pretrained, str) and pretrained.endswith(".ckpt"):
+        if isinstance(pretrained, str) and pretrained.endswith((".ckpt", ".pt")):
             from .model import YOLOv10
 
             src = YOLOv10(pretrained, device="cpu")

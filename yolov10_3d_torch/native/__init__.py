@@ -1,13 +1,15 @@
 """Host code in C++, built with g++ at first use and loaded with ctypes:
-the rotated IoU of the KITTI evaluator (``kitti_iou.cc``, here) and the host
-augmentation's image operations (``host_aug.cc``, ``native/host_aug.py``).
+the rotated IoU of the KITTI evaluator (``kitti_iou.cc``, here), the host
+augmentation's image operations (``host_aug.cc``, ``native/host_aug.py``)
+and the image codec (``image_codec.cc``, ``native/image_codec.py``).
 
 A library goes to ``_build/`` beside the package (git-ignored), named by a
 hash of its source and flags, so an edited source is rebuilt. For the
 rotated IoU the rule is the JAX package's: the evaluator uses the library
 when g++ builds it and the numpy implementation otherwise. A failed build is
 reported by a warning that carries the compiler's message, and
-``build_error()`` returns it. (The host augmentation raises instead.)
+``build_error()`` returns it. (The host augmentation and the codec raise
+instead.)
 """
 
 from __future__ import annotations

@@ -10,6 +10,12 @@ bytes)``; ext code 3 a numpy scalar, packed as a 0-d ndarray; ext code 2 a
 complex. ``bfloat16`` leaves, which numpy lacks, decode to ``torch.bfloat16``
 tensors, and torch tensors encode as the ndarray of their values.
 
+``pack_segments(tree)`` gives the same bytes split at the arrays: the
+bytes between two arrays, and each array's bytes. ``layout(tree)`` states
+what the encoding holds apart from the arrays' bytes, so that a tree of a
+known layout can be written into a known image (``utils/checkpoint.py``
+``Snapshot``).
+
 ``packb(tree)`` gives the bytes of ``msgpack.packb(tree, default=flax's
 ext pack, strict_types=True, use_bin_type=True)``: maps in their iteration
 order, the smallest width for every int, length and ext. ``unpackb(data)``
@@ -27,6 +33,15 @@ import torch
 
 EXT_NDARRAY, EXT_COMPLEX, EXT_NPSCALAR = 1, 2, 3
 CHUNKED_KEY = "__msgpack_chunked_array__"
+
+
+class _Raw:
+    """An array's bytes among the encoded parts (what a layout does not hold)."""
+
+    __slots__ = ("data",)
+
+    def __init__(self, data):
+        self.data = data
 
 
 # ------------------------------------------------------------------ encode
@@ -109,8 +124,9 @@ def _ndarray_payload(x) -> Tuple[List[Any], int]:
         _pack_int(s, out)
     _pack_str(name, out)
     _pack_len(len(raw), (), (0xC4, 0xC5, 0xC6), out)
-    out.append(raw)
-    return out, sum(len(p) for p in out)
+    n = sum(len(p) for p in out) + len(raw)
+    out.append(_Raw(raw))
+    return out, n
 
 
 def _pack_str(s: str, out: List[bytes]) -> None:
@@ -159,7 +175,45 @@ def pack_parts(tree: Any) -> List[Any]:
     views of the arrays' memory), for writing without joining them."""
     out: List[Any] = []
     _pack(tree, out)
-    return out
+    return [p.data if isinstance(p, _Raw) else p for p in out]
+
+
+def layout(tree: Any, leaves: List[Any]) -> Any:
+    """A hashable statement of what ``tree`` encodes to apart from its
+    arrays' bytes (keys, shapes, dtypes, scalar values); the arrays (numpy
+    scalars as 0-d arrays) appended to ``leaves`` in encoding order."""
+    if isinstance(tree, dict):
+        return ("d", tuple((k, layout(v, leaves)) for k, v in tree.items()))
+    if type(tree) is list:
+        return ("l", tuple(layout(v, leaves) for v in tree))
+    if isinstance(tree, torch.Tensor):
+        leaves.append(tree)
+        return ("t", tuple(tree.shape), str(tree.dtype))
+    if isinstance(tree, np.ndarray):
+        leaves.append(tree)
+        return ("a", tree.shape, tree.dtype.str)
+    if isinstance(tree, np.generic):
+        leaves.append(np.asarray(tree))
+        return ("s", tree.dtype.str)
+    return ("v", type(tree), tree)
+
+
+def pack_segments(tree: Any) -> Tuple[List[bytes], List[Any]]:
+    """The encoding of ``tree`` split at its arrays: ``heads`` (one more than
+    there are arrays) and the arrays' bytes, ``heads[0] + raws[0] + heads[1]
+    + ... + heads[-1]``."""
+    out: List[Any] = []
+    _pack(tree, out)
+    heads, raws, run = [], [], []
+    for p in out:
+        if isinstance(p, _Raw):
+            heads.append(b"".join(run))
+            raws.append(p.data)
+            run = []
+        else:
+            run.append(p)
+    heads.append(b"".join(run))
+    return heads, raws
 
 
 def packb(tree: Any) -> bytes:
