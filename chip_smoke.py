@@ -162,6 +162,47 @@ Phases, each fatal on failure:
                 Then device_aug=True, close_mosaic=1, half the set, 2
                 epochs: tile batches and K4 in the first, host batches in
                 the second.
+  6d. head3d-options - YOLOv10-S-3D with each head option set of
+                tests/test_torch_head3d_options.py (dsconv, use_predecessors,
+                common_head, half_channels, deform and two combinations;
+                deform's offset and modulator convs drawn away from zero) at
+                384x1280: captured requests at B=1 and B=8 (max_det 50), the
+                stem kernel once a request; the detections held to a CPU
+                float32 run of the same weights on two of the frames at
+                [serve3d]'s bars; the Predictor's route (sparse only for
+                half_channels, held to its dense head as [serve3d] does); a
+                sparse request on any other set gives the dense maps
+                (torch.equal); ms per captured request, peak memory, and
+                deform_conv2d's device ms per launch and share of a dense
+                forward (CUDA events around each call) at B=1 and 8.
+  6e. distill3d - YOLOv10-S-3D with fgdm_predictor: true, one epoch at
+                384x1280, batch 8, amp, on a 32-frame synthetic KITTI tree
+                with instance masks: distillation and fgdm_supervision with
+                a width-matched DINOv2 teacher (128 wide, 12 blocks, 2
+                heads, out_indices (11,)) on the card; a finite, positive
+                dis column; on one cached batch, in turns, the H2D copy and
+                step with the teacher (its forward and both terms) and
+                without (the FGDM step), and the teacher's device ms a
+                batch. Then one SGD step on the card and on the CPU from
+                the same state and batch (float32, TF32 off, the card's
+                assignments replayed) with every loss item, dis included,
+                at [train3d-lockstep]'s bars. No hand kernel on this path.
+  6f. dino-val - YOLOv10-S-3D val(use_dino_depth=True, dino_path=...) at
+                384x1280 on 8 synthetic KITTI frames, dino_path a
+                DINOv2-small (384 wide, 12 blocks, 6 heads) at seeded random
+                weights in the DinoDepther.save() layout: the card's KITTI
+                rows with the net in float64 held to the CPU's float64 run
+                at [val3d]'s bars (the float32 rows' gaps printed); img/s
+                over 64 frames, a second call of the card's validator with
+                its teacher loaded, split into loader, device, teacher,
+                host rows and evaluator; the teacher's device ms a batch.
+  6g. json3d   - Waymo (1920x1280) and Omni3D (1600x900) JSON trees of 64
+                JPEG frames written by the port's encoder: one train epoch
+                of YOLOv10-S-3D on 16 of them at 960x640 (batch 8, amp), a
+                finite loss; the seeded net, calibrated on 8 val frames,
+                validated as in dino-val (rows card vs CPU in float64 at
+                [val3d]'s bars, the fitness within 1e-6, the ground truth as
+                predictions above 0); img/s over the 64 frames.
   7. ckpt     - YOLOv10("yolov10s.yaml").train(...) on 64 synthetic PNGs at
                 640x640, batch 16, 2 epochs, device augmentation, validation
                 every epoch and checkpoints (last, best, a mid-epoch save every
@@ -199,8 +240,9 @@ Phases, each fatal on failure:
                 int8_conv_f32 on trained weights), the float32 predict
                 scored beside it.
 
-Each path (serving, serve3d, server, sources, val3d, train, train-host, ckpt, val2d, learn3d,
-learn2d) is driven with the launch counts set to 0 just before it and read just after. The last three lines are
+Each path (serving, serve3d, server, sources, val3d, train, train-host, head3d-options,
+distill3d, dino-val, json3d, ckpt, val2d, learn3d, learn2d) is driven with the launch counts
+set to 0 just before it and read just after. The last three lines are
 the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
 {...}}.
 Imports no JAX.
@@ -2745,6 +2787,648 @@ def phase_train3d(card: str) -> dict:
     return out
 
 
+# The 3D head's YAML options (tests/test_torch_head3d_options.py's sets)
+HEAD3D_OPTIONS = {
+    "dsconv": ("dsconv",), "use_predecessors": ("use_predecessors",),
+    "common_head": ("common_head",), "half_channels": ("half_channels",), "deform": ("deform",),
+    "dsconv+use_predecessors+half_channels": ("dsconv", "use_predecessors", "half_channels"),
+    "common_head+dsconv": ("common_head", "dsconv"),
+}
+HEAD3D_CPU_FRAMES = 2  # of the eight: the CPU reference's share of each option set
+# [distill3d]'s teacher: 128 wide, the width of dep_c and of the DepthPredictor's hidden
+DISTILL_TEACHER = dict(embed_dim=128, depth=12, num_heads=2)
+DINO_VAL_FRAMES = 8  # [dino-val]'s frames held card vs CPU
+JSON3D_FRAMES, JSON3D_VAL = 16, 8  # [json3d]: frames trained an epoch, and held card vs CPU
+# [dino-val] and [json3d] time a second val of the card's validator (the teacher loaded,
+# the evaluator's imports done) over this many frames: a rate, not one batch's start-up
+RATE_FRAMES = 64
+JSON3D_HW = (640, 960)  # the Waymo and Omni3D datasets' input
+
+
+class TimedTeacher:
+    """A depth teacher that keeps the device ms of each call on the card
+    (CUDA events around it) in ``ms``."""
+
+    def __init__(self, teacher):
+        self.teacher, self.ms = teacher, []
+
+    def __call__(self, imgs):
+        import torch
+
+        if not imgs.is_cuda:
+            return self.teacher(imgs)
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = self.teacher(imgs)
+        e.record()
+        e.synchronize()
+        self.ms.append(s.elapsed_time(e))
+        return out
+
+
+def option_yaml(root: Path, name: str, keys=(), extra: str = "") -> Path:
+    """YOLOv10-S-3D's YAML with ``keys`` set true (and ``extra`` lines)."""
+    from yolov10_3d_torch.cfg import resolve_model_cfg
+
+    path = root / f"yolov10s_3D_{name.replace('+', '_')}.yaml"
+    path.write_text(resolve_model_cfg("yolov10s_3D").read_text()
+                    + "".join(f"{k}: true\n" for k in keys) + extra)
+    return path
+
+
+def deform_timing(model, x) -> dict:
+    """Each ``deform_conv2d`` call of one eager dense forward of ``x`` timed
+    on the device (CUDA events around each call), against the forward's own
+    device time: {calls, ms, forward_ms, by_scale}."""
+    import torch
+
+    from yolov10_3d_torch.nn import modules as M
+
+    real, rec = M.deform_conv2d, []
+
+    def timed(*a, **k):
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = real(*a, **k)
+        e.record()
+        rec.append((tuple(a[0].shape), s, e))
+        return out
+
+    M.deform_conv2d = timed
+    try:
+        with torch.inference_mode():
+            model(x, fast_eval=True)  # warm
+            rec.clear()
+            s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s.record()
+            model(x, fast_eval=True)
+            e.record()
+            torch.cuda.synchronize()
+    finally:
+        M.deform_conv2d = real
+    by_scale = {}
+    for shape, a, b in rec:
+        by_scale.setdefault(shape, []).append(a.elapsed_time(b))
+    return {"calls": len(rec), "ms": sum(a.elapsed_time(b) for _, a, b in rec),
+            "forward_ms": s.elapsed_time(e),
+            "by_scale": {k: statistics.median(v) for k, v in by_scale.items()}}
+
+
+def phase_head3d_options(card: str) -> dict:
+    """YOLOv10-S-3D with each head option set at 384x1280 on the card:
+    captured requests at B=1 and B=8 (max_det 50), the detections held to a
+    CPU float32 run of the same weights at [serve3d]'s bars, a sparse request
+    on a head outside the sparse envelope served densely with equal maps
+    (``half_channels``, inside it, held to its dense head as [serve3d] does),
+    ms per captured request, peak memory, and ``deform_conv2d``'s device ms
+    per launch and share of a forward. Returns the hand kernels' launches."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.nn.modules import DeformableConv2d
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.utils.parity import calibrate, compare_results, smooth_images
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    frames = smooth_images(np.random.default_rng(3), [(375, 1242)] * 8)
+    imgsz = [KITTI_HW[1], KITTI_HW[0]]
+    cols = {"center3d": (slice(6, 8), BOX_TOL), "s3d": (slice(8, 11), REG_TOL_3D),
+            "dep_un": (slice(15, 16), REG_TOL_3D)}
+    x = serve_preprocess(torch.from_numpy(np.stack(frames)).cuda(), KITTI_HW)
+    totals = {k: 0 for k in launch_counts}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, keys in HEAD3D_OPTIONS.items():
+            t0 = time.perf_counter()
+            yaml = option_yaml(Path(tmp), name, keys)
+            gpu = YOLOv10(str(yaml), device="cuda", seed=0)
+            head = gpu.model.model[gpu.spec.head_index]
+            if "deform" in keys:  # offsets and a modulator away from their zero init
+                g = torch.Generator().manual_seed(1)
+                with torch.no_grad():
+                    for m in gpu.model.modules():
+                        if isinstance(m, DeformableConv2d):
+                            for c, std in ((m.offset_conv, 0.02), (m.modulator_conv, 0.05)):
+                                c.weight.copy_(torch.randn(c.weight.shape, generator=g) * std)
+                                c.bias.copy_(torch.randn(c.bias.shape, generator=g) * std * 10)
+            # a chained head (use_predecessors: cls -> s3d -> dep -> dep_un) is calibrated
+            # once per link, so that each branch is scaled on its calibrated inputs
+            for _ in range(3 if "use_predecessors" in keys else 1):
+                calibrate(gpu.model, x, bn_std=BN_STD_3D)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            requests = (("b1", frames[:1], 1), ("b8", frames, 8))
+            for _, ims, b in requests:  # the eager first call of each key, then its capture
+                gpu.predict(ims, imgsz=imgsz, batch=b, conf=CONF, max_det=50)
+            reset_launch_counts()
+            res, times = {}, {}
+            for rname, ims, b in requests:
+                times[rname] = []
+                for _ in range(3):
+                    torch.cuda.synchronize()
+                    t1 = time.perf_counter()
+                    res[rname] = gpu.predict(ims, imgsz=imgsz, batch=b, conf=CONF, max_det=50)
+                    times[rname].append((time.perf_counter() - t1) * 1e3)
+                _check_results3d(res[rname], [im.shape[:2] for im in ims], 50)
+            counts = dict(launch_counts)
+            if counts["stem_conv"] != 3 * 2 or any(v for k, v in counts.items()
+                                                   if k != "stem_conv"):
+                raise AssertionError(f"head3d-options {name}: launches {counts}; expected the "
+                                     "stem kernel once a request")
+            for k in totals:
+                totals[k] += counts[k]
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            pred = gpu.predictor({"int8": False, "spd_serving": True})
+            route = "sparse" if pred.sparse(50) else "dense"
+            if route != ("sparse" if keys == ("half_channels",) else "dense"):
+                raise AssertionError(f"head3d-options {name}: the Predictor serves {route}")
+            if head.sparse_ok:
+                sd = sparse_vs_dense_on_card(gpu.model, x, gpu.spec.nc)
+                env = (f"sparse head vs dense: regression at the candidates {sd['maps']:.3g}, "
+                       f"detections {sd['detections']:.3g}")
+            else:
+                with torch.inference_mode():
+                    dense = gpu.model(x, fast_eval=True, stem=True)["one2one"]
+                    sparse = gpu.model(x, fast_eval=True, stem=True, sparse=True)["one2one"]
+                if not all(torch.equal(a, b) for a, b in zip(dense, sparse)):
+                    raise AssertionError(f"head3d-options {name}: a sparse request outside the "
+                                         "envelope does not give the dense maps")
+                env = "a sparse request served densely: maps equal (torch.equal)"
+            cpu = YOLOv10(str(yaml), device="cpu", seed=0)
+            cpu.model.load_state_dict(gpu.model.state_dict())
+            t1 = time.perf_counter()
+            ref = cpu.predict(frames[:HEAD3D_CPU_FRAMES], imgsz=imgsz, batch=HEAD3D_CPU_FRAMES,
+                              conf=CONF, max_det=50)
+            ref_s = time.perf_counter() - t1
+            stats = {}
+            for rname, got in (("b1", res["b1"]), ("b8", res["b8"][:HEAD3D_CPU_FRAMES])):
+                s = compare_results(ref[:len(got)], got, conf=CONF, score_tol=SCORE_TOL,
+                                    box_tol=BOX_TOL, cols=cols)
+                if s["n_compared"] < 0.5 * (s["n_ref"] + s["n_got"]):
+                    raise AssertionError(f"head3d-options {name} {rname}: too few separated "
+                                         f"detections {s}")
+                stats[rname] = s
+            dcn = ""
+            if "deform" in keys:
+                d = {b: deform_timing(gpu.model, x[:b]) for b in (1, 8)}
+                dcn = " | deform_conv2d: " + "; ".join(
+                    f"B={b} {t['calls']} launches a dense forward, {t['ms']:.3f} of its "
+                    f"{t['forward_ms']:.3f} device ms ({t['ms'] / t['forward_ms']:.3f}), per launch "
+                    + ", ".join(f"{s_[2]}x{s_[3]}x{s_[1]} {ms:.4f}" for s_, ms in t["by_scale"].items())
+                    for b, t in d.items())
+                out.setdefault("deform", d)
+            med = {k: statistics.median(v) for k, v in times.items()}
+            print(f"[head3d-options] {name}: route {route}; ms per captured request B=1 "
+                  f"{med['b1']:.2f}, B=8 {med['b8']:.2f} ({', '.join(f'{t:.2f}' for t in times['b8'])}); "
+                  f"peak {peak:.2f} GiB; {env}; vs CPU ({HEAD3D_CPU_FRAMES} frames, {ref_s:.1f} s): "
+                  + "; ".join(f"{r} score {s['max_score_err']:.3g}, box {s['max_box_err']:.3g} px, "
+                              f"3D centre {s['max_center3d_err']:.3g} px, s3d {s['max_s3d_err']:.3g}, "
+                              f"dep_un {s['max_dep_un_err']:.3g} ({s['n_compared']} compared)"
+                              for r, s in stats.items())
+                  + f"{dcn} ({time.perf_counter() - t0:.1f} s, {card})")
+            out[name] = {"ms": med, "peak_gib": peak, "route": route}
+            del gpu, cpu, head, pred
+            torch.cuda.empty_cache()
+    print(f"[head3d-options] launches {totals}; phase took {time.perf_counter() - t_phase:.1f} s")
+    out["launches"] = totals
+    return out
+
+
+def phase_distill3d(card: str, data: Path) -> dict:
+    """YOLOv10-S-3D with ``fgdm_predictor: true`` trained for an epoch at
+    384x1280, batch 8, amp, with ``distillation`` and ``fgdm_supervision``
+    and the width-matched teacher (``make_dino_teacher(arch_override=
+    DISTILL_TEACHER, out_indices=(11,))``, 128 wide) on the card: a finite
+    ``dis`` column; the step on one cached batch with the teacher (its
+    forward on the batch and both terms) and without (the FGDM step); the
+    teacher's ms a batch. Then one SGD step on the card and on the CPU from
+    the same state and batch (float32, TF32 off, the card's assignments on
+    both) with every loss item, ``dis`` included, at [train3d-lockstep]'s
+    bars. No hand kernel runs on this path."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.cfg import get_cfg
+    from yolov10_3d_torch.data.dataset import DictLoader
+    from yolov10_3d_torch.data.kitti import KITTIDataset
+    from yolov10_3d_torch.engine.trainer3d import Detection3DTrainer
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.models.dino import make_dino_teacher
+    from yolov10_3d_torch.nn.build import build_model
+    from yolov10_3d_torch.nn.heads3d import detect3d_bias_init
+    from yolov10_3d_torch.train.optim import Optimizer
+    from yolov10_3d_torch.train.state import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        yaml = option_yaml(Path(tmp), "fgdm", extra="fgdm_predictor: true\n")
+        teacher = TimedTeacher(make_dino_teacher(arch_override=DISTILL_TEACHER,
+                                                 out_indices=(11,), device="cuda"))
+        over = dict(distillation=True, fgdm_supervision=True, load_depth_maps=True,
+                    fgdm_loss=True)
+        model = YOLOv10(str(yaml), device="cuda", seed=0)
+        reset_launch_counts()
+        times = []
+        t0 = time.perf_counter()
+        with timed_train_steps(times):
+            state = model.train(teacher=teacher, data=str(data),
+                                kitti_resolution=[KITTI_HW[1], KITTI_HW[0]],
+                                batch=8, workers=4, save=False, val=False, epochs=1, amp=True,
+                                save_dir=f"{tmp}/run", **over)
+        wall = time.perf_counter() - t0
+        n_steps = state.step
+        counts = dict(launch_counts)
+        if any(counts.values()):
+            raise AssertionError(f"distill3d: hand kernels launched {counts}; the path runs none")
+        with open(Path(tmp) / "run" / "results.csv") as f:
+            row = next(csv.DictReader(f))
+        if not (math.isfinite(float(row["dis"])) and float(row["dis"]) > 0):
+            raise AssertionError(f"distill3d: the dis column is {row['dis']}")
+        in_loop = list(teacher.ms)
+        trainer = model.trainer
+        loader = trainer.build_loader(trainer.train_ds, 8)
+        loader.workers = 0
+        host = next(iter(loader))
+        plain = Detection3DTrainer(get_cfg({**trainer.args, "distillation": False,
+                                            "fgdm_supervision": False}))
+        kw = dict(nc=trainer.spec.nc, strides=trainer.spec.strides, amp=True, nhwc=True)
+        steps = {"teacher": (trainer.to_device, make_train_step(
+                     loss_fn=trainer.make_loss(trainer.spec), **kw)),
+                 "none": (plain.to_device, make_train_step(
+                     loss_fn=plain.make_loss(trainer.spec), **kw))}
+        step_ms = {k: [] for k in steps}
+        teacher.ms.clear()
+        for _ in range(6):  # in turns
+            for k, (to_dev, step) in steps.items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                step(trainer.state, to_dev(host))
+                torch.cuda.synchronize()
+                step_ms[k].append((time.perf_counter() - t1) * 1e3)
+        med = {k: statistics.median(v[1:]) for k, v in step_ms.items()}
+        t_ms = statistics.median(teacher.ms[1:]) if len(teacher.ms) > 1 else float("nan")
+        print(f"[distill3d] YOLOv10-S-3D + FGDM, 1280x384, batch 8, amp, distillation + "
+              f"fgdm_supervision, teacher DINOv2 {DISTILL_TEACHER} out (11,): {n_steps} steps "
+              f"in {wall:.1f} s (steps {', '.join(f'{t:.0f}' for t in times)} ms); dis "
+              f"{float(row['dis']):.5g}, fgdm {float(row['fgdm']):.5g}, loss {float(row['loss']):.5g}; "
+              f"hand-kernel launches {counts} ({card})")
+        print(f"[distill3d] one cached batch, H2D copy + step, in turns: with the teacher "
+              f"{med['teacher']:.1f} ms ({', '.join(f'{t:.0f}' for t in step_ms['teacher'])}), "
+              f"without {med['none']:.1f} ms ({', '.join(f'{t:.0f}' for t in step_ms['none'])}); "
+              f"the teacher {t_ms:.2f} device ms a batch of 8 ({t_ms / med['teacher']:.3f} of the "
+              f"step; in the epoch's loop {', '.join(f'{t:.1f}' for t in in_loop)})")
+        out.update(step_ms=med, teacher_ms=t_ms, dis=float(row["dis"]))
+        del model, trainer, state, plain, steps
+        torch.cuda.empty_cache()
+
+        # the lockstep: card vs CPU, one SGD step from the same state and batch
+        ds = KITTIDataset(data.parent, "train", args={
+            "fliplr": 1.0, "random_crop": 1.0, "mixup": 0.0, "load_depth_maps": True,
+            "kitti_resolution": [KITTI_HW[1], KITTI_HW[0]]})
+        batch = DictLoader.collate([ds[i] for i in range(2)])
+        gpu, spec = build_model(yaml, device="cuda", seed=0)
+        detect3d_bias_init(gpu.model[spec.head_index], spec.nc, spec.strides)
+        cpu = copy.deepcopy(gpu).cpu()
+        teachers = {"gpu": teacher.teacher, "cpu": make_dino_teacher(
+            copy.deepcopy(teacher.teacher.model).cpu(), device="cpu")}
+        sgd = dict(name="SGD", lr0=0.01, epochs=10, steps_per_epoch=10, warmup_epochs=0.0,
+                   batch_size=2, nbs=2)
+        before = {k: v.detach().cpu().clone() for k, v in cpu.state_dict().items()}
+        record, gaps, res = [], [], {}
+        t0 = time.perf_counter()
+        for name, net, dev, ctx in (("gpu", gpu, "cuda", assignments3d(record=record)),
+                                    ("cpu", cpu, "cpu", assignments3d(replay=record, gaps=gaps))):
+            tr = Detection3DTrainer(get_cfg({**over, "device": dev}))
+            tr.teacher = teachers[name]
+            step = make_train_step(nc=spec.nc, strides=spec.strides, nhwc=True,
+                                   loss_fn=tr.make_loss(spec))
+            st = TrainState.create(net, Optimizer(net, **sgd))
+            with ctx:
+                _, metrics = step(st, tr.to_device(batch))
+            res[name] = ({k: float(v) for k, v in metrics.items()},
+                         {k: v.detach().cpu() for k, v in net.state_dict().items()})
+        (mg, sg), (mc, sc) = res["gpu"], res["cpu"]
+        worst_term = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+        params = [k for k, _ in cpu.named_parameters()]
+        big = max(float((sc[k] - before[k]).abs().max()) for k in params)
+        bad = []
+        for k in params:
+            d_gpu, d_cpu = sg[k] - before[k], sc[k] - before[k]
+            top = float(d_cpu.abs().max())
+            ulp = float(np.spacing(np.float32(float(before[k].abs().max()))))
+            if float((d_gpu - d_cpu).abs().max()) > 1e-2 * top + 1e-4 * big + ulp:
+                bad.append(k)
+        print(f"[distill3d] lockstep, one SGD step card vs CPU (float32, TF32 off, the card's "
+              f"assignments; CPU's own differ by {'; '.join(map(str, gaps))}): dis {mg['dis']:.7g} / "
+              f"{mc['dis']:.7g}, loss {mg['loss']:.7g} / {mc['loss']:.7g}; worst item rel "
+              f"{worst_term:.3g} (bar 1e-3); updates beyond [train3d-lockstep]'s bar: "
+              f"{bad[:8] or 'none'} ({len(bad)}) ({time.perf_counter() - t0:.1f} s)")
+        if worst_term > 1e-3 or bad or "dis" not in mc:
+            raise AssertionError(f"distill3d lockstep: items {worst_term:.3g}, {len(bad)} updates")
+        out.update(lockstep_rel=worst_term)
+    print(f"[distill3d] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
+def rows_vs_float64(gpu, exact, kw: dict, tmp: str, tag: str, lookup_hw=None) -> dict:
+    """``val(**kw)`` on the card as a user runs it (float32, cuDNN), on the
+    card with the net in float64, and on the CPU with the net in float64
+    (``exact``). The card's float64 rows are held to the CPU's at [val3d]'s
+    bars (with ``lookup_hw``, ``use_dino_depth``'s centres too): every step
+    of the path runs on the card, without the float32 forward's rounding.
+    The float32 rows' gaps to float64 are printed, not held: the top-k
+    keeps anchors whose outputs are far from order 1 (a depth uncertainty
+    near -9), where the card's float32 convolutions put a heading up to
+    1.7e-3 rad from float64 (PERF.md §7). Returns {held, gaps, got
+    (float32), got64, want, v (the float32 run's validator), ref_s}."""
+    from yolov10_3d_torch.utils.parity import compare_kitti_rows
+
+    got = gpu.val(**kw, save_dir=f"{tmp}/{tag}_f32")
+    v = gpu.validator
+    gpu.model.double()
+    try:
+        got64 = gpu.val(**kw, save_dir=f"{tmp}/{tag}_card64")
+    finally:
+        gpu.model.float()  # float32 values round-trip through float64 exactly
+    v64 = gpu.validator
+    t0 = time.perf_counter()
+    want = exact.val(**kw, save_dir=f"{tmp}/{tag}_f64")
+    ref_s = time.perf_counter() - t0
+    e = exact.validator
+    cen = lambda v: (v.centres if lookup_hw else None)  # noqa: E731
+    held = compare_kitti_rows(e.results, v64.results, SCORE_TOL, BOX_TOL, REG_TOL_3D,
+                              REG_TOL_3D, e.bins, v64.bins, cen(e), cen(v64), lookup_hw)
+    inf = float("inf")
+    gaps = compare_kitti_rows(e.results, v.results, inf, inf, inf, inf, e.bins, v.bins,
+                              cen(e), cen(v), lookup_hw)
+    if not (list(got) == list(got64) == list(want)) or held["n_rows"] == 0:
+        raise AssertionError(f"{tag}: metric keys {list(got)} / {list(got64)} vs "
+                             f"{list(want)}, {held['n_rows']} rows")
+    return dict(held=held, gaps=gaps, got=got, got64=got64, want=want, v=v, ref_s=ref_s)
+
+
+def phase_dino_val(card: str) -> dict:
+    """``val(use_dino_depth=True)`` of YOLOv10-S-3D at 384x1280 on a
+    synthetic KITTI tree, ``dino_path`` a DINOv2-small (384 wide, 12 blocks,
+    6 heads) at seeded random weights in the ``DinoDepther.save()`` layout
+    (its depth bias at 20 m, so that the substituted depths are metres): the
+    card's KITTI rows of DINO_VAL_FRAMES frames against the same call on the
+    CPU with the net in float64 (``rows_vs_float64``); then the rate, a
+    second call of the card's float32 validator (its teacher loaded) over
+    RATE_FRAMES frames, split into loader, device, teacher, host rows and
+    evaluator; and the teacher's forward alone in device ms a batch. No
+    hand kernel runs on this path."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data.dataset import DictLoader
+    from yolov10_3d_torch.data.kitti import KITTIDataset
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.models.dino import DinoDepther
+    from yolov10_3d_torch.utils.parity import calibrate
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = kitti_tree(Path(tmp) / "kitti", n=RATE_FRAMES, n_val=DINO_VAL_FRAMES, seed=2)
+        rate_split = data.parent / "ImageSets" / "rate.txt"
+        rate_split.write_text("".join(f"{i:06d}\n" for i in range(RATE_FRAMES)))
+        depther = DinoDepther("small").init_weights(0)
+        with torch.no_grad():
+            depther.head.conv_depth.bias.fill_(20.0)
+        dino = Path(tmp) / "dinov2_small_depther.pt"
+        torch.save(depther.state_dict(), dino)
+        res = {"kitti_resolution": [KITTI_HW[1], KITTI_HW[0]]}
+        ds = KITTIDataset(data.parent, "val", args=res)
+        frames = np.stack([ds[i]["img"] for i in range(len(ds))])
+        gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+        x = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2).float().div(255.0).contiguous()
+        calibrate(gpu.model, x, bn_std=BN_STD_3D)
+        del x
+        exact = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+        exact.model.load_state_dict(gpu.model.state_dict())
+        exact.model.double()  # [val3d]'s reference (the teacher stays float32)
+        common = dict(data=str(data), batch=8, use_dino_depth=True, dino_path=str(dino), **res)
+        reset_launch_counts()
+        # a row's depth is read at its centre's pixel: a centre that moves by rounding across
+        # a pixel edge reads the neighbouring pixel (counted, its depth not held)
+        r = rows_vs_float64(gpu, exact, common, tmp, "dino", KITTI_HW)
+        stats, v = r["held"], r["v"]
+        first = v.timings
+        rate_ds = KITTIDataset(rate_split, "val", args=res)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v(rate_ds, DictLoader(rate_ds, 8, workers=4), save_dir=f"{tmp}/rate")
+        wall = time.perf_counter() - t0
+        launches = dict(launch_counts)
+        if any(launches.values()):
+            raise AssertionError(f"dino-val: hand kernels launched {launches}; the path runs none")
+        t = v.timings
+        if t["images"] != RATE_FRAMES:
+            raise AssertionError(f"dino-val: the rate's val saw {t['images']} frames")
+        teacher = TimedTeacher(v.dino_teacher)
+        xb = torch.from_numpy(frames).cuda().permute(0, 3, 1, 2).float().div(255.0)
+        for _ in range(4):
+            teacher(xb)
+        t_ms = statistics.median(teacher.ms[1:]) if len(teacher.ms) > 1 else float("nan")
+        print(f"[dino-val] YOLOv10-S-3D 1280x384, use_dino_depth with DINOv2-small (384 wide, "
+              f"12 blocks) from {dino.name}: {first['images']} frames, {stats['n_rows']} KITTI rows | "
+              f"the card vs the CPU, the net in float64 on both (held, bars as [val3d]): "
+              + _row_gaps(stats) + f", rows reading a neighbouring depth pixel "
+              f"{stats['n_lookup_flips']} | the card in float32 vs float64 (printed): "
+              + _row_gaps(r["gaps"]) + f", neighbouring depth pixels {r['gaps']['n_lookup_flips']}"
+              f"; CPU took {r['ref_s']:.1f} s; metrics card {r['got']['metrics/3D']:.4g}, CPU "
+              f"{r['want']['metrics/3D']:.4g}")
+        print(f"[dino-val] the rate, a second val of the card's validator (the teacher loaded) "
+              f"over {t['images']} frames, batch 8: {t['images'] / t['total']:.2f} img/s end to end "
+              f"({wall:.2f} s around the call) = loader wait {t['loader'] * 1e3:.1f} ms + device "
+              f"{t['device'] * 1e3:.1f} ms + teacher {t['teacher'] * 1e3:.1f} ms (forward and "
+              f"lookups, host clock) + host rows {t['host'] * 1e3:.1f} ms + evaluator "
+              f"{t['eval'] * 1e3:.1f} ms; the first call's {first['images']} frames took "
+              f"{first['total']:.2f} s (teacher {first['teacher'] * 1e3:.1f} ms with its load from "
+              f"the file, loader {first['loader'] * 1e3:.1f} ms); the teacher's forward alone "
+              f"{t_ms:.2f} device ms a batch of {len(frames)} (CUDA events, reps "
+              f"{', '.join(f'{m:.2f}' for m in teacher.ms)}) ({card})")
+    print(f"[dino-val] phase took {time.perf_counter() - t_phase:.1f} s")
+    return {"stats": stats, "timings": t, "teacher_ms": t_ms}
+
+
+def json3d_tree(root: Path, kind: str, n: int = RATE_FRAMES, n_train: int = JSON3D_FRAMES,
+                n_val: int = JSON3D_VAL, seed: int = 0) -> Path:
+    """A Waymo (1920x1280 frames, P2 ``calib``, ``rotation_y``) or Omni3D
+    (1600x900 frames, ``K``, ``R_cam``) JSON tree of ``n`` JPEG frames written
+    by the port's encoder, each with painted cars at their projected boxes;
+    ``train.json`` holds the first ``n_train`` frames, ``val.json`` the first
+    ``n_val`` and ``rate.json`` all. Returns its data YAML (named for the
+    dataset)."""
+    import numpy as np
+
+    from yolov10_3d_torch.data.image_io import encode_jpeg
+    from yolov10_3d_torch.utils.parity import smooth_images
+
+    rng = np.random.default_rng(seed)
+    (root / "images").mkdir(parents=True)
+    hw = (1280, 1920) if kind == "waymo" else (900, 1600)
+    f, cu, cv = (2000.0, 940.0, 640.0) if kind == "waymo" else (1000.0, 800.0, 450.0)
+    images, anns = [], []
+    small = smooth_images(rng, [(hw[0] // 8, hw[1] // 8)] * n)  # upsampled x8: cheap to make
+    for i, img in enumerate(np.ascontiguousarray(im.repeat(8, 0).repeat(8, 1)) for im in small):
+        for _ in range(3):
+            x, z, ry = float(rng.uniform(-6, 6)), float(rng.uniform(12, 45)), float(
+                rng.uniform(-math.pi, math.pi))
+            h, w, l = 1.6, 1.9, 4.2
+            u, v = f * x / z + cu, f * (1.6 - h / 2) / z + cv
+            bw, bh = f * l / z, f * h / z
+            x1, y1, x2, y2 = u - bw / 2, v - bh / 2, u + bw / 2, v + bh / 2
+            img[max(int(y1), 0):max(int(y2), 0), max(int(x1), 0):max(int(x2), 0)] = \
+                rng.integers(0, 256, 3)
+            if kind == "waymo":
+                anns.append({"id": len(anns), "image_id": i, "category_id": 1,
+                             "bbox": [x1, y1, bw, bh], "translation": [x, 1.6, z],
+                             "dim": [h, w, l], "rotation_y": ry, "num_lidar": 30})
+            else:
+                R = [[math.cos(ry), 0, math.sin(ry)], [0, 1, 0], [-math.sin(ry), 0, math.cos(ry)]]
+                anns.append({"image_id": i, "category_id": 1, "bbox2D_proj": [x1, y1, x2, y2],
+                             "dimensions": [w, h, l], "center_cam": [x, 1.6 - h / 2, z],
+                             "R_cam": R, "lidar_pts": 40, "visibility": 0.9, "truncation": 0.0,
+                             "depth_error": 0.1, "valid3D": True})
+        (root / "images" / f"{i:06d}.jpg").write_bytes(encode_jpeg(img, "pil"))
+        if kind == "waymo":
+            images.append({"id": i, "file_name": f"images/{i:06d}.jpg",
+                           "calib": [[f, 0, cu, 0], [0, f, cv, 0], [0, 0, 1, 0]]})
+        else:
+            images.append({"id": i, "file_path": f"images/{i:06d}.jpg",
+                           "K": [[f, 0, cu], [0, f, cv], [0, 0, 1]]})
+    for split, k in (("train", n_train), ("val", n_val), ("rate", n)):
+        keep = {im["id"] for im in images[:k]}
+        (root / f"{split}.json").write_text(json.dumps({
+            "images": images[:k], "annotations": [a for a in anns if a["image_id"] in keep],
+            "categories": [{"id": 1, "name": "car"}]}))
+    yaml = root / f"{'waymo' if kind == 'waymo' else 'omni3d'}_synthetic.yaml"
+    yaml.write_text(f"path: {root}\ntrain: train.json\nval: val.json\n"
+                    "names:\n  0: Car\n  1: Pedestrian\n  2: Cyclist\n")
+    return yaml
+
+
+def gt_rows(ds) -> dict:
+    """The ground truth of a 3D dataset's written classes as KITTI rows
+    (score 1), keyed as ``Detection3DValidator.results``."""
+    from yolov10_3d_torch.data.kitti_utils import CLS2ID
+
+    rows = {}
+    for item in range(len(ds)):
+        idx = ds.sample_id(item)
+        rows[f"{idx:06d}.txt"] = [[CLS2ID[o.cls_type], o.alpha, *o.box2d, o.h, o.w, o.l, *o.pos,
+                                   o.ry, 1.0] for o in ds.get_label(idx)
+                                  if o.cls_type in ds.writelist]
+    return rows
+
+
+def phase_json3d(card: str) -> dict:
+    """The Waymo and Omni3D datasets on the card: a tree each of RATE_FRAMES
+    JPEG frames (1920x1280 Waymo, 1600x900 Omni3D, written by the port's
+    encoder). YOLOv10-S-3D trains an epoch on JSON3D_FRAMES of them at
+    960x640 (batch 8, amp, the dataset's augmentation): a finite loss. The
+    same seeded net before the epoch, calibrated on the JSON3D_VAL val
+    frames (order-1 outputs, as [val3d]'s and [dino-val]'s nets), is
+    validated on the card and on the CPU with the net in float64: the KITTI
+    rows as ``rows_vs_float64`` holds them, and the fitness (Waymo: the
+    protocol's VEHICLE L2 AP; Omni3D: KITTI AP40) within 1e-6. An untrained net's fitness is 0 on
+    both, which proves nothing, so the ground truth as predictions must
+    score above 0. Then the rate: a second val of the card's validator over
+    all RATE_FRAMES frames. No hand kernel runs on this path."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data.dataset import DictLoader
+    from yolov10_3d_torch.engine.validator3d import build_3d_dataset
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.utils.parity import calibrate
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    res = [JSON3D_HW[1], JSON3D_HW[0]]
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind in ("waymo", "omni3d"):
+            t0 = time.perf_counter()
+            yaml = json3d_tree(Path(tmp) / kind, kind)
+            written = time.perf_counter() - t0
+            model = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            model.train(data=str(yaml), kitti_resolution=res, batch=8, workers=4,
+                        save=False, val=False, epochs=1, amp=True, save_dir=f"{tmp}/{kind}_run")
+            train_s = time.perf_counter() - t0
+            with open(Path(tmp) / f"{kind}_run" / "results.csv") as f:
+                row = next(csv.DictReader(f))
+            if not math.isfinite(float(row["loss"])):
+                raise AssertionError(f"json3d {kind}: loss {row['loss']}")
+            del model
+            torch.cuda.empty_cache()
+            ds = build_3d_dataset(yaml.name, yaml.parent / "val.json", "val",
+                                  {"kitti_resolution": res})
+            frames = np.stack([ds[i]["img"] for i in range(len(ds))])
+            gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+            calibrate(gpu.model, torch.from_numpy(frames).cuda().permute(0, 3, 1, 2).float()
+                      .div(255.0).contiguous(), bn_std=BN_STD_3D)
+            exact = YOLOv10("yolov10s_3D.yaml", device="cpu", seed=0)
+            exact.model.load_state_dict(gpu.model.state_dict())
+            exact.model.double()  # [val3d]'s reference
+            kw = dict(data=str(yaml), batch=8, kitti_resolution=res)
+            r = rows_vs_float64(gpu, exact, kw, tmp, kind)
+            stats, v, got, want = r["held"], r["v"], r["got64"], r["want"]
+            if abs(got["fitness"] - want["fitness"]) > 1e-6 or abs(
+                    r["got"]["fitness"] - want["fitness"]) > 1e-6:
+                raise AssertionError(f"json3d {kind}: fitness card {got['fitness']} (float64), "
+                                     f"{r['got']['fitness']} (float32) vs CPU {want['fitness']}")
+            gt_fit = ds.get_stats(gt_rows(ds), f"{tmp}/{kind}_gt")
+            if not gt_fit > 0:
+                raise AssertionError(f"json3d {kind}: the ground truth as predictions scores "
+                                     f"{gt_fit}")
+            first = v.timings
+            rate_ds = build_3d_dataset(yaml.name, yaml.parent / "rate.json", "val",
+                                       {"kitti_resolution": res})
+            torch.cuda.synchronize()
+            v(rate_ds, DictLoader(rate_ds, 8, workers=4), save_dir=f"{tmp}/{kind}_rate")
+            t = v.timings
+            counts = dict(launch_counts)
+            if any(counts.values()) or t["images"] != RATE_FRAMES:
+                raise AssertionError(f"json3d {kind}: hand kernels launched {counts}, the rate's "
+                                     f"val saw {t['images']} frames")
+            print(f"[json3d] {kind}: {RATE_FRAMES} JPEG frames written in {written:.1f} s; train "
+                  f"1 epoch of {JSON3D_FRAMES} at {res[0]}x{res[1]}, batch 8, amp: {train_s:.1f} s, "
+                  f"loss {float(row['loss']):.5g} | the seeded net, calibrated, on {first['images']} "
+                  f"frames: {stats['n_rows']} rows, the card vs the CPU, the net in float64 on "
+                  f"both (held, bars as [val3d]) {_row_gaps(stats)}; the card in float32 vs "
+                  f"float64 (printed) {_row_gaps(r['gaps'])}; fitness card {got['fitness']:.6g} vs "
+                  f"CPU {want['fitness']:.6g}; the ground truth as predictions {gt_fit:.6g} | the rate, "
+                  f"a second val of the card's validator over {t['images']} frames: "
+                  f"{t['images'] / t['total']:.2f} img/s = loader wait {t['loader'] * 1e3:.0f} ms "
+                  f"+ device {t['device'] * 1e3:.0f} ms + host rows {t['host'] * 1e3:.0f} ms + "
+                  f"evaluator {t['eval'] * 1e3:.0f} ms (the first call's {first['images']} frames: "
+                  f"{first['total']:.2f} s, evaluator {first['eval'] * 1e3:.0f} ms); hand-kernel "
+                  f"launches {counts} ({card})")
+            out[kind] = {"fitness": got["fitness"], "gt_fitness": gt_fit, "train_s": train_s,
+                         "timings": t}
+            del gpu, exact, v, r
+            torch.cuda.empty_cache()
+    print(f"[json3d] phase took {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 CKPT_SET = 64  # [ckpt] trains and [val2d] validates on this many synthetic PNGs
 
 
@@ -4003,6 +4687,19 @@ def main() -> int:
     done("train3d-lockstep, train3d")
     if failed:
         raise AssertionError("; ".join(failed))
+    head3d = phase_head3d_options(card)
+    done("head3d-options")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        data = kitti_tree(Path(tmp) / "kitti", n=TRAIN3D_FRAMES, seg=True)
+        print(f"[distill3d] synthetic KITTI tree: {TRAIN3D_FRAMES} frames 375x1242 with instance "
+              f"masks, written in {time.perf_counter() - t1:.1f} s")
+        phase_distill3d(card, data)
+    done("distill3d")
+    phase_dino_val(card)
+    done("dino-val")
+    phase_json3d(card)
+    done("json3d")
     with tempfile.TemporaryDirectory() as tmp:
         data = synthetic_set(Path(tmp) / "set", n=CKPT_SET, seed=1)
         ckpt = phase_ckpt(card, data)
@@ -4018,8 +4715,8 @@ def main() -> int:
     for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, learn2d):
         for k in KERNELS:
             launches[k] += counts[k]
-    for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too
-        launches[k] += serve3d[k]
+    for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too, with every head option
+        launches[k] += serve3d[k] + head3d["launches"][k]
     for k in SERVER_KERNELS:  # and the server's traffic K1 and the stem
         launches[k] += server[k]
     for k in SOURCES_KERNELS:  # and prediction over files

@@ -307,13 +307,15 @@ def test_yolov10m_3d_two_scales_and_1x1_conv2():
     torch.testing.assert_close(preds[0][0], preds[1][0], rtol=1e-4, atol=1e-4)
 
 
-def test_unported_head_options_raise():
-    """The head options no shipped YAML sets raise; fgdm_predictor is ported
-    (the DepthPredictor, tests/test_torch_train3d.py)."""
+def test_head_options_build_with_their_routes():
+    """Every head option of the v10-3D YAMLs builds (the options no shipped
+    YAML sets were refused until the head ported them; each is held to JAX
+    in tests/test_torch_head3d_options.py): fgdm_predictor holds the
+    DepthPredictor, and only half_channels keeps the sparse route."""
     base = {"channels": {}, "num_scales": 3}
-    V10Detect3d(3, (64, 128, 256), base)
+    assert V10Detect3d(3, (64, 128, 256), base).sparse_ok
     assert hasattr(V10Detect3d(3, (64, 128, 256), {**base, "fgdm_predictor": True}),
                    "fgdm_predictor")
     for key in ("dsconv", "deform", "use_predecessors", "common_head", "half_channels"):
-        with pytest.raises(NotImplementedError, match=f"{key}.*ROADMAP"):
-            V10Detect3d(3, (64, 128, 256), {**base, key: True})
+        head = V10Detect3d(3, (64, 128, 256), {**base, key: True})
+        assert head.sparse_ok == (key == "half_channels"), key

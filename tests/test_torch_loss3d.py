@@ -290,12 +290,29 @@ def test_htl_weights_match_jax():
                                jh.compute_weight(losses[-1], 12), rtol=0, atol=1e-6)
 
 
-def test_distillation_hook_raises():
-    """The loss's distillation hook needs the DINO teacher (item 14)."""
+def test_distillation_hook_adds_dis():
+    """The loss's distillation hook (refused until the DINO teacher was
+    ported): ``distill_fn(preds, batch, aux)`` gets the one2many
+    assignment, its value is the ``dis`` item and adds to the total; a hook
+    that raises stops the loss."""
     maps, batch = _case(2)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        PL.detect3d_loss(*_port(maps, batch), nc=NC, strides=STRIDES, hyp=HYP,
-                         distill_fn=lambda *a: 0.0)
+    preds, pbatch = _port(maps, batch)
+    total, items = PL.detect3d_loss(preds, pbatch, nc=NC, strides=STRIDES, hyp=HYP)
+    seen = {}
+
+    def hook(p, b, aux):
+        seen.update(aux)
+        return torch.tensor(0.25)
+
+    total_d, items_d = PL.detect3d_loss(preds, pbatch, nc=NC, strides=STRIDES, hyp=HYP,
+                                        distill_fn=hook)
+    assert float(items_d["dis"]) == 0.25 and float(total_d - total) == pytest.approx(0.25)
+    assert set(seen) == {"fg_mask", "target_gt_idx"}
+    anchors = sum(m.shape[2] * m.shape[3] for m in preds["one2many"])
+    assert seen["fg_mask"].shape == seen["target_gt_idx"].shape == (2, anchors)
+    with pytest.raises(ValueError, match="no teacher"):
+        PL.detect3d_loss(preds, pbatch, nc=NC, strides=STRIDES, hyp=HYP,
+                         distill_fn=lambda *a: (_ for _ in ()).throw(ValueError("no teacher")))
 
 
 def test_fgdm_term_in_detect3d_loss_matches_jax():

@@ -316,13 +316,46 @@ def test_train3d_needs_a_card_unless_cpu_is_asked(kitti, monkeypatch):
 
 
 @pytest.mark.parametrize("option,item", [
-    ({"distillation": True}, "item 14"), ({"fgdm_supervision": True}, "item 14"),
-    ({"dino_path": "dino.pt"}, "item 14"), ({"rect": True}, "item 9e"),
-    ({"multi_scale": True}, "item 9e"), ({"cache": "ram"}, "item 9e"),
-    ({"device": "0,1"}, "item 9g"), ({"data": "waymo.yaml"}, "item 11b"),
-    ({"data": "omni3d.yaml"}, "item 11b"),
+    ({"rect": True}, "item 9e"), ({"multi_scale": True}, "item 9e"),
+    ({"cache": "ram"}, "item 9e"), ({"device": "0,1"}, "item 9g"),
 ])
 def test_unported_train3d_options_raise(kitti, option, item):
     args = {"data": str(kitti), "save": False, **option}
     with pytest.raises(NotImplementedError, match=item):
         YOLOv10("yolov10n_3D.yaml", device="cpu").train(**args)
+
+
+@pytest.mark.parametrize("option", [
+    {"distillation": True}, {"fgdm_supervision": True}, {"dino_path": "dino.pt"},
+])
+def test_distillation_without_teacher_warns(kitti, option, caplog):
+    """The distillation keys build a trainer (they raised until the DINOv2
+    teacher was ported; tests/test_torch_distill.py holds them to JAX):
+    without a teacher a configured term warns that it is skipped, and a
+    dino_path that no term asks for is not loaded."""
+    from yolov10_3d_torch.engine.trainer3d import Detection3DTrainer
+    from yolov10_3d_torch.nn.build import parse_model_yaml
+
+    trainer = Detection3DTrainer(get_cfg({"data": str(kitti), "save": False, **option,
+                                          "model": "yolov10n_3D.yaml", "device": "cpu"}))
+    with caplog.at_level("WARNING"):
+        trainer.make_loss(parse_model_yaml(PORT_YAML))
+    assert trainer.teacher is None
+    assert ("SKIPPED" in caplog.text) == ("dino_path" not in option)
+
+
+@pytest.mark.parametrize("name", ["waymo.yaml", "omni3d.yaml"])
+def test_json_yaml_opens_its_dataset(kitti, name, tmp_path):
+    """A Waymo or Omni3D data YAML makes the trainer open that JSON dataset
+    (they raised until ported; tests/test_torch_json3d.py holds them to
+    JAX): here it looks for the split's train.json, which is absent."""
+    from yolov10_3d_torch.data.omni3d import Omni3Dataset
+    from yolov10_3d_torch.data.waymo import WaymoDataset
+    from yolov10_3d_torch.engine.trainer3d import Detection3DTrainer
+
+    trainer = Detection3DTrainer(get_cfg({"data": name, "save": False,
+                                          "model": "yolov10n_3D.yaml", "device": "cpu"}))
+    with pytest.raises(FileNotFoundError, match="train.json"):
+        trainer.build_dataset(tmp_path, "train")
+    cls = WaymoDataset if "waymo" in name else Omni3Dataset
+    assert issubclass(cls, TK.KITTIDataset)

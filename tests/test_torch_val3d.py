@@ -162,11 +162,19 @@ def test_facade_val_matches_jax(val3d, tmp_path):
     assert len(list((tmp_path / "preds").glob("*.txt"))) == 4
 
 
-def test_unported_val_paths_raise(val3d, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 14"):
+def test_use_dino_depth_needs_dino_path(val3d):
+    """``use_dino_depth`` (refused until the DINOv2 teacher was ported;
+    tests/test_torch_dino_val.py holds it to JAX) needs ``dino_path``."""
+    with pytest.raises(ValueError, match="dino_path"):
         val3d["port"].val(data=str(val3d["yaml"]), use_dino_depth=True)
+
+
+def test_val_dispatches_by_dataset_and_task(val3d, tmp_path):
+    """The Waymo and Omni3D YAMLs open their JSON datasets (refused until
+    ported; tests/test_torch_json3d.py holds them to JAX; no JSON here), a
+    2D model validates with the 2D validator, and a 3D val refuses a 2D key."""
     for name in ("waymo.yaml", "omni3d.yaml"):
-        with pytest.raises(NotImplementedError, match="11b"):
+        with pytest.raises(FileNotFoundError, match="val.json"):
             TV.build_3d_dataset(name, tmp_path, "val")
     # a 2D model validates with the 2D validator (engine/validator.py)
     from test_torch_augment import make_png_tree

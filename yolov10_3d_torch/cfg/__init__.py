@@ -18,9 +18,10 @@ CFG_DIR = Path(__file__).resolve().parent
 
 # The cfg/default.yaml keys the Predictor and the trainers read, with the JAX
 # defaults. spd_serving (on, as in the JAX package) serves layer 0 through
-# the fused stem kernel (nn/modules.py Conv.fused_stem). The trainers raise
-# on the training options they have not ported (engine/trainer.py,
-# engine/trainer3d.py); the distillation keys are here only to raise.
+# the fused stem kernel (nn/modules.py Conv.fused_stem). The 2D trainer
+# raises on the training options it has not ported (engine/trainer.py); the
+# 3D trainer runs every 3D key here, the distillation and DINOv2 teacher
+# keys included (engine/trainer3d.py, models/dino.py).
 DEFAULTS: Dict[str, Any] = {
     # predict
     "conf": None,

@@ -422,16 +422,18 @@ class KITTIDataset:
     def decode_preds(
         self, preds: np.ndarray, calibs: List[Calibration], im_files: List[str],
         inv_trans: np.ndarray, threshold: float = 0.001, bins: Optional[Dict] = None,
+        centres: Optional[Dict] = None,
     ) -> Dict[str, List]:
         """Top-k predictions (B, K, 37): bbox (4), projected 3D centre (2),
         s3d (3), heading (24), depth, depth uncertainty, raw score logit,
         label -> KITTI rows [cls, alpha, x1, y1, x2, y2, h, w, l, x, y, z,
         ry, score] per image, in the original frame. The score is
         sigmoid(logit) * exp(-uncertainty); rows below ``threshold`` drop.
-        A ``bins`` dict receives each image's heading bin per row."""
+        A ``bins`` dict receives each image's heading bin per row, a
+        ``centres`` dict its projected 3D centre (model-input pixels)."""
         results = {}
         for i in range(preds.shape[0]):
-            rows, row_bins = [], []
+            rows, row_bins, row_centres = [], [], []
             for j in range(preds.shape[1]):
                 p = preds[i, j]
                 score_raw = p[35]
@@ -465,7 +467,10 @@ class KITTIDataset:
                     + s3d.tolist() + loc.tolist() + [ry, score]
                 )
                 row_bins.append(hbin)
+                row_centres.append((float(c3d[0]), float(c3d[1])))
             results[im_files[i]] = rows
             if bins is not None:
                 bins[im_files[i]] = row_bins
+            if centres is not None:
+                centres[im_files[i]] = row_centres
         return results

@@ -3,8 +3,9 @@
 
 ``get_affine_transform`` solves its three-point system in float64 as
 ``cv2.getAffineTransform`` does (the JAX package calls cv2), and returns
-what cv2 returns, bit for bit: a float64 (2, 3) matrix. The Waymo/Omni3D JSON reader
-(``object_from_dict``) is ROADMAP queue 1, item 11b.
+what cv2 returns, bit for bit: a float64 (2, 3) matrix. ``object_from_dict``
+reads one Waymo or Omni3D JSON annotation (``data/waymo.py``,
+``data/omni3d.py``).
 """
 
 from __future__ import annotations
@@ -95,6 +96,51 @@ class Object3d:
         c, s = np.cos(self.ry), np.sin(self.ry)
         R = np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
         return (R @ np.vstack([x, y, z])).T + self.pos
+
+
+def object_from_dict(d: dict, idx: Optional[int] = None) -> Object3d:
+    """A Waymo or Omni3D JSON annotation -> Object3d. Waymo (``rotation_y``
+    set): an xywh ``bbox``, ``translation``, ``dim`` (h, w, l), difficulty
+    from the box (truncation -1: "DontCare"). Omni3D: ``bbox2D_proj``
+    (xyxy), ``dimensions`` (w, h, l), ``center_cam`` moved down by h / 2, the
+    heading the y Euler angle of ``R_cam`` (scipy), and the quality fields
+    the Omni3D dataset filters on."""
+    obj = Object3d.__new__(Object3d)
+    obj.cls_type = d["category"]
+    obj.line_index = idx
+    obj.score = -1.0
+    obj.trucation = -1.0
+    obj.occlusion = -1.0
+    obj.alpha = 0.0
+    if d.get("rotation_y") is not None:  # Waymo
+        box = np.asarray(d["bbox"], np.float32)
+        obj.box2d = np.array([box[0], box[1], box[0] + box[2], box[1] + box[3]], np.float32)
+        obj.pos = np.asarray(d["translation"], np.float32)
+        dim = np.asarray(d["dim"], np.float32)  # h, w, l
+        obj.h, obj.w, obj.l = float(dim[0]), float(dim[1]), float(dim[2])
+        obj.ry = float(d["rotation_y"])
+        obj.level = obj.get_obj_level()
+        obj.num_lidar = d.get("num_lidar", 1)
+    else:  # Omni3D
+        from scipy.spatial.transform import Rotation
+
+        obj.box2d = np.asarray(d["bbox2D_proj"], np.float32)  # xyxy
+        dims = np.asarray(d["dimensions"], np.float32)  # w, h, l
+        obj.w, obj.h, obj.l = float(dims[0]), float(dims[1]), float(dims[2])
+        obj.pos = np.asarray(d["center_cam"], np.float32) + np.array([0, obj.h / 2, 0],
+                                                                     np.float32)
+        obj.ry = float(Rotation.from_matrix(np.asarray(d["R_cam"])).as_euler("xyz")[1])
+        obj.level_str = "UnKnown"
+        obj.level = 4
+        obj.num_lidar = d.get("lidar_pts", 1)
+        obj.behind_camera = d.get("behind_camera", False)
+        obj.visibility = d.get("visibility", -1)
+        obj.truncation = d.get("truncation", 0.0)
+        obj.segmentation_pts = d.get("segmentation_pts", 0)
+        obj.depth_error = d.get("depth_error", 0.0)
+        obj.valid3D = d.get("valid3D", True)
+    obj.dis_to_cam = float(np.linalg.norm(obj.pos))
+    return obj
 
 
 def get_objects_from_label(label_file) -> List[Object3d]:

@@ -14,7 +14,10 @@ weights. A v10-3D YAML (``yolov10s_3D.yaml``) makes a ``detect3d`` model,
 whose Results carry ``boxes3d``; ``.val(data="kitti.yaml")`` gives its
 KITTI AP40 (``engine/validator3d.py``) and ``.train(data="kitti.yaml",
 ...)`` trains it on KITTI's training split with per-epoch AP40 validation
-(``engine/trainer3d.py``).
+(``engine/trainer3d.py``); a Waymo or Omni3D data YAML (``waymo.yaml``, a
+file name with "omni") trains and validates on that JSON dataset, and
+``train(teacher=..., distillation=True)`` or ``dino_path`` adds the DINOv2
+teacher's distillation terms.
 
 ``YOLOv10("x.pt")`` loads the reference's ``.pt`` files as the JAX
 ``Model._load_torch`` does: the plain ``state_dict`` + ``model_yaml`` file
@@ -65,7 +68,7 @@ def _saving_stream(gen, save_kw):
 
 VAL_KEYS = {"detect": ("batch", "conf", "max_det", "imgsz", "save_json_path"),
             "detect3d": ("batch", "save_dir", "conf", "max_det", "use_o2m_depth",
-                         "kitti_resolution", "use_dino_depth")}
+                         "kitti_resolution", "use_dino_depth", "dino_path")}
 
 
 class YOLOv10:
@@ -148,7 +151,10 @@ class YOLOv10:
             self.names = {int(k): v for k, v in dict(names).items()}
 
     def _load_reference_state(self, sd) -> None:
-        sd = {k: (v.detach().float() if v.is_floating_point() else v.detach())
+        # a deformable conv's modulator: the JAX export writes "modulator.conv"
+        # where the reference (and the port) name it "modulator_conv"
+        sd = {k.replace(".modulator.conv.", ".modulator_conv."):
+              (v.detach().float() if v.is_floating_point() else v.detach())
               for k, v in sd.items() if "dfl" not in k and ".o2o_heads." not in k}
         self.model.load_state_dict(sd, strict=True)
 
@@ -189,17 +195,20 @@ class YOLOv10:
 
     __call__ = predict
 
-    def train(self, **kwargs) -> TrainState:
+    def train(self, teacher=None, **kwargs) -> TrainState:
         """Train a fresh model of this YAML with the dataset's nc on this
         facade's device (the JAX ``YOLOv10.train``): 2D detection (the host
         augmentation, or the device's with ``device_aug``), or 3D detection on
-        a KITTI dataset YAML
+        a KITTI, Waymo or Omni3D dataset YAML
         (``Detection3DTrainer``); afterwards the facade serves and validates
-        the EMA weights."""
+        the EMA weights. ``teacher``: the frozen depth teacher of the 3D
+        distillation terms (``Detection3DTrainer.teacher``)."""
         args = get_cfg({**self.overrides, "model": self.model_cfg, "device": str(self.device),
                         **kwargs})
         trainer_cls = Detection3DTrainer if self.task == "detect3d" else DetectionTrainer
         self.trainer = trainer_cls(args)
+        if teacher is not None:
+            self.trainer.teacher = teacher
         state = self.trainer.train()
         self.predictors = {}  # their graphs read the weights that were trained over
         self.model, self.spec = self.trainer.eval_model(), self.trainer.spec
@@ -218,8 +227,10 @@ class YOLOv10:
 
         3D (the JAX ``detect3d`` branch): KITTI AP40 at ``kitti_resolution``
         [W, H] (1280x384), rows written under ``save_dir``, ``max_det`` (50),
-        the one2many depth fusion with ``use_o2m_depth``; ``metrics/3D`` is
-        the fitness (``engine/validator3d.py``)."""
+        the one2many depth fusion with ``use_o2m_depth``, the DINOv2
+        teacher's depths with ``use_dino_depth`` and ``dino_path``;
+        ``metrics/3D`` is the fitness (``engine/validator3d.py``; a Waymo or
+        Omni3D YAML: that dataset's)."""
         unknown = sorted(set(kwargs) - set(VAL_KEYS[self.task]))
         if unknown:
             raise KeyError(f"unknown val keys {unknown}; valid keys: "
@@ -235,8 +246,8 @@ class YOLOv10:
             return self.validator(loader, conf=kwargs.get("conf", 0.001),
                                   max_det=kwargs.get("max_det", 300),
                                   save_json_path=kwargs.get("save_json_path"), dataset=ds)
-        args = {k: kwargs[k] for k in ("kitti_resolution", "use_o2m_depth", "use_dino_depth")
-                if k in kwargs}
+        args = {k: kwargs[k] for k in ("kitti_resolution", "use_o2m_depth", "use_dino_depth",
+                                       "dino_path") if k in kwargs}
         self.validator = Detection3DValidator(self.model, self.spec, args, d["names"])
         ds = build_3d_dataset(data, root, "val", args)
         loader = DictLoader(ds, batch, workers=4)

@@ -19,7 +19,8 @@ of the int8 plan, as the JAX stem does.
 ``k3deep``, static activation scale 8/127; ``nn/quant.py``): the gated convs
 run the int8 kernels K2, K3 and ``int8_conv_f32`` on the card. The 3D task
 ignores it with a warning, as the JAX Predictor does. The 3D head runs its
-sparse top-K patch path while ``max_det <= SPARSE_K`` and densely above.
+sparse top-K patch path while ``max_det <= SPARSE_K`` and its options allow
+it (``V10Detect3d.sparse_ok``), densely otherwise.
 The Predictor holds these settings and passes them with each forward; the
 model is not switched.
 
@@ -196,9 +197,11 @@ class Predictor:
 
     def sparse(self, max_det: int) -> bool:
         """The 3D head's route: sparse while ``max_det <= SPARSE_K`` (the
-        JAX rule); sparse is exact only while the top-k stays within each
-        scale's SPARSE_K candidates (off-candidate regression is zero)."""
-        return max_det <= SPARSE_K
+        JAX rule) and the head's options allow it (``V10Detect3d.sparse_ok``:
+        its standard branches); sparse is exact only while the top-k stays
+        within each scale's SPARSE_K candidates (off-candidate regression is
+        zero)."""
+        return max_det <= SPARSE_K and self.model.model[self.spec.head_index].sparse_ok
 
     def graph_key(self, x: torch.Tensor, max_det: int) -> tuple:
         """Everything that shapes the captured forward of ``x``."""

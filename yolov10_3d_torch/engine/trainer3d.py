@@ -1,22 +1,25 @@
 """3D detection trainer (port of ``yolov10_3d_tpu/engine/trainer3d.py``
 ``Detection3DTrainer``).
 
-KITTI's training split (flip, crop and mixup on the host, optional FGDM
-depth-map targets) in a seeded shuffled order, the dual 3D loss
-(``train/loss3d.py``: one2many at ``tal_topk``, one2one at top-1), HTL's
-per-epoch loss weights (``htl``), the FGDM loss (``fgdm_loss``, with a
-``fgdm_predictor: true`` model YAML), the 3D head's bias init, a pretrained
-backbone grafted from a ``.ckpt`` or ``.pt`` (``pretrained=path``), KITTI AP40
+The training split of the dataset the data YAML names (KITTI, Waymo or
+Omni3D: flip, crop and mixup on the host, optional FGDM depth-map targets)
+in a seeded shuffled order, the dual 3D loss (``train/loss3d.py``: one2many
+at ``tal_topk``, one2one at top-1), HTL's per-epoch loss weights (``htl``),
+the FGDM loss (``fgdm_loss``, with a ``fgdm_predictor: true`` model YAML),
+the distillation terms of a frozen depth teacher (``distillation``,
+``fgdm_supervision``; the teacher from ``YOLOv10.train(teacher=...)`` or
+the DINOv2 file ``dino_path``), the 3D head's bias init, a pretrained
+backbone grafted from a ``.ckpt`` or ``.pt`` (``pretrained=path``), 3D
 validation of the EMA weights every ``val_period`` epochs (fitness
 ``metrics/3D``), and HTL's state in every checkpoint's meta.
 ``device_aug`` and ``close_mosaic`` do nothing here, as in the JAX trainer:
-the KITTI dataset makes neither tiles nor mosaics. The options not ported
-yet raise ``NotImplementedError`` naming their ROADMAP item.
+the 3D datasets make neither tiles nor mosaics.
 """
 
 from __future__ import annotations
 
 import functools
+import logging
 from pathlib import Path
 from typing import Any, Dict
 
@@ -24,40 +27,32 @@ import numpy as np
 import torch
 
 from ..data.dataset import DictLoader
+from ..models.dino import load_dino_teacher
 from ..nn.heads3d import detect3d_bias_init
+from ..train.distill import supervision_fgdm_loss, supervision_head_loss
 from ..train.fgdm import foreground_depth_map_loss
 from ..train.htl import HierarchicalTaskLearning
 from ..train.loss3d import ITEM_KEYS, detect3d_loss
 from ..train.state import TrainState
 from ..utils.weights import graft_backbone
-from .trainer import DetectionTrainer, _not_ported
+from .trainer import DetectionTrainer
 from .validator3d import Detection3DValidator, build_3d_dataset
 
+LOGGER = logging.getLogger(__name__)
 # keys of a KITTI item that the loss does not read and the step never sees
 HOST_KEYS = ("img_id", "trans_inv", "ori_shape")
 
 
-def check_ported_3d(args: Dict[str, Any]) -> None:
-    """Raise for every option of the JAX 3D trainer that the port lacks."""
-    for k in ("distillation", "fgdm_supervision", "dino_path"):
-        if args[k]:
-            raise _not_ported(f"{k}={args[k]!r} (the DINO teacher)", "14")
-    data = str(args["data"] or "").lower()
-    if "waymo" in data or "omni" in data:
-        raise _not_ported(f"the Waymo and Omni3D datasets ({args['data']})", "11b")
-
-
 class Detection3DTrainer(DetectionTrainer):
-    """Trains a v10-3D model on a KITTI-family dataset YAML."""
+    """Trains a v10-3D model on a KITTI, Waymo or Omni3D dataset YAML."""
 
     task = "detect3d"
     nhwc = True  # KITTI items are HWC uint8 frames
-    #: a frozen depth teacher for distillation (item 14): setting one raises
+    #: the frozen depth teacher of the distillation terms: a callable
+    #: imgs (B, 3, H, W) float [0, 1] on the trainer's device -> embeddings
+    #: (B, C, Ht, Wt), or (depth, embeddings) as ``models/dino.py``'s teacher
+    #: returns; set it before ``train()``, or let ``dino_path`` load one
     teacher = None
-
-    def __init__(self, args: Dict[str, Any]):
-        check_ported_3d(args)
-        super().__init__(args)
 
     def init_params(self, model, spec) -> None:
         """The 3D head's bias init; with ``pretrained=<.ckpt or .pt>``,
@@ -82,8 +77,11 @@ class Detection3DTrainer(DetectionTrainer):
         return None
 
     def make_loss(self, spec):
-        if self.teacher is not None:
-            raise _not_ported("a distillation teacher", "14")
+        """The dual 3D loss with the FGDM term (``fgdm_loss``) and the
+        distillation terms (``distillation``: the depth-branch embeddings at
+        the assigned ground truths; ``fgdm_supervision``: the FGDM
+        embeddings on foreground pixels), summed into ``dis``. Without a
+        teacher the distillation terms are skipped with a warning."""
         hyp = dict(self.args)
         fgdm_loss_fn = None
         if hyp.get("fgdm_loss"):
@@ -92,14 +90,59 @@ class Detection3DTrainer(DetectionTrainer):
                 depth_min=float(hyp.get("min_depth_threshold", 1.0)),
                 depth_max=float(hyp.get("max_depth_threshold", 120.0)))
 
+        distilling = hyp.get("distillation") or hyp.get("fgdm_supervision")
+        if distilling and self.teacher is None and hyp.get("dino_path"):
+            self.teacher = load_dino_teacher(str(hyp["dino_path"]), device=self.device)
+        if distilling and self.teacher is None:
+            LOGGER.warning(
+                "distillation/fgdm_supervision configured but no teacher is set: pass "
+                "YOLOv10.train(teacher=...), set trainer.teacher, or point dino_path at a "
+                "saved DINOv2 state dict; the distillation terms are SKIPPED this run")
+        crit = dict(criterion=str(hyp.get("distillation_loss", "soft")),
+                    T=float(hyp.get("distillation_temp", 2.0)))
+        parts = []
+        if hyp.get("distillation") and self.teacher is not None:
+            def head_distill(preds, batch, aux):
+                embs = [e for e in preds["o2m_embs"] if e is not None]
+                if not embs:
+                    raise ValueError(
+                        "distillation=True needs depth-branch embeddings, but this head "
+                        "config exposes none (common_head: true skips them; use the "
+                        "standard per-branch head)")
+                pred_emb = torch.cat([e.flatten(2).transpose(1, 2) for e in embs], 1)
+                h, w = batch["img"].shape[1], batch["img"].shape[2]  # NHWC frames
+                return supervision_head_loss(
+                    batch["teacher_embeddings"], pred_emb, batch["gt_center_3d"],
+                    aux["target_gt_idx"], aux["fg_mask"], batch["mask_gt"], batch["mixed"],
+                    (h, w), weight=float(hyp.get("distillation_weight", 0.75)),
+                    no_mixup=bool(hyp.get("distillation_no_mixup", True)), **crit)
+
+            parts.append(head_distill)
+        if hyp.get("fgdm_supervision") and self.teacher is not None:
+            def fgdm_supervision(preds, batch, aux):
+                if "depth_maps" not in preds:
+                    raise ValueError("fgdm_supervision=True requires fgdm_predictor: true in "
+                                     "the model yaml (no depth_maps in the head output)")
+                return supervision_fgdm_loss(
+                    batch["teacher_embeddings"], preds["depth_maps"][2], batch["depth_map"],
+                    weight=float(hyp.get("fgdm_supervision_weight", 1.0) or 1.0), **crit)
+
+            parts.append(fgdm_supervision)
+        distill_fn = None
+        if parts:
+            def distill_fn(preds, batch, aux):
+                return sum(f(preds, batch, aux) for f in parts)
+
         def loss_fn(preds, batch):
             return detect3d_loss(preds, batch, nc=spec.nc, strides=spec.strides, hyp=hyp,
-                                 fgdm_loss_fn=fgdm_loss_fn)
+                                 fgdm_loss_fn=fgdm_loss_fn, distill_fn=distill_fn)
 
         return loss_fn
 
     def to_device(self, batch: Dict[str, Any]) -> Dict[str, torch.Tensor]:
-        """The batch's arrays on the device, the frames through pinned memory."""
+        """The batch's arrays on the device, the frames through pinned memory;
+        with a teacher, its embeddings of the frames already there
+        (``teacher_embeddings``)."""
         out = {}
         for k, v in batch.items():
             if k in HOST_KEYS:
@@ -108,6 +151,9 @@ class Detection3DTrainer(DetectionTrainer):
             if self.device.type == "cuda" and k == "img":
                 t = t.pin_memory()
             out[k] = t.to(self.device, non_blocking=True)
+        if self.teacher is not None:
+            emb = self.teacher(out["img"].permute(0, 3, 1, 2).float().div(255.0))
+            out["teacher_embeddings"] = emb[-1] if isinstance(emb, (tuple, list)) else emb
         return out
 
     # -- HTL: per-epoch loss weights from the epoch means so far --
@@ -143,9 +189,10 @@ class Detection3DTrainer(DetectionTrainer):
             self._htl_epoch = getattr(self, "_htl_epoch", 0) + 1
             self._htl_weights = self._htl.compute_weight(vec, self._htl_epoch)
 
-    # -- per-epoch KITTI AP40 of the EMA weights --
+    # -- per-epoch 3D validation of the EMA weights --
     def get_validator(self, model, names):
-        args = {k: self.args[k] for k in ("kitti_resolution", "use_o2m_depth", "use_dino_depth")}
+        args = {k: self.args[k] for k in ("kitti_resolution", "use_o2m_depth", "use_dino_depth",
+                                          "dino_path")}
         return Detection3DValidator(model, self.spec, args, names)
 
     def run_val(self, state: TrainState, val_ds, batch_size: int) -> Dict[str, Any]:

@@ -1,5 +1,6 @@
 """3D detection validator (port of ``yolov10_3d_tpu/engine/validator3d.py``):
-KITTI AP40 of a YOLOv10-3D model.
+KITTI AP40 of a YOLOv10-3D model (on a Waymo or Omni3D dataset, that
+dataset's own fitness: ``get_stats``).
 
 Per batch: one host-to-device copy of the uint8 frames, the forward, the 3D
 decode and the top-k on the model's device under ``torch.inference_mode``,
@@ -9,10 +10,14 @@ depth-uncertainty factor itself, so the Predictor's forward, which returns
 sigmoid scores, is not reused). On the host: the optional one2many depth
 fusion, the KITTI rows in the original frame, the 2D mAP bookkeeping; after
 the last batch the rows are written as KITTI text files and the AP40
-evaluator runs. Fitness is 3D AP40, moderate, at IoU 0.7.
+evaluator runs. Fitness is 3D AP40, moderate, at IoU 0.7. With
+``use_dino_depth`` (and the one2many fusion off) each row's depth is the
+frozen DINOv2 teacher's (``dino_path``, ``models/dino.py``), run on the
+model's device on the batch's frames.
 
 The forward's route is the JAX validator's: the sparse one2one head while
-``max_det <= SPARSE_K`` and the one2many depth fusion is off, the dense
+``max_det <= SPARSE_K``, the head's options allow it and the one2many
+depth fusion is off, the dense
 one2one maps otherwise, and with ``use_o2m_depth`` the one2many maps too,
 decoded and cut to ``5 * max_det``. The validator runs no fused serving stem
 and no hand kernel: cuDNN convs (on the card), the plain ``decode_detect3d``
@@ -29,6 +34,7 @@ import torch
 
 from ..data.kitti import KITTIDataset
 from ..eval.kitti_eval import eval_from_scratch
+from ..models.dino import load_dino_teacher
 from ..nn.heads3d import SPARSE_K
 from ..ops.postprocess import decode_detect3d, v10_3d_postprocess
 from ..utils.metrics import DetMetrics, box_iou_np
@@ -88,16 +94,29 @@ def aggregate_o2m_depth(
     return predsO
 
 
+def dino_pixel(centres: np.ndarray, hw) -> Tuple[np.ndarray, np.ndarray]:
+    """The depth-map pixel (row, column) that ``use_dino_depth`` reads for
+    projected 3D centres (..., 2: x, y in model-input pixels) on an (H, W)
+    map: each coordinate truncated to int and clamped to the map."""
+    c = np.asarray(centres)
+    return (np.clip(c[..., 1].astype(np.int64), 0, hw[0] - 1),
+            np.clip(c[..., 0].astype(np.int64), 0, hw[1] - 1))
+
+
 def build_3d_dataset(data_name, path, mode: str, args: Optional[Mapping[str, Any]] = None):
-    """The 3D dataset named by the data YAML's file name: KITTI only."""
+    """The 3D dataset named by the data YAML's file name: KITTI, Waymo or
+    Omni3D (the JAX ``build_3d_dataset``)."""
     name = str(data_name).lower()
-    split = "train" if mode == "train" else "val"
     if "kitti" in name:
-        return KITTIDataset(root=path, split=split, args=args)
-    if "waymo" in name or "omni" in name:
-        raise NotImplementedError(
-            f"the Waymo and Omni3D JSON datasets ({data_name}) are not ported "
-            "(ROADMAP queue 1, item 11b)")
+        return KITTIDataset(root=path, split="train" if mode == "train" else "val", args=args)
+    if "waymo" in name:
+        from ..data.waymo import WaymoDataset
+
+        return WaymoDataset(root=path, split=mode, args=args)
+    if "omni" in name:
+        from ..data.omni3d import Omni3Dataset
+
+        return Omni3Dataset(root=path, split=mode, args=args)
     raise ValueError(f"unknown 3D dataset for {data_name!r}")
 
 
@@ -107,15 +126,14 @@ class Detection3DValidator:
     After a call, ``results`` holds the KITTI rows per image file (before the
     text formatting), ``bins`` their heading bins, ``table`` the AP40 tables of ``eval_from_scratch`` and
     ``timings`` the seconds spent waiting on the loader, on the device
-    (forward + decode + top-k; CUDA events on the card), on the host rows
-    (one2many fusion, ``decode_preds``, 2D metrics, ``save_results``) and in
-    ``eval_from_scratch``, with the total and the image count."""
+    (forward + decode + top-k; CUDA events on the card), in the DINOv2
+    teacher (``use_dino_depth``: its forward and the depth lookup), on the
+    host rows (one2many fusion, ``decode_preds``, 2D metrics,
+    ``save_results``) and in ``eval_from_scratch`` (or a Waymo or Omni3D
+    dataset's ``get_stats``), with the total and the image count."""
 
     def __init__(self, model, spec, args: Optional[Mapping[str, Any]] = None, names=None):
         self.args = dict(args or {})
-        if self.args.get("use_dino_depth"):
-            raise NotImplementedError("use_dino_depth (the DINOv2 depth teacher) is not "
-                                      "ported (ROADMAP queue 1, item 14)")
         if spec.head_module != "v10Detect3d":
             raise ValueError(f"the 3D validator needs a v10Detect3d head, not {spec.head_module}")
         self.model = model.eval()
@@ -125,15 +143,37 @@ class Detection3DValidator:
         self.dtype = next(model.parameters()).dtype  # float32; float64 for a reference run
         self.results: Dict[str, List] = {}
         self.bins: Dict[str, List[int]] = {}
+        self.centres: Dict[str, List[Tuple[float, float]]] = {}
         self.table: Dict[str, Tuple[float, float, float]] = {}
         self.timings: Dict[str, float] = {}
+        self.dino_teacher = None  # loaded from dino_path at the first use_dino_depth batch
 
-    @staticmethod
-    def route(max_det: int, with_o2m: bool) -> str:
-        """The head's route for these settings: "sparse", "dense" or "dense+o2m"."""
+    def route(self, max_det: int, with_o2m: bool) -> str:
+        """The head's route for these settings: "sparse" (``max_det <=
+        SPARSE_K`` and a head whose options allow it), "dense" or "dense+o2m"."""
         if with_o2m:
             return "dense+o2m"
-        return "sparse" if max_det <= SPARSE_K else "dense"
+        head = self.model.model[self.spec.head_index]
+        return "sparse" if max_det <= SPARSE_K and head.sparse_ok else "dense"
+
+    def dino_depth(self, preds: np.ndarray, img: np.ndarray) -> np.ndarray:
+        """``use_dino_depth``: each row's depth (column 33) replaced by the
+        frozen DINOv2 teacher's depth map of the frames at the row's
+        projected centre (columns 4:6, model-input pixels, truncated to int
+        and clamped to the map). The teacher (``dino_path``) runs on the
+        model's device."""
+        if self.dino_teacher is None:
+            path = self.args.get("dino_path")
+            if not path:
+                raise ValueError("use_dino_depth=True requires dino_path to point at a saved "
+                                 "DinoDepther/dinov2 state dict")
+            self.dino_teacher = load_dino_teacher(str(path), device=self.device)
+        x = torch.from_numpy(np.ascontiguousarray(img)).to(self.device)
+        depth_maps = self.dino_teacher(x.permute(0, 3, 1, 2).float().div(255.0))[0].cpu().numpy()
+        preds = preds.copy()
+        cy, cx = dino_pixel(preds[..., 4:6], depth_maps.shape[1:])
+        preds[..., 33] = depth_maps[np.arange(preds.shape[0])[:, None], cy, cx]
+        return preds
 
     @torch.inference_mode()
     def _forward(self, img: np.ndarray, max_det: int, with_o2m: bool
@@ -177,11 +217,13 @@ class Detection3DValidator:
         """``dataloader`` yields dict batches of ``dataset`` items (img,
         img_id, trans_inv, gt_bboxes, gt_labels, mask_gt, ...)."""
         use_o2m_depth = use_o2m_depth or bool(self.args.get("use_o2m_depth", False))
+        use_dino_depth = bool(self.args.get("use_dino_depth", False))
         max_det = int(max_det)
         metrics2d = DetMetrics(nc=self.spec.nc, names=self.names)
         all_results: Dict[str, List] = {}
         all_bins: Dict[str, List[int]] = {}
-        t = dict.fromkeys(("loader", "device", "host", "eval"), 0.0)
+        all_centres: Dict[str, List[Tuple[float, float]]] = {}
+        t = dict.fromkeys(("loader", "device", "teacher", "host", "eval"), 0.0)
         n_images = 0
         t_start = time.perf_counter()
         batches = iter(dataloader)
@@ -199,12 +241,18 @@ class Detection3DValidator:
             if use_o2m_depth:
                 preds = aggregate_o2m_depth(preds, predsM)
                 reg = preds[..., :35]
+            elif use_dino_depth:  # as JAX: the teacher's depth only without the o2m fusion
+                t1 = time.perf_counter()
+                preds = self.dino_depth(preds, img)
+                reg = preds[..., :35]
+                t["teacher"] += time.perf_counter() - t1
+                t0 += time.perf_counter() - t1  # the host rows' clock skips the teacher
             img_ids = np.asarray(batch["img_id"]).reshape(-1)
             calibs = [dataset.get_calib(int(i)) for i in img_ids]
             im_files = [f"{int(i):06d}.txt" for i in img_ids]
             all_results.update(dataset.decode_preds(
                 preds, calibs, im_files, np.asarray(batch["trans_inv"]),
-                threshold=conf_threshold, bins=all_bins))
+                threshold=conf_threshold, bins=all_bins, centres=all_centres))
 
             # 2D mAP in the model frame
             B, H, W = img.shape[:3]
@@ -226,15 +274,20 @@ class Detection3DValidator:
             n_images += B
             t["host"] += time.perf_counter() - t0
 
-        # dataset.get_stats, in two timed steps
-        t0 = time.perf_counter()
-        pred_dir = dataset.save_results(all_results, save_dir)
-        t["host"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        self.table = eval_from_scratch(str(dataset.label_dir), pred_dir, ap_mode=40)
-        t["eval"] = time.perf_counter() - t0
-        ap3d_moderate = self.table["3d@0.70"][1]
-        self.results, self.bins = all_results, all_bins
+        if dataset.label_dir is not None:  # KITTI: dataset.get_stats in two timed steps
+            t0 = time.perf_counter()
+            pred_dir = dataset.save_results(all_results, save_dir)
+            t["host"] += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.table = eval_from_scratch(str(dataset.label_dir), pred_dir, ap_mode=40)
+            t["eval"] = time.perf_counter() - t0
+            ap3d_moderate = self.table["3d@0.70"][1]
+        else:  # Waymo, Omni3D: their own fitness (the ground truth written from the JSON)
+            t0 = time.perf_counter()
+            ap3d_moderate = dataset.get_stats(all_results, save_dir)
+            t["eval"] = time.perf_counter() - t0
+            self.table = dataset.table
+        self.results, self.bins, self.centres = all_results, all_bins, all_centres
         self.timings = {**t, "total": time.perf_counter() - t_start, "images": n_images}
 
         out = metrics2d.results()

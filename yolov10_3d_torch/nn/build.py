@@ -294,7 +294,8 @@ class YOLOModel(nn.Module):
 
 def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded random weights: conv kernels ~ N(0, 1/fan_in) (the variance of
-    flax's lecun_normal), conv biases 0, BN identity statistics."""
+    flax's lecun_normal), conv biases 0, BN identity statistics; a deformable
+    conv's offset and modulator convs zero, as flax initialises them."""
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, nn.Conv2d):
@@ -306,6 +307,9 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
                     m.bias.zero_()
             elif isinstance(m, nn.BatchNorm2d):
                 m.reset_parameters()
+        for m in model.modules():
+            if isinstance(m, M.DeformableConv2d):
+                m.reset_offsets()
     return model
 
 

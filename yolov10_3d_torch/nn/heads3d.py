@@ -18,6 +18,24 @@ detections equal the dense forward's: the candidates' values differ only by
 float reassociation, and the decode's top-k can only pick candidate anchors.
 A scale runs sparse only when 2 * K * k2^2 < H * W.
 
+The YAML options of the JAX head (``nn/heads3d.py:69-155``):
+``dsconv`` makes each branch's two convs depthwise-separable (a depthwise
+conv, then a 1x1); ``use_predecessors`` feeds each branch the detached
+outputs of the branches before it (``PREDECESSORS``, ``dep`` divided by
+``DEP_NORM``); ``common_head`` runs one shared 3x3 conv per scale before
+shorter branches [Conv(k1), 1x1]; ``half_channels`` halves the second conv's
+width; ``deform`` makes each branch's first conv a modulated deformable conv
+(``nn/modules.py`` ``DeformableConv2d``). The sparse path serves the
+standard branches only: with ``dsconv``, ``use_predecessors``,
+``common_head`` or ``deform`` a sparse request runs the dense head
+(``sparse_ok``), whose maps it then equals exactly; ``half_channels`` stays
+sparse.
+
+The full output (training, or ``one2many``) also carries the ``dep``
+branches' first-conv outputs per scale, ``o2m_embs`` and ``o2o_embs``, the
+student side of the distillation losses (``train/distill.py``); a
+``common_head`` head has none (None per scale), nor has the sparse path.
+
 With ``fgdm_predictor: true`` the head also holds a ``DepthPredictor`` (the
 foreground depth map of the FGDM loss), whose output the training forward
 returns as ``depth_maps``. ``detect3d_bias_init`` is the 3D trainer's head
@@ -27,7 +45,7 @@ initialisation.
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,15 +60,10 @@ OUTPUT_CHANNELS = {"cls": None, "o2d": 2, "s2d": 2, "o3d": 2, "s3d": 3, "hd": 24
 BRANCHES = tuple(OUTPUT_CHANNELS)
 SPARSE_K = 50  # per-scale candidates of the sparse path (the reference's top-50)
 
-# YAML options of the 3D head that the port does not build yet, each with
-# the ROADMAP item that ports it; the shipped YAMLs set them all off.
-UNPORTED_OPTIONS = {
-    "dsconv": "queue 1, item 10a (depthwise-separable branches)",
-    "deform": "queue 1, item 13 (DCNv2, ops/deform.py)",
-    "use_predecessors": "queue 1, item 10a (predecessor chaining)",
-    "common_head": "queue 1, item 10a (shared common conv)",
-    "half_channels": "queue 1, item 10a (half-width conv2)",
-}
+# the branches whose outputs each branch also reads under use_predecessors
+PREDECESSORS = {"cls": [], "o2d": [], "s2d": [], "o3d": ["cls"], "s3d": ["cls"], "hd": ["cls"],
+                "dep": ["cls", "s3d"], "dep_un": ["cls", "s3d", "dep"]}
+DEP_NORM = 65.0  # the dep output's scale where a later branch reads it
 
 
 def candidates(cls_map: torch.Tensor, k: int) -> torch.Tensor:
@@ -61,8 +74,20 @@ def candidates(cls_map: torch.Tensor, k: int) -> torch.Tensor:
     return topk_lowest_index(cls_map.amax(1).flatten(1), k)[1]
 
 
-def _branch(c_in: int, mid: int, out: int, k1: int, k2: int) -> nn.Sequential:
-    return nn.Sequential(Conv(c_in, mid, k1), Conv(mid, mid, k2), nn.Conv2d(mid, out, 1))
+def _branch(c_in: int, mid: int, mid2: int, out: int, k1: int, k2: int, dsconv: bool,
+            common: bool, deform: bool) -> nn.Sequential:
+    """One branch at one scale: [Conv(k1), Conv(k2), 1x1 conv] (the deform
+    option on the first conv); depthwise-separable pairs under ``dsconv``;
+    [Conv(k1), 1x1 conv] after a common conv."""
+    if common:
+        return nn.Sequential(Conv(c_in, mid, k1), nn.Conv2d(mid, out, 1))
+    if dsconv:
+        return nn.Sequential(
+            nn.Sequential(Conv(c_in, c_in, k1, g=c_in, deform=deform), Conv(c_in, mid, 1)),
+            nn.Sequential(Conv(mid, mid, k2, g=mid), Conv(mid, mid2, 1)),
+            nn.Conv2d(mid2, out, 1))
+    return nn.Sequential(Conv(c_in, mid, k1, deform=deform), Conv(mid, mid2, k2),
+                         nn.Conv2d(mid2, out, 1))
 
 
 class V10Detect3d(nn.Module):
@@ -72,11 +97,13 @@ class V10Detect3d(nn.Module):
     def __init__(self, nc: int, ch: Sequence[int], cfg: Dict = None):
         super().__init__()
         cfg = dict(cfg or {})
-        for key, item in UNPORTED_OPTIONS.items():
-            if cfg.get(key):
-                raise NotImplementedError(f"v10Detect3d option {key}={cfg[key]!r} is not ported "
-                                          f"(ROADMAP {item})")
         self.nc = nc
+        dsconv, deform = bool(cfg.get("dsconv")), bool(cfg.get("deform"))
+        self.use_predecessors = bool(cfg.get("use_predecessors"))
+        self.common_head = bool(cfg.get("common_head"))
+        # the sparse path's envelope: the standard branches (JAX :388-395, and
+        # dsconv's per-scale dense fallback at every scale, :202-228)
+        self.sparse_ok = not (dsconv or deform or self.use_predecessors or self.common_head)
         self.k1 = int(cfg.get("kernel_size_1") or 3)
         self.k2 = int(cfg.get("kernel_size_2") or 3)
         self.nl = int(cfg.get("num_scales") or len(ch))
@@ -86,20 +113,48 @@ class V10Detect3d(nn.Module):
 
         def branch(name):
             mid = int(channels.get(f"{name}_c", 128))
-            return nn.ModuleList(_branch(c, mid, out_ch[name], self.k1, self.k2) for c in ch)
+            mid2 = mid // 2 if cfg.get("half_channels") else mid
+            # every branch's input width, the predecessors' outputs included
+            extra = sum(out_ch[p] for p in PREDECESSORS[name]) if self.use_predecessors else 0
+            return nn.ModuleList(
+                _branch(c + extra, mid, mid2, out_ch[name], self.k1, self.k2, dsconv,
+                        self.common_head, deform) for c in ch)
 
         for name in BRANCHES:
             self.add_module(name, branch(name))
         self.o2m_heads = nn.ModuleList(branch(name) for name in BRANCHES)
+        if self.common_head:
+            self.common = nn.ModuleList(
+                nn.Sequential(Conv(c, c, 3, g=c), Conv(c, c, 1)) if dsconv else Conv(c, c, 3)
+                for c in ch)
         if cfg.get("fgdm_predictor"):
             self.fgdm_predictor = DepthPredictor(ch)
 
     def o2o_heads(self) -> List[nn.ModuleList]:
         return [getattr(self, name) for name in BRANCHES]
 
-    def _forward_feat(self, xs, heads) -> List[torch.Tensor]:
-        """All eight branches densely at every scale."""
-        return [torch.cat([run(h[i], x, None) for h in heads], 1) for i, x in enumerate(xs)]
+    def _forward_feat(self, xs, heads) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+        """All eight branches densely at every scale -> (maps, the dep
+        branch's first-conv outputs, None under common_head)."""
+        ys, embs = [], []
+        for i, x in enumerate(xs):
+            if self.common_head:
+                x = run(self.common[i], x, None)
+            outputs, emb = {}, None
+            for name, h in zip(BRANCHES, heads):
+                mods, inp = h[i], x
+                if self.use_predecessors and PREDECESSORS[name]:
+                    preds = [outputs[k] / DEP_NORM if k == "dep" else outputs[k]
+                             for k in PREDECESSORS[name]]
+                    inp = torch.cat([x] + [p.detach() for p in preds], 1)
+                if name == "dep" and not self.common_head:
+                    emb = run(mods[0], inp, None)
+                    outputs[name] = run(mods[1:], emb, None)
+                else:
+                    outputs[name] = run(mods, inp, None)
+            ys.append(torch.cat([outputs[n] for n in BRANCHES], 1))
+            embs.append(emb)
+        return ys, embs
 
     def _sparse_forward_feat(self, xs, heads) -> List[torch.Tensor]:
         ys = []
@@ -167,24 +222,27 @@ class V10Detect3d(nn.Module):
         return torch.cat(outs, -1).reshape(B, K, -1)
 
     def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True,
-                sparse: bool = False) -> Dict[str, List[torch.Tensor]]:
+                sparse: bool = False) -> Dict[str, List]:
         """``one2many=False``: the serving output {"one2one": maps}; with
         ``sparse`` the one-to-one regression branches run on the top-K
-        patches (eval only). Otherwise {"one2many", "one2one"} maps, and
-        with a DepthPredictor its (logits, depth, embeddings) as
-        ``depth_maps``."""
+        patches (eval only; outside ``sparse_ok`` the dense head runs).
+        Otherwise {"one2many", "one2one"} maps, the dep embeddings
+        {"o2m_embs", "o2o_embs"}, and with a DepthPredictor its (logits,
+        depth, embeddings) as ``depth_maps``."""
         xs = list(xs[: self.nl])
         # the one-to-one branches train on detached features (JAX's stop_gradient)
         xs_det = [x.detach() for x in xs]
-        if sparse:
-            if self.training:
-                raise ValueError("the sparse 3D head serves eval only")
-            one2one = self._sparse_forward_feat(xs_det, self.o2o_heads())
+        if sparse and self.training:
+            raise ValueError("the sparse 3D head serves eval only")
+        if sparse and self.sparse_ok:
+            one2one, o2o_embs = self._sparse_forward_feat(xs_det, self.o2o_heads()), [None] * len(xs)
         else:
-            one2one = self._forward_feat(xs_det, self.o2o_heads())
+            one2one, o2o_embs = self._forward_feat(xs_det, self.o2o_heads())
         if not one2many:
             return {"one2one": one2one}
-        out = {"one2many": self._forward_feat(xs, list(self.o2m_heads)), "one2one": one2one}
+        one2many_maps, o2m_embs = self._forward_feat(xs, list(self.o2m_heads))
+        out = {"one2many": one2many_maps, "one2one": one2one, "o2m_embs": o2m_embs,
+               "o2o_embs": o2o_embs}
         if hasattr(self, "fgdm_predictor"):
             out["depth_maps"] = self.fgdm_predictor(xs)
         return out
@@ -255,7 +313,7 @@ def detect3d_bias_init(head: V10Detect3d, nc: int, strides: Sequence[int],
         conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
 
     for i, s in enumerate(strides):
-        final = {name: getattr(head, name)[i][2] for name in BRANCHES}
+        final = {name: getattr(head, name)[i][-1] for name in BRANCHES}
         final["cls"].bias.fill_(math.log(5 / nc / ((1280 / s) * (384 / s))))
         final["s2d"].bias.fill_(6.0)
         for name in ("o2d", "o3d", "s3d"):

@@ -19,6 +19,9 @@ PSA and the head's box branches) ever see them.
 ``Conv.fused_stem`` is the serving route of layer 0 (``spd_serving``): the
 whole Conv + BatchNorm + SiLU in one launch of the stem kernel
 (``kernels/stem.py``), with the BatchNorm folded into the weights.
+
+``Conv(..., deform=True)`` (the 3D head's ``deform`` option) convolves with
+``DeformableConv2d``, a modulated deformable conv (``ops/deform.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.stem import fold_bn, stem_conv
+from ..ops.deform import deform_conv2d
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum == 1 - flax keep-fraction (0.97)
@@ -54,16 +58,52 @@ def run(m: nn.Module, x, plan):
     return m(x) if isinstance(m, nn.Conv2d) else m(x, plan)
 
 
+class DeformableConv2d(nn.Module):
+    """Modulated deformable conv v2 (the JAX ``DeformableConv2d``): the
+    offsets (2 k^2 channels) and the modulator (k^2 channels, through
+    2 * sigmoid) come from convs with biases and zero initial weights, so
+    the layer starts as the plain conv of ``regular_conv``'s weight. Child
+    names are the reference's; the JAX package's ``.pt`` export spells the
+    modulator ``modulator.conv`` (``utils/weights.py``)."""
+
+    def __init__(self, c1: int, c2: int, k: int = 3, s: int = 1, p: int = 1):
+        super().__init__()
+        self.stride, self.padding = (s, s), (p, p)
+        self.offset_conv = nn.Conv2d(c1, 2 * k * k, k, s, p, bias=True)
+        self.modulator_conv = nn.Conv2d(c1, k * k, k, s, p, bias=True)
+        self.regular_conv = nn.Conv2d(c1, c2, k, s, p, bias=False)
+        self.reset_offsets()
+
+    @torch.no_grad()
+    def reset_offsets(self) -> None:
+        """Zero the offset and modulator convs (the layer's initial state)."""
+        for m in (self.offset_conv, self.modulator_conv):
+            m.weight.zero_()
+            m.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        offset = self.offset_conv(x)
+        modulator = 2.0 * torch.sigmoid(self.modulator_conv(x))
+        return deform_conv2d(x, offset, modulator, self.regular_conv.weight, None,
+                             stride=self.stride, padding=self.padding)
+
+
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU; ``g`` groups (depthwise at g == c1).
+    ``deform`` convolves with a ``DeformableConv2d`` instead, which ignores
+    ``g`` and ``d`` as the JAX Conv does.
     ``int8_cache`` holds the int8 weights of int8 serving (``nn/quant.py``),
     ``stem_cache`` the folded weights of ``fused_stem``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
-                 p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True):
+                 p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True,
+                 deform: bool = False):
         super().__init__()
-        self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d,
-                              groups=g, bias=False)
+        if deform:
+            self.conv = DeformableConv2d(c1, c2, k, s, autopad(k, p, d))
+        else:
+            self.conv = nn.Conv2d(c1, c2, k, s, autopad(k, p, d), dilation=d,
+                                  groups=g, bias=False)
         self.bn = nn.BatchNorm2d(c2, eps=BN_EPS, momentum=BN_MOMENTUM)
         self.act = nn.SiLU() if act is True else nn.Identity()
         self.int8_cache = None

@@ -155,17 +155,17 @@ def detect3d_loss(
     distill_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Dual-branch 3D loss: the one2many branch at ``tal_topk`` plus the
-    one2one branch at top-1, and the foreground depth-map loss when
-    ``fgdm_loss_fn`` is given and the head returns depth maps.
+    one2one branch at top-1, the foreground depth-map loss when
+    ``fgdm_loss_fn`` is given and the head returns depth maps, and
+    ``distill_fn(preds, batch, aux)`` (the one2many assignment's fg_mask and
+    target_gt_idx in ``aux``) as the ``dis`` term.
 
     With ``batch["htl_weights"]`` (a (12,) vector in ITEM_KEYS order, set per
     epoch by the trainer), the dual-branch total is ``(w * items).sum() * B``.
     """
-    if distill_fn is not None:
-        raise NotImplementedError("distillation (the DINO teacher) is not ported "
-                                  "(ROADMAP queue 1, item 14)")
-    l_m, items_m = dd_detection_loss(preds["one2many"], batch, nc=nc, strides=strides, hyp=hyp,
-                                     tal_topk=int(hyp.get("tal_topk", 8)))
+    l_m, items_m, aux_m = dd_detection_loss(preds["one2many"], batch, nc=nc, strides=strides,
+                                            hyp=hyp, tal_topk=int(hyp.get("tal_topk", 8)),
+                                            return_aux=True)
     l_o, items_o = dd_detection_loss(preds["one2one"], batch, nc=nc, strides=strides, hyp=hyp,
                                      tal_topk=1)
     items = {f"{k}_om": v for k, v in items_m.items()}
@@ -182,4 +182,8 @@ def detect3d_loss(
             "fgdm_loss_weight", 2.0)
         items["fgdm"] = fgdm
         total = total + fgdm
+    if distill_fn is not None:
+        dis = distill_fn(preds, batch, aux_m)
+        items["dis"] = dis
+        total = total + dis
     return total, items

@@ -257,7 +257,10 @@ def _wrap(a: np.ndarray) -> np.ndarray:
 def compare_kitti_rows(ref: Dict[str, Sequence], got: Dict[str, Sequence], score_tol: float,
                        box_tol: float, rel_tol: float, angle_tol: float,
                        ref_bins: Optional[Dict[str, Sequence[int]]] = None,
-                       got_bins: Optional[Dict[str, Sequence[int]]] = None) -> Dict[str, float]:
+                       got_bins: Optional[Dict[str, Sequence[int]]] = None,
+                       ref_centres: Optional[Dict[str, Sequence]] = None,
+                       got_centres: Optional[Dict[str, Sequence]] = None,
+                       lookup_hw: Optional[Tuple[int, int]] = None) -> Dict[str, float]:
     """Compare two ``Detection3DValidator.results`` (image file -> KITTI rows
     [cls, alpha, x1, y1, x2, y2, h, w, l, x, y, z, ry, score]), with their
     heading bins (``Detection3DValidator.bins``).
@@ -276,9 +279,18 @@ def compare_kitti_rows(ref: Dict[str, Sequence], got: Dict[str, Sequence], score
       y within ``rel_tol`` of z;
     - alpha and ry within ``angle_tol`` (mod 2 pi) where the two rows have
       the same heading bin (every pair when no bins are given); pairs whose
-      bins differ are counted in ``n_bin_flips``.
+      bins differ are counted in ``n_bin_flips``;
+    - with the rows' projected 3D centres (``Detection3DValidator.centres``)
+      and the ``use_dino_depth`` map's size ``lookup_hw``: the centres within
+      ``box_tol`` px. Where the two centres straddle a pixel edge, the two
+      rows read their depths from neighbouring pixels of the teacher's map
+      (``engine/validator3d.py`` ``dino_pixel``). Such pairs are counted in
+      ``n_lookup_flips``, and their depth and x/y checks are skipped: x and
+      y are the depth along the centre's ray.
     Raises AssertionError otherwise; returns the counts and largest errors."""
-    stats = {"n_rows": 0, "n_bin_flips": 0}
+    from ..engine.validator3d import dino_pixel
+
+    stats = {"n_rows": 0, "n_bin_flips": 0, "n_lookup_flips": 0}
     if set(ref) != set(got):
         raise AssertionError(f"image files differ: {sorted(set(ref) ^ set(got))}")
     for name in sorted(ref):
@@ -307,6 +319,14 @@ def compare_kitti_rows(ref: Dict[str, Sequence], got: Dict[str, Sequence], score
                 "depth_rel_err": (abs(g[11] - r[11]) / abs(r[11]), rel_tol),
                 "xy_err_over_z": (float(np.abs(g[9:11] - r[9:11]).max() / abs(r[11])), rel_tol),
             }
+            if lookup_hw is not None:
+                ca = np.asarray(ref_centres[name][i], np.float64)
+                cb = np.asarray(got_centres[name][j], np.float64)
+                checks["centre_err"] = (float(np.abs(cb - ca).max()), box_tol)
+                if tuple(map(int, dino_pixel(ca, lookup_hw))) != tuple(
+                        map(int, dino_pixel(cb, lookup_hw))):
+                    stats["n_lookup_flips"] += 1
+                    del checks["depth_rel_err"], checks["xy_err_over_z"]
             if bins_a[i] != bins_b[j]:
                 stats["n_bin_flips"] += 1
             else:

@@ -27,10 +27,14 @@ from typing import Any, Dict, List, Mapping
 import numpy as np
 import torch
 
-# attribute names with underscores in the v10 and v10-3D modules (the last
-# three: the 3D head's DepthPredictor)
+# attribute names with underscores in the v10 and v10-3D modules (then the
+# 3D head's DepthPredictor and its DeformableConv2d). The JAX package's own
+# .pt export (utils/torch_export.py:38) lacks "modulator_conv" and so writes
+# "modulator.conv"; the port keeps the reference's name, which the
+# reference's DeformableConv2d state_dict carries (engine/model.py maps the
+# JAX export's spelling when it loads a .pt).
 _ATOMS = {"one2one_cv2", "one2one_cv3", "dep_un", "o2m_heads", "fgdm_predictor", "depth_head",
-          "depth_classifier"}
+          "depth_classifier", "offset_conv", "modulator_conv", "regular_conv"}
 _ATOM_TOKENS = sorted({tuple(a.split("_")) for a in _ATOMS}, key=len, reverse=True)
 
 
