@@ -29,6 +29,13 @@ Phases, each fatal on failure:
                 medians); two yardsticks the port never calls: torch._int_mm
                 on a 1x1 shape (the GEMM alone) and cuDNN's fp16
                 channels-last conv on a 3x3 shape (a float16 route's cost).
+  3c. int8-group - the grouped int8 kernel (int8_group_conv_f32, scope all)
+                at every distinct grouped shape of YOLOv10-S's scope-all plan
+                at 640x640 and YOLOv10-S-3D's at 384x1280, batch 1 and 8,
+                inputs larger than L2: bit for bit against its twin; device
+                ms beside its bytes bound and cuDNN's float32 grouped conv2d
+                on the same shape (the library column); the sums over one
+                forward's launches.
   4. serving  - YOLOv10-S (full width, nc=80, seeded random weights) answers
                 three float32 predict requests at 640x640 (batch 1, a uniform
                 batch of 8 HD frames and a mixed-shape list) and two int8 ones
@@ -55,6 +62,14 @@ Phases, each fatal on failure:
                 before); the twins' int8 reference runs the eager forward. The port's
                 top-k (ties to the lowest index) is timed beside torch.topk
                 at v10_postprocess's shapes, B=1 and 8 (a yardstick).
+  4f. int8-all - YOLOv10-S at 640x640 with Int8Config(scope="all") (the
+                fused stem), B=1 and 8, calibrated for it: the plan's counts
+                per route, each kernel launched per forward as often as the
+                plan has it; the detections held to the same forward with
+                every kernel replaced by its twin on the card ([serve]'s int8
+                bars); every gated conv held to the CPU int8 path given the
+                GPU's input; device ms per forward (captured graph) beside
+                k3deep and float32.
   4b. serve3d - YOLOv10-S-3D (full width, nc=3, seeded random weights
                 calibrated on the served frames) answers KITTI-sized requests
                 at 384x1280 (375x1242 uint8 frames): one frame and eight at
@@ -70,6 +85,14 @@ Phases, each fatal on failure:
                 the served fused stem) must lie, branch by branch, within
                 twice the distance of the CPU float32 run of the same route
                 from a float64 run of the same weights and input.
+  4g. int8-3d - YOLOv10-S-3D at 384x1280 on [serve3d]'s frames (calibrated
+                for int8), B=1 and 8: device ms per forward (captured graph),
+                peak memory and launches of the float32 sparse route, float32
+                dense, and int8 (its dense head) at k3, k3deep and all; each
+                int8 scope's launches as planned, its detections held to the
+                twins on the card (score 1e-2, 2D box and 3D centre 1 px, s3d
+                and dep_un 1e-3, [serve3d]'s column bar), and a sparse
+                request under int8 equal to the dense one (torch.equal).
   4x. serve-graph - at the end of phases 4 and 4b, for every request
                 (and kitti_b8_dense, eight frames at max_det 100): each
                 chunk's replayed forward against the eager forward on the same
@@ -240,9 +263,9 @@ Phases, each fatal on failure:
                 int8_conv_f32 on trained weights), the float32 predict
                 scored beside it.
 
-Each path (serving, serve3d, server, sources, val3d, train, train-host, head3d-options,
-distill3d, dino-val, json3d, ckpt, val2d, learn3d, learn2d) is driven with the launch counts
-set to 0 just before it and read just after. The last three lines are
+Each path (serving, int8-all, serve3d, int8-3d, server, sources, val3d, train,
+train-host, head3d-options, distill3d, dino-val, json3d, ckpt, val2d, learn3d, learn2d) is
+driven with the launch counts set to 0 just before it and read just after. The last three lines are
 the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
 {...}}.
 Imports no JAX.
@@ -303,6 +326,10 @@ KERNELS = {
                            "replaces": "yolov10_3d_tpu/ops/pallas_kernels.py:161"},
     "int8_conv_f32": {"route": "cuda", "source": "yolov10_3d_torch/csrc/int8_conv.cu",
                       "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv, no TPU kernel)"},
+    "int8_group_conv_f32": {
+        "route": "cuda", "source": "yolov10_3d_torch/csrc/int8_group_conv.cu",
+        "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv with feature_group_count > 1, "
+                    "scope all; no TPU kernel)"},
     "hsv_jitter": {"route": "cuda", "source": "yolov10_3d_torch/csrc/hsv_jitter.cu",
                    "replaces": "yolov10_3d_tpu/ops/pallas_preprocess.py:113"},
     "stem_conv": {"route": "cuda", "source": "yolov10_3d_torch/csrc/stem_conv.cu",
@@ -311,6 +338,10 @@ KERNELS = {
 SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
                    "stem_conv")
 SERVE3D_KERNELS = ("stem_conv",)
+# [int8-all] and [int8-3d]: every int8 route of scope all, and the fused stem
+INT8_ALL_KERNELS = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
+                    "int8_group_conv_f32", "stem_conv")
+INT8_ROUTES = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32", "int8_group_conv_f32")
 SERVER_KERNELS = ("decode_detect", "stem_conv")
 SOURCES_KERNELS = ("decode_detect", "stem_conv")
 SOURCES_FRAMES = 32  # 640x480: 28 JPEG, 3 PNG, 1 BMP
@@ -771,6 +802,12 @@ def phase_kernels():
         "int8_mm_fused": ({**k2[("sppf_cv1", 1)], "sites": sites}, k2[("sppf_cv1", 32)]),
         "int8_conv3x3_fused": (check_k3(1), check_k3(32)),
         "int8_conv_f32": (check_conv_f32(1), check_conv_f32(32)),
+        # YOLOv10-S-3D's model.5.cv2 at 384x1280 (its largest grouped input) and
+        # the P3 class branch's first depthwise conv of YOLOv10-S at 640
+        "int8_group_conv_f32": (
+            check_group_conv(1, 48, 160, 256, 256, 256, 3, 2, 1, 1, False, "3D model.5.cv2 "),
+            check_group_conv(32, 80, 80, 128, 128, 128, 3, 1, 1, 1, True,
+                             "2D one2one_cv3.0.0.0 ")),
         "hsv_jitter": (check_k4(1), check_k4(16)),
         "stem_conv": stem,
     }
@@ -918,7 +955,8 @@ def twins_on_card():
     from yolov10_3d_torch.kernels import int8 as K8
     from yolov10_3d_torch.kernels import stem as KS
 
-    swaps = [(K8, n) for n in ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32")]
+    swaps = [(K8, n) for n in ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
+                               "int8_group_conv_f32")]
     swaps.append((KS, "stem_conv"))
     saved = {(mod, n): getattr(mod, f"{n}_cuda") for mod, n in swaps}
     try:
@@ -951,16 +989,16 @@ def eager_forward():
         Predictor._forward = saved
 
 
-def int8_layers_vs_cpu(gpu8, cpu8, x) -> dict:
-    """Every gated conv of one GPU int8 forward of ``x`` against the CPU int8
-    path given the same input (the GPU's). Codes: at most a fraction 1e-4
-    differ (at least one), by one; float outputs: atol 1e-5 and rtol 1e-5,
-    the bars of tests/test_torch_int8.py."""
+def int8_layers_vs_cpu(gpu8, cpu8, x, cfg=None) -> dict:
+    """Every gated conv of one GPU int8 forward of ``x`` (at ``cfg``, default
+    k3deep) against the CPU int8 path given the same input (the GPU's).
+    Codes: at most a fraction 1e-4 differ (at least one), by one; float
+    outputs: atol 1e-5 and rtol 1e-5, the bars of tests/test_torch_int8.py."""
     import torch
 
     from yolov10_3d_torch.nn.quant import Int8Config, plan_int8
 
-    cfg = Int8Config()
+    cfg = cfg or Int8Config()
     pg = plan_int8(gpu8.model, tuple(x.shape[-2:]), cfg)
     pc = plan_int8(cpu8.model, tuple(x.shape[-2:]), cfg)
     seen = {}
@@ -1031,6 +1069,330 @@ def int8_drift(gpu8, cpu8, x) -> dict:
     gap = lambda a, b: max(float((p.cpu() - q.cpu()).abs().max()) for p, q in zip(a, b))  # noqa: E731
     return {"first": first, "head": f"{k} of {t} differ at {n}", "maps": gap(g8, c8),
             "effect": gap(g8, g32)}
+
+
+def check_group_conv(B: int, H: int, W: int, C: int, N: int, g: int, k: int, stride: int,
+                     pad: int, dil: int, act: bool, tag: str = "") -> dict:
+    """The grouped int8 kernel against its twin on the same CUDA tensors, bit
+    for bit, over input buffers larger than the L2 cache in all: device ms of
+    the kernel, the twin and cuDNN's float32 grouped conv of the same shape
+    (the library column: a float conv of float inputs, no epilogue), the
+    eager call's ms and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    torch.backends.cudnn.allow_tf32 = False
+    xs, w, ep = _int8_inputs(B * H + N + k, (B, H, W, C), (N, k, k, C // g))
+    call = lambda x: K8.int8_group_conv_f32_cuda(x, w, ep, stride, pad, dil, g, act)  # noqa: E731
+    twin = lambda x: K8.int8_group_conv_f32_torch(x, w, ep, stride, pad, dil, g, act)  # noqa: E731
+    got, ref = call(xs[0]), twin(xs[0])
+    torch.cuda.synchronize()
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        raise AssertionError(f"int8_group_conv_f32 B={B} {H}x{W} {C}->{N} g{g} k{k} s{stride}: "
+                             "kernel differs from its twin")
+    ms = time_device([lambda x=x: call(x) for x in xs])
+    plain_ms = time_device([lambda x=x: twin(x) for x in xs[:2]], replays=2)
+    xf = [x.permute(0, 3, 1, 2).float().contiguous() for x in xs]
+    wf = w.permute(0, 3, 1, 2).float().contiguous()
+    lib_ms = time_device([lambda x=x: F.conv2d(x, wf, None, stride, pad, dil, g) for x in xf])
+    call_ms = time_cuda(lambda: call(xs[0]), 100)
+    Ho, Wo = got.shape[-2:]
+    bound, bound_by, mb = _int8_bound(xs[0], w, ep, got, B * Ho * Wo * N * k * k * (C // g))
+    r = {"shape": [B, H, W, C, N, g, k, stride], "max_abs_err": 0.0, "ms": ms,
+         "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+         "eager_call_ms": call_ms}
+    print(f"[int8_group_conv_f32] {tag}B={B} {H}x{W} {C}->{N} g{g} k{k} s{stride} p{pad} "
+          f"act={int(act)}: bit-exact vs twin | kernel {ms:.4f} ms (device, graph replay, "
+          f"{len(xs)} input buffers) | bound {bound:.4f} ms ({bound_by}: {mb:.2f} MB), share "
+          f"{bound / ms:.3f} | twin {plain_ms:.4f} ms | cuDNN float32 grouped conv2d (library, "
+          f"no epilogue) {lib_ms:.4f} ms | eager call {call_ms:.4f} ms")
+    return r
+
+
+def group_plan_shapes(yaml: str, hw) -> list:
+    """The distinct int8_group_conv_f32 shapes of a model's scope-all serving
+    plan (fused stem, one2one head) at ``hw``: (H, W, C, N, groups, k,
+    stride, pad, dilation, act, count)."""
+    from torch import nn
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.nn.quant import Int8Config, plan_int8
+
+    model = YOLOv10(yaml, device="cpu", seed=0).model
+    plan = plan_int8(model, hw, Int8Config(scope="all"), stem=True)
+    counts = {}
+    for conv, route in plan.routes.items():
+        if route != "int8_group_conv_f32":
+            continue
+        c = conv.conv
+        st = round(math.sqrt(hw[0] * hw[1] / plan.hw[conv]))
+        key = (hw[0] // st, hw[1] // st, c.in_channels, c.out_channels, c.groups,
+               c.kernel_size[0], c.stride[0], c.padding[0], c.dilation[0],
+               isinstance(conv.act, nn.SiLU))
+        counts[key] = counts.get(key, 0) + 1
+    return [(*k, n) for k, n in counts.items()]
+
+
+def phase_group_kernel(card: str) -> dict:
+    """The grouped kernel at every distinct shape of both scope-all plans
+    (YOLOv10-S at 640x640, YOLOv10-S-3D at 384x1280), batch 1 and 8: bit for
+    bit, and the per-forward sums of kernel, bound and cuDNN ms."""
+    out = {}
+    for name, yaml, hw in (("2D", "yolov10s.yaml", (IMGSZ, IMGSZ)),
+                           ("3D", "yolov10s_3D.yaml", KITTI_HW)):
+        shapes = group_plan_shapes(yaml, hw)
+        n = sum(s[-1] for s in shapes)
+        print(f"[int8-group] {name} {yaml} scope all at {hw[0]}x{hw[1]}: {len(shapes)} distinct "
+              f"grouped shapes, {n} launches a forward ({card})")
+        for B in (1, 8):
+            tot = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+            for H, W, C, N, g, k, st, pad, dil, act, count in shapes:
+                r = check_group_conv(B, H, W, C, N, g, k, st, pad, dil, act,
+                                     tag=f"{name} x{count} ")
+                for key in tot:
+                    tot[key] += count * r[key]
+            out[(name, B)] = tot
+            print(f"[int8-group] {name} B={B} sum over the {n} launches of a forward: kernel "
+                  f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (share "
+                  f"{tot['bound_ms'] / tot['ms']:.3f}), cuDNN float32 {tot['library_ms']:.4f} ms")
+    return out
+
+
+def forward_figures(fn, replays: int = 10) -> dict:
+    """One eager call of ``fn`` (the launches it counts, its peak memory above
+    what was allocated before), then ``fn`` captured in a CUDA graph after a
+    warm-up on a side stream: device ms of one replay (CUDA events)."""
+    import torch
+
+    from yolov10_3d_torch.kernels import captured_launches, launch_counts
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(launch_counts)
+    with torch.inference_mode():
+        fn()
+    torch.cuda.synchronize()
+    launches = {k: n - before[k] for k, n in launch_counts.items() if n != before[k]}
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.inference_mode():
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with captured_launches():
+            with torch.cuda.graph(graph):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    del graph
+    return {"ms": start.elapsed_time(end) / replays, "launches": launches, "peak_mib": peak}
+
+
+def rows2d(maps, strides, nc: int) -> list:
+    """[x1, y1, x2, y2, score, class] rows per image above CONF (K1, top-k)."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch.ops.postprocess import v10_detections
+
+    det = v10_detections(maps, strides, nc, max_det=300)
+    rows = torch.cat([det["boxes"], det["scores"][..., None], det["labels"][..., None].float()],
+                     -1).cpu().numpy().astype(np.float64)
+    return [r[r[:, 4] > CONF] for r in rows]
+
+
+def rows3d(maps, strides, nc: int) -> list:
+    """[x1, y1, x2, y2, score, class, centre3d (2), s3d (3), dep_un] rows per
+    image above CONF, from the 3D decode and top-k (max_det 50)."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch.nn.heads3d import SPARSE_K
+    from yolov10_3d_torch.ops.postprocess import decode_detect3d, v10_3d_postprocess
+
+    reg, scores, labels = v10_3d_postprocess(decode_detect3d(maps, strides[: len(maps)], nc),
+                                             SPARSE_K, nc)
+    rows = torch.cat([reg[..., :4], scores.sigmoid()[..., None], labels[..., None].float(),
+                      reg[..., 4:9], reg[..., -1:]], -1).cpu().numpy().astype(np.float64)
+    return [r[r[:, 4] > CONF] for r in rows]
+
+
+def match_all(ref_rows, got_rows, score_tol, box_tol, cols=None) -> dict:
+    """``match_detections`` image by image, summed; at least half of the
+    detections must be clear of the cut-offs and compared."""
+    from yolov10_3d_torch.utils.parity import match_detections
+
+    stats = [match_detections(a, b, CONF, score_tol, box_tol, cols)
+             for a, b in zip(ref_rows, got_rows)]
+    tot = {k: (sum if k.startswith("n_") else max)(s[k] for s in stats) for k in stats[0]}
+    if tot["n_compared"] < 0.5 * (tot["n_ref"] + tot["n_got"]):
+        raise AssertionError(f"too few separated detections {tot}")
+    return tot
+
+
+def phase_int8_all(card: str) -> dict:
+    """[int8-all]: YOLOv10-S at 640x640 with Int8Config(scope="all") at B=1
+    and 8 (the fused stem, as served): each kernel launches per forward as
+    often as the plan has its route; the detections held to the same forward
+    with the twins on the card ([serve]'s int8 bars); every gated conv held
+    to the CPU int8 path given the GPU's input; device ms per forward
+    (captured graph) beside k3deep and float32. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data.preprocess import preprocess_batch
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.nn.quant import Int8Config, plan_int8
+    from yolov10_3d_torch.utils.parity import calibrate, smooth_images
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ALL = Int8Config(scope="all")
+    imgs = smooth_images(np.random.default_rng(7), [(IMGSZ, IMGSZ)] * 8)
+    cal, _ = preprocess_batch(imgs, IMGSZ)
+    x8 = torch.from_numpy(cal).permute(0, 3, 1, 2).contiguous().cuda()
+    gpu = YOLOv10("yolov10s.yaml", device="cuda", seed=0)
+    calibrate(gpu.model, x8, cls_max=6.0, int8=ALL)
+    model, spec = gpu.model, gpu.spec
+    plan = plan_int8(model, (IMGSZ, IMGSZ), ALL, stem=True).counts()
+    print(f"[int8-all] YOLOv10-S at {IMGSZ}x{IMGSZ}, scope all, the fused stem: launches per "
+          f"forward by route {plan} ({card})")
+    for B in (1, 8):  # builds and warms every route
+        with torch.inference_mode():
+            model(x8[:B], fast_eval=True, int8=ALL, stem=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for B in (1, 8):
+        x = x8[:B]
+        before = dict(launch_counts)
+        with torch.inference_mode():
+            maps = model(x, fast_eval=True, int8=ALL, stem=True)["one2one"]
+        got = {k: launch_counts[k] - before[k] for k in INT8_ROUTES}
+        if got != {k: plan[k] for k in INT8_ROUTES} \
+                or launch_counts["stem_conv"] - before["stem_conv"] != 1:
+            raise AssertionError(f"[int8-all] B={B}: launches {got}, plan {plan}")
+        with twins_on_card(), torch.inference_mode():
+            ref = model(x, fast_eval=True, int8=ALL, stem=True)["one2one"]
+        gap = max(float((a - b).abs().max()) for a, b in zip(maps, ref))
+        st = match_all(rows2d(ref, spec.strides, spec.nc), rows2d(maps, spec.strides, spec.nc),
+                       SCORE_TOL_INT8, BOX_TOL_INT8)
+        print(f"[int8-all] B={B}: launches per forward {got} and the stem once, as planned | "
+              f"vs the twins on the card: maps max abs diff {gap:.3g}, {st['n_compared']} "
+              f"detections compared, max score err {st['max_score_err']:.3g} (bar "
+              f"{SCORE_TOL_INT8}), max box err {st['max_box_err']:.3g} px (bar {BOX_TOL_INT8})")
+    launches = dict(launch_counts)
+    for k in INT8_ALL_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched on the [int8-all] path")
+    cpu = YOLOv10("yolov10s.yaml", device="cpu", seed=0)
+    cpu.model.load_state_dict(model.state_dict())
+    t0 = time.perf_counter()
+    r = int8_layers_vs_cpu(gpu, cpu, x8[:1], ALL)
+    print(f"[int8-all] b1 vs the CPU int8 path, conv by conv on the GPU's inputs: {r['convs']} "
+          f"gated convs, {r['flipped']} of {r['codes']} int8 codes differ (bar: 1e-4 of each "
+          f"conv's, by one), float outputs max abs err {r['max_float_err']:.3g} (bar 1e-5 + "
+          f"1e-5 |y|) ({time.perf_counter() - t0:.1f} s)")
+    for B in (1, 8):
+        x = x8[:B]
+        figs = {name: forward_figures(
+            lambda kw=kw: model(x, fast_eval=True, stem=True, **kw)["one2one"])
+            for name, kw in (("float32", {}), ("int8 k3deep", {"int8": Int8Config()}),
+                             ("int8 all", {"int8": ALL}))}
+        print(f"[int8-all] B={B} device ms per forward (captured graph, 10 replays; "
+              f"{card}): " + ", ".join(f"{n} {f['ms']:.4f} (peak {f['peak_mib']:.0f} MiB)"
+                                       for n, f in figs.items()))
+    return launches
+
+
+def phase_int8_3d(card: str) -> dict:
+    """[int8-3d]: YOLOv10-S-3D at 384x1280 (full width, [serve3d]'s frames,
+    calibrated for int8), B=1 and 8: device ms per forward (captured graph),
+    peak memory and launches of the float32 sparse route (what users get),
+    float32 dense and int8 dense at k3, k3deep and all; int8 held to the
+    twins on the card at [serve3d]'s columns and [serve]'s int8 bars; a
+    sparse request under int8 equals the dense one (torch.equal). Returns
+    the launches."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.nn.quant import Int8Config, plan_int8
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.utils.parity import calibrate, smooth_images
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    frames = smooth_images(np.random.default_rng(3), [(375, 1242)] * 8)
+    x8 = serve_preprocess(torch.from_numpy(np.stack(frames)).cuda(), KITTI_HW)
+    gpu = YOLOv10("yolov10s_3D.yaml", device="cuda", seed=0)
+    calibrate(gpu.model, x8, bn_std=BN_STD_3D, int8=Int8Config())
+    model, spec = gpu.model, gpu.spec
+    cols = {"center3d": (slice(6, 8), BOX_TOL_INT8), "s3d": (slice(8, 11), REG_TOL_3D),
+            "dep_un": (slice(11, 12), REG_TOL_3D)}
+    scopes = {s: Int8Config(scope=s) for s in ("k3", "k3deep", "all")}
+    plans = {s: plan_int8(model, KITTI_HW, c, stem=True).counts() for s, c in scopes.items()}
+    print(f"[int8-3d] YOLOv10-S-3D at {KITTI_HW[0]}x{KITTI_HW[1]}, the fused stem, dense head "
+          f"under int8: launches per forward by route {plans} ({card})")
+    for B in (1, 8):  # builds and warms every route
+        for c in scopes.values():
+            with torch.inference_mode():
+                model(x8[:B], fast_eval=True, int8=c, stem=True)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for B in (1, 8):
+        x = x8[:B]
+        for s, c in scopes.items():
+            before = dict(launch_counts)
+            with torch.inference_mode():
+                maps = model(x, fast_eval=True, int8=c, stem=True)["one2one"]
+                sparse = model(x, fast_eval=True, int8=c, stem=True, sparse=True)["one2one"]
+            got = {k: launch_counts[k] - before[k] for k in INT8_ROUTES}
+            if got != {k: 2 * plans[s][k] for k in INT8_ROUTES}:  # dense, then sparse
+                raise AssertionError(f"[int8-3d] {s} B={B}: launches {got}, plan {plans[s]}")
+            if not all(torch.equal(a, b) for a, b in zip(maps, sparse)):
+                raise AssertionError(f"[int8-3d] {s} B={B}: a sparse request under int8 differs "
+                                     "from the dense one")
+            with twins_on_card(), torch.inference_mode():
+                ref = model(x, fast_eval=True, int8=c, stem=True)["one2one"]
+            st = match_all(rows3d(ref, spec.strides, spec.nc), rows3d(maps, spec.strides, spec.nc),
+                           SCORE_TOL_INT8, BOX_TOL_INT8, cols)
+            print(f"[int8-3d] {s} B={B}: launches as planned; sparse request == dense "
+                  f"(torch.equal) | vs the twins on the card: {st['n_compared']} compared, max "
+                  f"score err {st['max_score_err']:.3g} (bar {SCORE_TOL_INT8}), box "
+                  f"{st['max_box_err']:.3g} px (bar {BOX_TOL_INT8}), 3D centre "
+                  f"{st['max_center3d_err']:.3g} px (bar {BOX_TOL_INT8}), s3d "
+                  f"{st['max_s3d_err']:.3g}, dep_un {st['max_dep_un_err']:.3g} (bar "
+                  f"{REG_TOL_3D})")
+    launches = dict(launch_counts)
+    for k in INT8_ALL_KERNELS:
+        if launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched on the [int8-3d] path")
+    for B in (1, 8):
+        x = x8[:B]
+        runs = [("float32 sparse", {"sparse": True}), ("float32 dense", {})]
+        runs += [(f"int8 {s}", {"int8": c}) for s, c in scopes.items()]
+        figs = {name: forward_figures(
+            lambda kw=kw: model(x, fast_eval=True, stem=True, **kw)["one2one"])
+            for name, kw in runs}
+        base = figs["float32 sparse"]["ms"]
+        for name, f in figs.items():
+            print(f"[int8-3d] B={B} {name}: device ms per forward {f['ms']:.4f} (captured graph, "
+                  f"10 replays; {f['ms'] / base:.3f} of float32 sparse), peak "
+                  f"{f['peak_mib']:.0f} MiB, hand-kernel launches {f['launches']} ({card})")
+    return launches
 
 
 def request_kernels(model=None) -> dict:
@@ -1245,7 +1607,8 @@ def phase_serving(card: str):
     plan = plan_int8(gpu8.model, (IMGSZ, IMGSZ), Int8Config(), stem=True).counts()
     print(f"[serve] int8 plan at {IMGSZ}x{IMGSZ} with the fused stem, launches per forward: "
           f"{plan}")
-    if plan != {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 30}:
+    if plan != {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 30,
+                "int8_group_conv_f32": 0}:
         raise AssertionError(f"int8 plan {plan}, expected 2 / 11 / 30")
 
     def expected(ims, b, int8, spd=True):
@@ -4650,14 +5013,19 @@ def main() -> int:
     kern = phase_kernels()
     done("build, kernels")
     sweep = phase_int8_layers(card)
+    phase_group_kernel(card)
     serving, medians = phase_serving(card)
-    done("int8-layers, serve")
+    done("int8-layers, int8-group, serve")
+    int8_all = phase_int8_all(card)
+    done("int8-all")
     print(f"[int8-layers] per forward, the {sweep[1]['launches']} K2, K3 and "
           f"int8_conv_f32 launches: B=1 {sweep[1]['ms']:.4f} ms, B=8 {sweep[8]['ms']:.4f} ms "
           f"of device time | request medians: b1_640_int8 {medians['b1_640_int8']:.2f} ms, "
           f"uniform_b8_int8 {medians['uniform_b8_int8']:.2f} ms")
     serve3d = phase_serve3d(card)
     done("serve3d")
+    int8_3d = phase_int8_3d(card)
+    done("int8-3d")
     server = phase_server(card)
     done("server")
     sources = phase_sources(card)
@@ -4710,7 +5078,8 @@ def main() -> int:
     done("learn3d")
     learn2d = phase_learn2d(card)
     done("learn2d")
-    launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS}}
+    launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS},
+                "int8_group_conv_f32": 0}
     # K4 and K1; K1 and the stem; K1; K4; K1, the stem, K2, K3 and int8_conv_f32
     for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, learn2d):
         for k in KERNELS:
@@ -4721,6 +5090,9 @@ def main() -> int:
         launches[k] += server[k]
     for k in SOURCES_KERNELS:  # and prediction over files
         launches[k] += sources[k]
+    for counts in (int8_all, int8_3d):  # scope all in 2D and 3D, and 3D at k3 and k3deep
+        for k in INT8_ALL_KERNELS:
+            launches[k] += counts[k]
     if not set(KERNELS) == set(kern) == set(launches) == set(serving):
         raise AssertionError(f"kernel tables disagree: {set(KERNELS)}, {set(kern)}, {set(launches)}")
     entries = [

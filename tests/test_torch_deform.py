@@ -10,6 +10,8 @@ offsets, the mask and the weights against ``jax.grad``, rtol 2e-4 (plus
 1e-6 of the gradient's largest element).
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,8 +54,9 @@ def _port_args(x, off, m, w, b):
 @pytest.mark.parametrize("stride,pad", [(1, 0), (1, 1), (2, 0), (2, 1)])
 def test_deform_conv2d_matches_jax(stride, pad):
     x, off, m, w, b = _case(stride * 10 + pad, stride, pad)
-    want = np.asarray(jax_deform_conv2d(*map(jnp.asarray, (x, off, m, w, b)),
-                                        stride=(stride, stride), padding=(pad, pad)))
+    want = np.asarray(jax.jit(functools.partial(
+        jax_deform_conv2d, stride=(stride, stride), padding=(pad, pad)))(
+            *map(jnp.asarray, (x, off, m, w, b))))
     got = deform_conv2d(*_port_args(x, off, m, w, b), stride=(stride, stride),
                         padding=(pad, pad)).permute(0, 2, 3, 1).numpy()
     assert got.shape == want.shape
@@ -69,14 +72,16 @@ def test_deform_conv2d_matches_jax(stride, pad):
 def test_deform_conv2d_grads_match_jax(stride, pad):
     x, off, m, w, b = _case(100 + stride, stride, pad)
     cot = np.random.default_rng(7).normal(
-        size=jax_deform_conv2d(*map(jnp.asarray, (x, off, m, w, b)), stride=(stride, stride),
-                               padding=(pad, pad)).shape).astype(np.float32)
+        size=jax.eval_shape(functools.partial(
+            jax_deform_conv2d, stride=(stride, stride), padding=(pad, pad)),
+            *map(jnp.asarray, (x, off, m, w, b))).shape).astype(np.float32)
 
     def jloss(x, off, m, w, b):
         y = jax_deform_conv2d(x, off, m, w, b, stride=(stride, stride), padding=(pad, pad))
         return (y * cot).sum()
 
-    want = jax.grad(jloss, argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, (x, off, m, w, b)))
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2, 3, 4)))(
+        *map(jnp.asarray, (x, off, m, w, b)))
     args = [a.requires_grad_() for a in _port_args(x, off, m, w, b)]
     y = deform_conv2d(*args, stride=(stride, stride), padding=(pad, pad))
     (y * _nchw(cot)).sum().backward()
@@ -105,7 +110,8 @@ def test_deform_conv_module_matches_jax(k, s):
                       rng.uniform(0.5, 1.5, v.shape).astype(np.float32)
                       if p[-1].key in ("scale", "var") else
                       rng.normal(0, 0.2, v.shape).astype(np.float32)), variables)
-    want = np.asarray(jm.apply(variables, jnp.asarray(x), train=False))
+    want = np.asarray(jax.jit(functools.partial(jm.apply, train=False))(
+        variables, jnp.asarray(x)))
     pm = Conv(8, 6, k, s, deform=True).eval()
     assert isinstance(pm.conv, DeformableConv2d)
     load_flax_variables(pm, variables)

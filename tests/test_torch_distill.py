@@ -92,7 +92,7 @@ def test_supervision_head_loss_matches_jax(criterion):
                                          jnp.asarray(tgi), jnp.asarray(fg), jnp.asarray(mgt),
                                          jnp.asarray(mixed), (96, 320), **kw)
 
-    want, gwant = jax.value_and_grad(jloss)(jnp.asarray(pred))
+    want, gwant = jax.jit(jax.value_and_grad(jloss))(jnp.asarray(pred))
     p = _t(pred).requires_grad_()
     got = PDL.supervision_head_loss(_t(teacher).permute(0, 3, 1, 2), p, _t(c3d), _t(tgi),
                                     _t(fg), _t(mgt), _t(mixed), (96, 320), **kw)
@@ -113,8 +113,8 @@ def test_supervision_fgdm_loss_matches_jax(criterion):
     depth = np.where(rng.uniform(size=(B, 96, 320)) < 0.3,
                      rng.uniform(5, 40, (B, 96, 320)), 0).astype(np.float32)
     kw = dict(criterion=criterion, T=2.0, weight=1.0)
-    want, gwant = jax.value_and_grad(lambda e: JDL.supervision_fgdm_loss(
-        jnp.asarray(teacher), e, jnp.asarray(depth), **kw))(jnp.asarray(emb))
+    want, gwant = jax.jit(jax.value_and_grad(lambda e: JDL.supervision_fgdm_loss(
+        jnp.asarray(teacher), e, jnp.asarray(depth), **kw)))(jnp.asarray(emb))
     e = _t(emb.transpose(0, 3, 1, 2)).requires_grad_()
     got = PDL.supervision_fgdm_loss(_t(teacher).permute(0, 3, 1, 2), e, _t(depth), **kw)
     got.backward()

@@ -189,17 +189,19 @@ def test_dynamic_scale_conv_matches_jax(k, s):
 
 
 def test_int8_config_scopes():
-    """k3 and k3deep are ported; 'all' (grouped and depthwise convs) is not;
-    a dynamic scale runs every gated conv with a float epilogue."""
-    with pytest.raises(NotImplementedError, match="all"):
-        Int8Config(scope="all")
+    """k3, k3deep and 'all' (grouped and depthwise convs too) are ported:
+    'all' builds and plans every Conv, its grouped convs on the
+    int8_group_conv_f32 route; a dynamic scale runs every gated conv with a
+    float epilogue."""
     with pytest.raises(ValueError, match="scope"):
         Int8Config(scope="bogus")
     model = YOLOv10("yolov10n.yaml", device="cpu").model
     k3 = plan_int8(model, (64, 64), Int8Config(scope="k3")).counts()
     deep = plan_int8(model, (64, 64), Int8Config()).counts()
     dyn = plan_int8(model, (64, 64), Int8Config(act_scale=None)).counts()
-    assert sum(k3.values()) < sum(deep.values()) == sum(dyn.values())
+    every = plan_int8(model, (64, 64), Int8Config(scope="all")).counts()
+    assert sum(k3.values()) < sum(deep.values()) == sum(dyn.values()) < sum(every.values())
+    assert every["int8_group_conv_f32"] > 0 and deep["int8_group_conv_f32"] == 0
     assert dyn["int8_mm_fused"] == dyn["int8_conv3x3_fused"] == 0
     assert all(deep[r] > 0 for r in FUSED)
 
@@ -210,7 +212,8 @@ def test_plan_of_yolov10s_at_640():
     convs); the plan follows the input size through the k3deep gate."""
     model = YOLOv10("yolov10s.yaml", device="cpu").model
     plan = plan_int8(model, (640, 640), Int8Config())
-    assert plan.counts() == {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 31}
+    assert plan.counts() == {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 31,
+                             "int8_group_conv_f32": 0}
     paths = plan.paths()
     assert paths["model.9.cv1"] == paths["model.10.ffn.0"] == "int8_mm_fused"
     assert paths["model.23.one2one_cv2.0.0"] == "int8_conv3x3_fused"
@@ -225,7 +228,8 @@ def test_plan_with_the_fused_stem():
     space-to-depth stem leaves its int8 gate."""
     model = YOLOv10("yolov10s.yaml", device="cpu").model
     plan = plan_int8(model, (640, 640), Int8Config(), stem=True)
-    assert plan.counts() == {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 30}
+    assert plan.counts() == {"int8_mm_fused": 2, "int8_conv3x3_fused": 11, "int8_conv_f32": 30,
+                             "int8_group_conv_f32": 0}
     assert set(plan_int8(model, (640, 640), Int8Config()).paths()) - set(plan.paths()) == {
         "model.0"}
 

@@ -357,6 +357,83 @@ def test_int8_kernels_check_inputs(cuda_device):
         K8.int8_conv_f32_cuda(x, w, ep[:, :2].contiguous(), 1, 1, True)
 
 
+# --------------------------------------------------- grouped int8 conv (scope all)
+# (B, H, W, C, N, groups, k, stride, pad, dil, act): depthwise 3x3 stride 1
+# and 2, 7x7 (RepVGGDW) and 5x5 at ragged sizes (the dw kernel, C % 4 == 0);
+# YOLOv10-S's depthwise shapes at 640 (SCDown.cv2 128 at 160x160 stride 2,
+# CIB's 512 at 20x20, the P3 class branch's 128 at 80x80) and the 3D head's
+# 40x128 P3 at batch 8; g = 4 with C/g = 8 (words) and C/g = 3 (bytes), a
+# depthwise C = 6 (the byte kernel), channel multiplier 2, a dense g = 1
+# 5x5, and dilation 2.
+GROUP_CASES = [(2, 19, 23, 36, 36, 36, 3, 1, 1, 1, True),
+               (2, 19, 23, 36, 36, 36, 3, 2, 1, 1, False),
+               (1, 20, 20, 128, 128, 128, 7, 1, 3, 1, False),
+               (2, 9, 13, 8, 8, 8, 5, 1, 2, 1, True),
+               (1, 160, 160, 128, 128, 128, 3, 2, 1, 1, False),
+               (1, 20, 20, 512, 512, 512, 3, 1, 1, 1, True),
+               (1, 80, 80, 128, 128, 128, 3, 1, 1, 1, True),
+               (8, 48, 160, 64, 64, 64, 3, 1, 1, 1, True),
+               (2, 11, 7, 32, 48, 4, 3, 1, 1, 1, True), (2, 11, 7, 12, 12, 4, 3, 2, 1, 1, False),
+               (1, 9, 9, 6, 6, 6, 3, 1, 1, 1, True), (1, 9, 9, 16, 32, 16, 3, 1, 1, 1, True),
+               (1, 12, 10, 8, 16, 1, 5, 1, 2, 1, True), (1, 15, 15, 16, 16, 16, 3, 1, 2, 2, True)]
+
+
+def test_int8_group_conv_refuses_cpu_tensors():
+    """No silent fallback: the wrapper takes CUDA tensors only; the
+    dispatcher takes the twin for CPU tensors and launches nothing."""
+    x, w, ep = _int8_case(0, (2, 6, 5, 8), (8, 3, 3, 1))
+    with pytest.raises(ValueError, match="CUDA"):
+        K8.int8_group_conv_f32_cuda(x, w, ep, 1, 1, 1, 8, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K8.int8_group_conv_f32(x.to("meta"), w, ep, 1, 1, 1, 8, True)
+    before = dict(launch_counts)
+    assert K8.int8_group_conv_f32(x, w, ep, 2, 1, 1, 8, False).shape == (2, 8, 3, 3)
+    assert launch_counts == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,W,C,N,g,k,stride,pad,dil,act", GROUP_CASES)
+def test_int8_group_conv_matches_twin(cuda_device, B, H, W, C, N, g, k, stride, pad, dil, act):
+    """The grouped conv against its twin, bit for bit, on NCHW f32; one
+    launch counted per call."""
+    x, w, ep = _int8_case(C + k, (B, H, W, C), (N, k, k, C // g), cuda_device)
+    before = launch_counts["int8_group_conv_f32"]
+    got = K8.int8_group_conv_f32(x, w, ep, stride, pad, dil, g, act)
+    assert launch_counts["int8_group_conv_f32"] == before + 1
+    want = K8.int8_group_conv_f32_torch(x, w, ep, stride, pad, dil, g, act)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_group_conv_extremes(cuda_device):
+    """Codes of +-127 at every tap of a 7x7 depthwise conv (the largest sums,
+    both signs) and epilogue rows that spread the outputs over SiLU's range:
+    bit for bit."""
+    g = torch.Generator().manual_seed(3)
+    x = ((torch.randint(0, 2, (2, 16, 16, 64), generator=g) * 254 - 127)
+         .to(torch.int8).to(cuda_device))
+    w = torch.full((64, 7, 7, 1), 127, dtype=torch.int8, device=cuda_device)
+    w[::2] = -127
+    for scale in (1e-6, 1e-4, 1e-2):
+        ep = K8.affine_epilogue(torch.full((64,), scale), torch.linspace(-3, 3, 64)).to(cuda_device)
+        got = K8.int8_group_conv_f32(x, w, ep, 1, 3, 1, 64, True)
+        assert torch.equal(got, K8.int8_group_conv_f32_torch(x, w, ep, 1, 3, 1, 64, True)), scale
+
+
+@pytest.mark.cuda
+def test_int8_group_conv_checks_inputs(cuda_device):
+    x, w, ep = _int8_case(1, (1, 8, 8, 12), (12, 3, 3, 3), cuda_device)
+    with pytest.raises(ValueError, match="groups"):
+        K8.int8_group_conv_f32_cuda(x, w, ep, 1, 1, 1, 3, True)  # C/g 4 != 3
+    with pytest.raises(TypeError):
+        K8.int8_group_conv_f32_cuda(x.float(), w, ep, 1, 1, 1, 4, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.int8_group_conv_f32_cuda(x.transpose(1, 2), w, ep, 1, 1, 1, 4, True)
+    with pytest.raises(ValueError, match="ep must be"):
+        K8.int8_group_conv_f32_cuda(x, w, ep[:, :2].contiguous(), 1, 1, 1, 4, True)
+
+
 # ------------------------------------------------------------ K4 hsv_jitter
 def _hsv_case(seed, B, H, W, device):
     g = torch.Generator().manual_seed(seed)

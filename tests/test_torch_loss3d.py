@@ -56,6 +56,24 @@ def _t(a):
     return torch.from_numpy(np.array(a, copy=True))
 
 
+def _jitted(fn, *args, **kw):
+    """``fn(*args, **kw)`` of the JAX package under one ``jax.jit`` (eager
+    JAX compiles every operation apart); a (total, terms, ...) result keeps
+    its terms in the order ``fn`` builds them (jit returns a dict sorted)."""
+    order = []
+
+    def run(*a):
+        out = fn(*a, **kw)
+        if isinstance(out, tuple):
+            order[:] = list(out[1])
+        return out
+
+    out = jax.jit(run)(*args)
+    if not isinstance(out, tuple):
+        return out
+    return (out[0], {k: out[1][k] for k in order}, *out[2:])
+
+
 def _maps(rng, B):
     """Raw head maps (NHWC, as JAX has them) of one branch."""
     out = []
@@ -120,7 +138,7 @@ def test_get_3d_keypoints_matches_jax(heading):
     else:
         hb, hr = rng.integers(0, 12, (B, N, 1)).astype(np.float64), rng.uniform(-0.3, 0.3, (B, N, 1))
     args = [a.astype(np.float32) for a in (c3d, dep, size, hb, hr, np.repeat(CALIB[None], B, 0))]
-    want = np.asarray(JG.get_3d_keypoints(*map(jnp.asarray, args)))
+    want = np.asarray(_jitted(JG.get_3d_keypoints, *map(jnp.asarray, args)))
     got = PG.get_3d_keypoints(*map(_t, args)).numpy()
     assert got.shape == (B, N, 8, 3)
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-4)
@@ -180,8 +198,8 @@ def test_dd_detection_loss_matches_jax(topk):
     one2one at top-1), and its assignment's fg_mask. Bar rtol 2e-4."""
     maps, batch = _case(1)
     jm, jb = _jax(maps, batch)
-    total, items, aux = JL.dd_detection_loss(jm["one2many"], jb, nc=NC, strides=STRIDES, hyp=HYP,
-                                             tal_topk=topk, return_aux=True)
+    total, items, aux = _jitted(JL.dd_detection_loss, jm["one2many"], jb, nc=NC,
+                                strides=STRIDES, hyp=HYP, tal_topk=topk, return_aux=True)
     pm, pb = _port(maps, batch)
     ptotal, pitems, paux = PL.dd_detection_loss(pm["one2many"], pb, nc=NC, strides=STRIDES,
                                                 hyp=HYP, tal_topk=topk, return_aux=True)
@@ -200,7 +218,8 @@ def test_detect3d_loss_matches_jax(htl):
     maps, batch = _case(2)
     if htl:
         batch["htl_weights"] = np.random.default_rng(4).uniform(0, 1, 12).astype(np.float32)
-    total, items = JL.detect3d_loss(*_jax(maps, batch), nc=NC, strides=STRIDES, hyp=HYP)
+    total, items = _jitted(JL.detect3d_loss, *_jax(maps, batch), nc=NC, strides=STRIDES,
+                           hyp=HYP)
     ptotal, pitems = PL.detect3d_loss(*_port(maps, batch), nc=NC, strides=STRIDES, hyp=HYP)
     assert list(pitems) == list(items) == list(PL.ITEM_KEYS)
     for k in items:
@@ -262,7 +281,8 @@ def test_foreground_depth_map_loss_matches_jax():
     96x320 to 6x20. Bar rtol 2e-4."""
     dm, logits = _depth_case(8)
     kw = dict(depth_min=1.0, depth_max=120.0)
-    want = float(JF.foreground_depth_map_loss(jnp.asarray(logits), jnp.asarray(dm), **kw))
+    want = float(_jitted(JF.foreground_depth_map_loss, jnp.asarray(logits), jnp.asarray(dm),
+                         **kw))
     got = float(PF.foreground_depth_map_loss(_t(logits.transpose(0, 3, 1, 2)), _t(dm), **kw))
     assert want > 0
     np.testing.assert_allclose(got, want, rtol=2e-4)
@@ -323,8 +343,8 @@ def test_fgdm_term_in_detect3d_loss_matches_jax():
     batch["depth_map"] = dm
     jm, jb = _jax(maps, batch)
     jm["depth_maps"] = (jnp.asarray(logits),)
-    total, items = JL.detect3d_loss(
-        jm, jb, nc=NC, strides=STRIDES, hyp=HYP,
+    total, items = _jitted(
+        JL.detect3d_loss, jm, jb, nc=NC, strides=STRIDES, hyp=HYP,
         fgdm_loss_fn=functools.partial(JF.foreground_depth_map_loss, depth_max=120.0))
     pm, pb = _port(maps, batch)
     pm["depth_maps"] = (_t(logits.transpose(0, 3, 1, 2)),)

@@ -193,14 +193,18 @@ def test_entry_points_need_a_card_unless_cpu_is_asked(monkeypatch):
 @pytest.mark.parametrize("option", ["int8", "spd_serving"])
 def test_unported_serving_options_raise(option):
     """int8's scope 'all' (grouped and depthwise convs; int8 serving itself
-    runs scope k3deep) is not ported, nor any spd_serving other than True
-    (the fused stem) and False, such as the JAX package's spd_stem 'all'
-    rewrite: asking for them is an error, not a silent k3deep or plain run."""
+    runs scope k3deep) is ported: the forward runs it. spd_serving takes
+    True (the fused stem) and False (the model's own layer 0, a
+    space-to-depth conv when it was built with spd_stem); any other value,
+    such as 'all' (a build option, ``build_model(..., spd_stem='all')``), is
+    an error, not a silent plain run."""
     model = YOLOv10("yolov10n.yaml", device="cpu")
-    with pytest.raises(NotImplementedError, match=option):
-        if option == "int8":
-            model.model(torch.zeros((1, 3, 64, 64)), int8=Int8Config(scope="all"))
-        else:
+    if option == "int8":
+        with torch.no_grad():
+            out = model.model(torch.zeros((1, 3, 64, 64)), int8=Int8Config(scope="all"))
+        assert all(torch.isfinite(f).all() for f in out["one2one"])
+    else:
+        with pytest.raises(ValueError, match=option):
             model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, **{option: "all"})
 
 

@@ -19,6 +19,7 @@ random net amplifies the two frameworks' rounding layer by layer. Measured
 maxima on the CPU: scores 2.9e-5, boxes 2.3e-3 px.
 """
 
+import functools
 from collections.abc import Mapping
 
 import jax
@@ -30,6 +31,7 @@ import torch
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
 from yolov10_3d_tpu.engine.model import YOLOv10 as JaxYOLOv10
 from yolov10_3d_tpu.engine.model import _resolve_model_cfg
+from yolov10_3d_tpu.nn import modules as JM
 from yolov10_3d_tpu.nn.build import build_model as jax_build_model
 from yolov10_3d_torch import YOLOv10
 from yolov10_3d_torch.data.preprocess import preprocess_batch
@@ -41,6 +43,33 @@ IMGSZ = 128
 CONF = 0.01  # low enough that every image fills max_det: the top-k cut is compared too
 
 
+_INIT_TREES: dict = {}
+
+
+def _init_tree(model, args):
+    """``model.init``'s tree of shapes for ``args``, traced once per model,
+    input shapes and JAX int8 mode in a process (the test modules that one
+    worker runs build the same models again and again)."""
+    specs = jax.tree.map(lambda a: jax.ShapeDtypeStruct(np.shape(a), a.dtype), args)
+    leaves, treedef = jax.tree.flatten(specs)
+    key = (model, treedef, tuple(leaves), (JM._INT8_MODE, JM._INT8_SCOPE, JM._INT8_ACT_SCALE))
+    try:
+        tree = _INIT_TREES.get(key)
+    except TypeError:  # a module with an unhashable field: traced every time
+        key = tree = None
+    if tree is None:
+        tree = jax.eval_shape(lambda k, *a: model.init(k, *a, train=False),
+                              jax.random.PRNGKey(0), *specs)
+        if key is not None:
+            _INIT_TREES[key] = tree
+    return tree
+
+
+@functools.partial(jax.jit, static_argnums=1)
+def _kernel_draw(key, total):
+    return jax.random.truncated_normal(key, -2.0, 2.0, (total,))
+
+
 def jax_variables(model, *args, seed: int = 0):
     """Variables of the flax ``model`` as ``model.init(key, *args, train=False)``
     makes them, without compiling the init: its tree by ``jax.eval_shape``,
@@ -49,13 +78,11 @@ def jax_variables(model, *args, seed: int = 0):
     initial constants elsewhere (BatchNorm scale and variance 1, biases and
     means 0: every other leaf of the v10 and v10-3D trees). A jitted
     ``model.init`` compiles one initializer per kernel, 30 s or more on the
-    CPU for yolov10n_3D whatever the input size; this compiles one draw."""
-    tree = jax.eval_shape(lambda k, *a: model.init(k, *a, train=False),
-                          jax.random.PRNGKey(0), *args)
-    leaves, treedef = jax.tree_util.tree_flatten_with_path(tree)
+    CPU for yolov10n_3D whatever the input size; this compiles one draw.
+    The arrays are new on every call."""
+    leaves, treedef = jax.tree_util.tree_flatten_with_path(_init_tree(model, args))
     total = sum(leaf.size for path, leaf in leaves if path[-1].key == "kernel")
-    draw = np.asarray(jax.jit(lambda k: jax.random.truncated_normal(k, -2.0, 2.0, (total,)))(
-        jax.random.PRNGKey(seed)), np.float64)
+    draw = np.asarray(_kernel_draw(jax.random.PRNGKey(seed), total), np.float64)
     out, used = [], 0
     for path, leaf in leaves:
         name = path[-1].key

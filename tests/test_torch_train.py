@@ -109,8 +109,9 @@ def test_optimizer_updates_match_optax(name, accumulate):
     opt = PO.Optimizer(model, **kw)
     assert opt.accumulate == accumulate
     moved = {k: 0.0 for k in params}  # sum of the largest update of each step
+    update = jax.jit(tx.update)
     for g in grads:
-        upd, state = tx.update(jax.tree.map(jnp.asarray, _jax_tree(g)), state, jp)
+        upd, state = update(jax.tree.map(jnp.asarray, _jax_tree(g)), state, jp)
         jp = jax.tree.map(lambda p, u: p + u, jp, upd)
         for k, v in g.items():
             named[k].grad = torch.from_numpy(v)

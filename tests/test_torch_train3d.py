@@ -23,6 +23,7 @@ Bars (ROADMAP, tests/test_torch_train.py):
 
 import copy
 import csv
+import functools
 import math
 from pathlib import Path
 
@@ -118,7 +119,8 @@ def test_depth_predictor_matches_jax():
         lambda p, v: (np.asarray(v) if p[-1].key == "kernel"
                       else rng.normal(1.0 if p[-1].key == "scale" else 0.0, 0.2,
                                       v.shape).astype(np.float32)), variables)
-    want = jm.apply(variables, [jnp.asarray(x) for x in xs], train=True)
+    want = jax.jit(functools.partial(jm.apply, train=True))(variables,
+                                                              [jnp.asarray(x) for x in xs])
     pm = DepthPredictor(ch)
     load_flax_variables(pm, variables)
     got = pm([torch.from_numpy(x.transpose(0, 3, 1, 2).copy()) for x in xs])

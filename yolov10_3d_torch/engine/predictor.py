@@ -171,9 +171,9 @@ class Predictor:
                                       "v10Detect3d are ported")
         spd = args.get("spd_serving")
         if spd not in (True, False, None):
-            raise NotImplementedError(
-                f"spd_serving={spd!r}: True (the fused stem kernel) or False; the JAX "
-                "package's spd_stem='all' rewrite of every 3x3 stride-2 conv is not ported")
+            raise ValueError(
+                f"spd_serving={spd!r}: True (the fused stem kernel) or False (the model's own "
+                "layer 0, a space-to-depth conv when it was built with spd_stem)")
         self.model = model.eval()
         self.spec = spec
         self.args = args

@@ -13,6 +13,10 @@ CUDA tensor and takes the twin for a CPU tensor, nothing else:
 - ``int8_conv_f32``: the XLA int8 conv of the JAX package's int8 mode
   (``nn/modules.py`` ``int8_conv`` followed by BatchNorm and the
   activation), 1x1 or 3x3 at stride 1 or 2, float32 NCHW out.
+- ``int8_group_conv_f32`` (``csrc/int8_group_conv.cu``): the same XLA conv
+  with ``feature_group_count`` g (scope ``all``: the depthwise convs), any
+  kernel size, stride, padding and dilation, float32 NCHW out. Its x keeps
+  its C channels unpadded and its w is (N, kh, kw, C / g).
 
 Weights are (N, kh, kw, K): each filter's bytes are contiguous, so both
 operands of the GEMM are contiguous along the reduction, as the tensor
@@ -42,6 +46,7 @@ from . import launch_counts
 from ._build import load
 
 LIB = "int8_conv"
+GROUP_LIB = "int8_group_conv"
 INT32_SAFE_K = (2**31 - 1) // (127 * 127)  # longest reduction whose int32 sum cannot overflow
 _GRID_Y = 65535
 SMS = 132  # streaming multiprocessors of an H100 SXM
@@ -169,11 +174,17 @@ def int8_conv_f32_torch(x, w, ep, stride: int, pad: int, act: bool) -> torch.Ten
     return _epilogue(_conv_acc(x, w, stride, pad), ep, (1, -1, 1, 1), act).contiguous()
 
 
+def int8_group_conv_f32_torch(x, w, ep, stride: int, pad: int, dil: int, groups: int,
+                              act: bool) -> torch.Tensor:
+    acc = F.conv2d(x.permute(0, 3, 1, 2).double(), w.permute(0, 3, 1, 2).double(),
+                   stride=stride, padding=pad, dilation=dil, groups=groups)
+    return _epilogue(acc.round().to(torch.int32), ep, (1, -1, 1, 1), act).contiguous()
+
+
 # -------------------------------------------------------------- wrappers
-def _check(name, x, w, ep, dims: int, tile_n: Optional[int] = 32):
-    """Device, type, layout and shape checks; ``tile_n`` (at most the
-    kernel's output channels per block) bounds the grid's y extent, None
-    for K2's one-dimensional grid."""
+def _check_tensors(name, x, w, ep, dims: int):
+    """Device, type and layout checks of every int8 kernel's operands, and
+    the reduction and epilogue shapes."""
     if not (x.is_cuda and w.is_cuda and ep.is_cuda):
         raise ValueError(f"{name} needs CUDA tensors, got {x.device}, {w.device}, {ep.device}")
     if x.dtype != torch.int8 or w.dtype != torch.int8 or ep.dtype != torch.float32:
@@ -183,14 +194,21 @@ def _check(name, x, w, ep, dims: int, tile_n: Optional[int] = 32):
         raise ValueError(f"{name}: x must be a contiguous {dims}-d tensor, w and ep contiguous")
     if len({x.device, w.device, ep.device}) != 1:
         raise ValueError(f"{name}: tensors on different devices")
+    if w[0].numel() > INT32_SAFE_K:
+        raise ValueError(f"{name}: reduction of {w[0].numel()} > {INT32_SAFE_K} may overflow int32")
+    if ep.shape != (4, w.shape[0]):
+        raise ValueError(f"{name}: ep must be (4, {w.shape[0]}), got {tuple(ep.shape)}")
+
+
+def _check(name, x, w, ep, dims: int, tile_n: Optional[int] = 32):
+    """``_check_tensors``, channels a multiple of 4 on both operands, and
+    the grid; ``tile_n`` (at most the kernel's output channels per block)
+    bounds the grid's y extent, None for K2's one-dimensional grid."""
+    _check_tensors(name, x, w, ep, dims)
     K, N = x.shape[-1], w.shape[0]
     if K % 4 or w.shape[-1] != K:
         raise ValueError(f"{name}: channels K={K} must be a multiple of 4 and match w "
                          f"{tuple(w.shape)}")
-    if w[0].numel() > INT32_SAFE_K:
-        raise ValueError(f"{name}: reduction of {w[0].numel()} > {INT32_SAFE_K} may overflow int32")
-    if ep.shape != (4, N):
-        raise ValueError(f"{name}: ep must be (4, {N}), got {tuple(ep.shape)}")
     if (tile_n and -(-N // tile_n) > _GRID_Y) or x.numel() // K * N >= 2**31:
         raise ValueError(f"{name}: x {tuple(x.shape)} with N={N} exceeds the kernel's "
                          "grid or its 32-bit pixel index")
@@ -203,12 +221,13 @@ def _sm_count(device: torch.device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def _fn(name: str):
-    fn = getattr(load(LIB), name)
+    fn = getattr(load(GROUP_LIB if name == "int8_group_conv_f32" else LIB), name)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = {
         "k2_int8_mm_fused": [p, p, p, f, p, i, i, i, i, i, i, i, p],
         "k3_int8_conv3x3_fused": [p, p, p, f, p, i, i, i, i, i, i, i, i, p],
         "int8_conv_f32": [p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, p],
+        "int8_group_conv_f32": [p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, p],
     }[name]
     fn.restype = ctypes.c_int
     return fn
@@ -287,6 +306,34 @@ def int8_conv_f32_cuda(x, w, ep, stride: int, pad: int, act: bool) -> torch.Tens
     return out
 
 
+def int8_group_conv_f32_cuda(x, w, ep, stride: int, pad: int, dil: int, groups: int,
+                             act: bool) -> torch.Tensor:
+    """Launch the grouped int8 conv with the float epilogue: x (B, H, W, C),
+    w (N, kh, kw, C / groups) -> float32 (B, N, Ho, Wo)."""
+    _check_tensors("int8_group_conv_f32", x, w, ep, 4)
+    if w.dim() != 4:
+        raise ValueError(f"int8_group_conv_f32: w must be (N, kh, kw, C / groups), got "
+                         f"{tuple(w.shape)}")
+    (B, H, W, C), (N, kh, kw, cg) = x.shape, w.shape
+    if groups < 1 or C % groups or N % groups or cg * groups != C:
+        raise ValueError(f"int8_group_conv_f32: x {tuple(x.shape)} and w {tuple(w.shape)} do "
+                         f"not make {groups} groups")
+    if stride < 1 or pad < 0 or dil < 1:
+        raise ValueError(f"int8_group_conv_f32: stride {stride}, pad {pad}, dilation {dil}")
+    Ho = (H + 2 * pad - dil * (kh - 1) - 1) // stride + 1
+    Wo = (W + 2 * pad - dil * (kw - 1) - 1) // stride + 1
+    if Ho <= 0 or Wo <= 0:
+        raise ValueError(f"int8_group_conv_f32: empty output for a {H}x{W} input")
+    if N > _GRID_Y or x.numel() >= 2**31 or B * N * Ho * Wo >= 2**31:
+        raise ValueError(f"int8_group_conv_f32: x {tuple(x.shape)} with N={N} exceeds the "
+                         "kernel's grid or its 32-bit pixel index")
+    out = torch.empty((B, N, Ho, Wo), dtype=torch.float32, device=x.device)
+    _launch("int8_group_conv_f32", "int8_group_conv_f32", x, x.data_ptr(), w.data_ptr(),
+            ep.data_ptr(), int(act), out.data_ptr(), B, H, W, C, N, groups, kh, kw, stride, pad,
+            dil)
+    return out
+
+
 # ------------------------------------------------------------ dispatch
 def _dispatch(cuda_fn, torch_fn, x, *args):
     if x.is_cuda:
@@ -309,3 +356,10 @@ def int8_conv3x3_fused(x, w, ep, inv: float) -> torch.Tensor:
 def int8_conv_f32(x, w, ep, stride: int, pad: int, act: bool) -> torch.Tensor:
     """The int8 conv kernel for a CUDA tensor, the twin for a CPU tensor."""
     return _dispatch(int8_conv_f32_cuda, int8_conv_f32_torch, x, w, ep, stride, pad, act)
+
+
+def int8_group_conv_f32(x, w, ep, stride: int, pad: int, dil: int, groups: int,
+                        act: bool) -> torch.Tensor:
+    """The grouped int8 conv kernel for a CUDA tensor, the twin for a CPU tensor."""
+    return _dispatch(int8_group_conv_f32_cuda, int8_group_conv_f32_torch, x, w, ep, stride, pad,
+                     dil, groups, act)

@@ -6,6 +6,11 @@ use).
 package; ``YOLOModel`` instantiates the layers as ``model.{i}`` (so the JAX
 ``model_{i}`` parameter names carry over) and walks them with a dict of
 saved features.
+
+``spd_stem`` is the JAX option of the same name: True computes layer 0, and
+``"all"`` every dense 3x3 stride-2 pad-1 ``Conv`` layer of the YAML, through
+the exact space-to-depth rewrite (``ops/spd_stem.py``), with unchanged
+parameters.
 """
 
 from __future__ import annotations
@@ -188,7 +193,8 @@ def parse_model_yaml(
     )
 
 
-def _build_module(spec: LayerSpec, c1: int, extras: Dict[str, Any]) -> nn.Module:
+def _build_module(spec: LayerSpec, c1: int, extras: Dict[str, Any],
+                  spd_stem: Union[bool, str] = False) -> nn.Module:
     a = spec.args
     if spec.module == "Conv":
         k = a[1] if len(a) > 1 else 1
@@ -197,7 +203,11 @@ def _build_module(spec: LayerSpec, c1: int, extras: Dict[str, Any]) -> nn.Module
         g = a[4] if len(a) > 4 else 1
         d = a[5] if len(a) > 5 else 1
         act = a[6] if len(a) > 6 else True
-        return M.Conv(c1, a[0], k, s, p, g, d, act)
+        # the JAX rule (build.py _build_module): layer 0, or under "all" every
+        # layer, when it is a dense k3/s2/p1 conv
+        spd = bool(spd_stem and (spec.i == 0 or spd_stem == "all") and k == 3 and s == 2
+                   and p in (None, 1) and g == 1 and d == 1)
+        return M.Conv(c1, a[0], k, s, p, g, d, act, spd=spd)
     if spec.module == "Bottleneck":
         return M.Bottleneck(c1, a[0], a[1] if len(a) > 1 else True)
     if spec.module == "C2f":
@@ -232,14 +242,20 @@ class YOLOModel(nn.Module):
     plans of the input sizes served so far are kept in ``int8_plans``.
     ``stem=True`` runs layer 0 as the fused stem kernel (``Conv.fused_stem``,
     the Predictor's ``spd_serving``), outside the int8 plan; ``sparse=True``
-    runs a 3D head's one-to-one regression on its top-K patches. Both are
-    serving routes: eval only, chosen per call.
+    runs a 3D head's one-to-one regression on its top-K patches (dense under
+    int8). Both are serving routes: eval only, chosen per call. ``spd_stem``
+    (False, True or "all") builds the space-to-depth convs; the fused stem
+    of ``stem=True`` still serves layer 0.
     """
 
-    def __init__(self, spec: ModelSpec, fast_eval: bool = False, ch: int = 3):
+    def __init__(self, spec: ModelSpec, fast_eval: bool = False, ch: int = 3,
+                 spd_stem: Union[bool, str] = False):
         super().__init__()
+        if spd_stem not in (False, True, "all"):
+            raise ValueError(f"spd_stem must be False, True or 'all', got {spd_stem!r}")
         self.spec = spec
         self.fast_eval = fast_eval
+        self.spd_stem = spd_stem
         chans = []
         mods = []
         extras = dict(spec.yaml_extras)
@@ -251,9 +267,9 @@ class YOLOModel(nn.Module):
             else:
                 c1 = chans[s.f[0]]
             mod = (
-                _build_module(s, c1, extras)
+                _build_module(s, c1, extras, spd_stem)
                 if s.n == 1
-                else nn.Sequential(*(_build_module(s, c1 if j == 0 else s.c2, extras)
+                else nn.Sequential(*(_build_module(s, c1 if j == 0 else s.c2, extras, spd_stem)
                                      for j in range(s.n)))
             )
             mods.append(mod)
@@ -279,8 +295,8 @@ class YOLOModel(nn.Module):
                 return saved[j if j >= 0 else spec.i + j]
 
             inp = [_lookup(j) for j in spec.f] if isinstance(spec.f, tuple) else _lookup(spec.f)
-            if spec.module == "v10Detect3d":  # float only: plan_int8 refuses it
-                out = layer(inp, one2many=one2many, sparse=sparse)
+            if spec.module == "v10Detect3d":
+                out = layer(inp, one2many=one2many, sparse=sparse, plan=plan)
             elif spec.module in HEAD_MODULES:
                 out = layer(inp, one2many=one2many, plan=plan)
             elif stem and spec.i == 0:
@@ -320,10 +336,11 @@ def build_model(
     fast_eval: bool = False,
     device: Union[str, torch.device] = "cuda",
     seed: int = 0,
+    spd_stem: Union[bool, str] = False,
 ) -> Tuple[YOLOModel, ModelSpec]:
     """YAML -> (YOLOModel with seeded random weights on ``device``, spec)."""
     dev = resolve_device(device)
     spec = parse_model_yaml(cfg, scale=scale, nc=nc)
-    model = YOLOModel(spec, fast_eval=fast_eval)
+    model = YOLOModel(spec, fast_eval=fast_eval, spd_stem=spd_stem)
     init_weights(model, torch.Generator().manual_seed(seed))
     return model.to(dev).eval(), spec

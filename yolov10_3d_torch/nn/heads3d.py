@@ -29,7 +29,9 @@ width; ``deform`` makes each branch's first conv a modulated deformable conv
 standard branches only: with ``dsconv``, ``use_predecessors``,
 ``common_head`` or ``deform`` a sparse request runs the dense head
 (``sparse_ok``), whose maps it then equals exactly; ``half_channels`` stays
-sparse.
+sparse. Under int8 (``plan``, ``nn/quant.py``) the head runs its dense route
+too, as the JAX head's ``_fusable`` refuses the int8 mode: its patches would
+compute the unquantized function.
 
 The full output (training, or ``one2many``) also carries the ``dep``
 branches' first-conv outputs per scale, ``o2m_embs`` and ``o2o_embs``, the
@@ -133,13 +135,14 @@ class V10Detect3d(nn.Module):
     def o2o_heads(self) -> List[nn.ModuleList]:
         return [getattr(self, name) for name in BRANCHES]
 
-    def _forward_feat(self, xs, heads) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
+    def _forward_feat(self, xs, heads, plan
+                      ) -> Tuple[List[torch.Tensor], List[Optional[torch.Tensor]]]:
         """All eight branches densely at every scale -> (maps, the dep
         branch's first-conv outputs, None under common_head)."""
         ys, embs = [], []
         for i, x in enumerate(xs):
             if self.common_head:
-                x = run(self.common[i], x, None)
+                x = run(self.common[i], x, plan)
             outputs, emb = {}, None
             for name, h in zip(BRANCHES, heads):
                 mods, inp = h[i], x
@@ -148,10 +151,10 @@ class V10Detect3d(nn.Module):
                              for k in PREDECESSORS[name]]
                     inp = torch.cat([x] + [p.detach() for p in preds], 1)
                 if name == "dep" and not self.common_head:
-                    emb = run(mods[0], inp, None)
-                    outputs[name] = run(mods[1:], emb, None)
+                    emb = run(mods[0], inp, plan)
+                    outputs[name] = run(mods[1:], emb, plan)
                 else:
-                    outputs[name] = run(mods, inp, None)
+                    outputs[name] = run(mods, inp, plan)
             ys.append(torch.cat([outputs[n] for n in BRANCHES], 1))
             embs.append(emb)
         return ys, embs
@@ -222,10 +225,11 @@ class V10Detect3d(nn.Module):
         return torch.cat(outs, -1).reshape(B, K, -1)
 
     def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True,
-                sparse: bool = False) -> Dict[str, List]:
+                sparse: bool = False, plan=None) -> Dict[str, List]:
         """``one2many=False``: the serving output {"one2one": maps}; with
         ``sparse`` the one-to-one regression branches run on the top-K
-        patches (eval only; outside ``sparse_ok`` the dense head runs).
+        patches (eval only; outside ``sparse_ok`` and under an int8 ``plan``
+        the dense head runs).
         Otherwise {"one2many", "one2one"} maps, the dep embeddings
         {"o2m_embs", "o2o_embs"}, and with a DepthPredictor its (logits,
         depth, embeddings) as ``depth_maps``."""
@@ -234,13 +238,13 @@ class V10Detect3d(nn.Module):
         xs_det = [x.detach() for x in xs]
         if sparse and self.training:
             raise ValueError("the sparse 3D head serves eval only")
-        if sparse and self.sparse_ok:
+        if sparse and self.sparse_ok and plan is None:
             one2one, o2o_embs = self._sparse_forward_feat(xs_det, self.o2o_heads()), [None] * len(xs)
         else:
-            one2one, o2o_embs = self._forward_feat(xs_det, self.o2o_heads())
+            one2one, o2o_embs = self._forward_feat(xs_det, self.o2o_heads(), plan)
         if not one2many:
             return {"one2one": one2one}
-        one2many_maps, o2m_embs = self._forward_feat(xs, list(self.o2m_heads))
+        one2many_maps, o2m_embs = self._forward_feat(xs, list(self.o2m_heads), plan)
         out = {"one2many": one2many_maps, "one2one": one2one, "o2m_embs": o2m_embs,
                "o2o_embs": o2o_embs}
         if hasattr(self, "fgdm_predictor"):

@@ -22,6 +22,9 @@ whole Conv + BatchNorm + SiLU in one launch of the stem kernel
 
 ``Conv(..., deform=True)`` (the 3D head's ``deform`` option) convolves with
 ``DeformableConv2d``, a modulated deformable conv (``ops/deform.py``).
+``Conv(..., spd=True)`` (``build_model(..., spd_stem=...)``) computes its 3x3
+stride-2 conv through space-to-depth (``ops/spd_stem.py``), with the same
+weight.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from torch import nn
 
 from ..kernels.stem import fold_bn, stem_conv
 from ..ops.deform import deform_conv2d
+from ..ops.spd_stem import spd_conv
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # torch momentum == 1 - flax keep-fraction (0.97)
@@ -91,14 +95,19 @@ class DeformableConv2d(nn.Module):
 class Conv(nn.Module):
     """Conv2d (no bias) + BatchNorm + SiLU; ``g`` groups (depthwise at g == c1).
     ``deform`` convolves with a ``DeformableConv2d`` instead, which ignores
-    ``g`` and ``d`` as the JAX Conv does.
+    ``g`` and ``d`` as the JAX Conv does. ``spd`` computes a 3x3 stride-2
+    pad-1 conv as its space-to-depth rewrite (float only: outside the int8
+    gate, as in JAX).
     ``int8_cache`` holds the int8 weights of int8 serving (``nn/quant.py``),
     ``stem_cache`` the folded weights of ``fused_stem``."""
 
     def __init__(self, c1: int, c2: int, k: int = 1, s: int = 1,
                  p: Optional[int] = None, g: int = 1, d: int = 1, act: bool = True,
-                 deform: bool = False):
+                 deform: bool = False, spd: bool = False):
         super().__init__()
+        if spd and (deform or k != 3 or s != 2 or autopad(k, p, d) != 1 or g != 1 or d != 1):
+            raise ValueError("the space-to-depth rewrite takes a dense 3x3 stride-2 pad-1 conv")
+        self.spd = spd
         if deform:
             self.conv = DeformableConv2d(c1, c2, k, s, autopad(k, p, d))
         else:
@@ -113,7 +122,8 @@ class Conv(nn.Module):
         route = plan.route(self, x) if plan is not None else None
         if route is not None:
             return plan.run(self, x, route)
-        return self.act(self.bn(self.conv(x)))
+        y = spd_conv(x, self.conv.weight) if self.spd else self.conv(x)
+        return self.act(self.bn(y))
 
     def fused_stem(self, x: torch.Tensor) -> torch.Tensor:
         """The eval forward of a 3 -> C, 3x3 stride-2 stem with SiLU as one

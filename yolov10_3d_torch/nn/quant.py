@@ -4,8 +4,13 @@ modules.py`` ``set_int8_mode``, ``int8_conv`` and ``_Int8Conv``).
 A gated ``Conv`` quantizes its input per tensor (static scale 8/127, or
 dynamic max-abs), its weights per output channel, accumulates int8 x int8
 in int32 and dequantizes before its BatchNorm and activation. The gate is
-JAX's: groups 1 and either a kh >= 3 filter or, in scope ``k3deep``, an
-input of at most ``INT8_DEEP_HW`` pixels. Other convs stay float32.
+JAX's (``nn/modules.py`` ``Conv``, in its order): a deformable conv and a
+space-to-depth conv (``spd_stem``) are never gated; in scope ``all`` every
+other ``Conv`` is, grouped and depthwise ones included; otherwise groups 1
+and either a kh >= 3 filter or, in scope ``k3deep``, an input of at most
+``INT8_DEEP_HW`` pixels. Other convs, and the raw ``nn.Conv2d`` layers (the
+heads' last 1x1s, ``DepthPredictor``, a deformable conv's offsets), stay
+float32.
 
 The configuration is an ``Int8Config`` value that the caller passes with
 each forward (``YOLOModel.forward(x, int8=cfg)``; the Predictor holds its
@@ -22,9 +27,18 @@ gated conv:
   (3x3 stride 1, K3). They requantize to the consumer's static scale in
   their epilogue and hand it int8 NHWC codes, which equal the consumer's own
   quantization of the float output up to float rounding in that epilogue.
-- ``int8_conv_f32`` for every other gated conv: float32 NCHW out, so the
-  float parts of the net (residual adds, attention, depthwise convs, the
-  float 1x1s) see what they see in the JAX int8 path.
+- ``int8_conv_f32`` for every other gated conv with groups 1, a 1x1 or 3x3
+  filter, stride 1 or 2 and no dilation: float32 NCHW out, so the float
+  parts of the net (residual adds, attention, the float convs) see what
+  they see in the JAX int8 path.
+- ``int8_group_conv_f32`` for the rest (scope ``all``'s grouped and
+  depthwise convs, and any other filter), float32 NCHW out as well.
+
+``V10Detect3d`` is planned like ``V10Detect``: each branch's convs at its
+level's size; the first conv of a standard branch [Conv(k1), Conv(k2), 1x1]
+other than ``dep`` (whose first output is also the dep embedding) is a
+fused producer for its second, as the box branches' are. Under int8 the
+head runs its dense route (JAX ``heads3d.py`` ``_fusable``).
 
 Quantization follows JAX's ``int8_conv`` as XLA compiles it under ``jit``:
 a division by a constant becomes a product with the constant's float32
@@ -45,11 +59,14 @@ from torch import nn
 
 from ..kernels import int8 as K8
 from . import heads as Hd
+from . import heads3d as H3
 from . import modules as M
 
 INT8_DEEP_HW = 512  # k3deep: a 1x1 conv quantizes when its input has H*W <= this
 STATIC_ACT_SCALE = 8.0 / 127.0  # the JAX Predictor's scale: |x| <= 8 after SiLU on BN'd nets
-ROUTES = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32")  # = kernel names
+ROUTES = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
+          "int8_group_conv_f32")  # = kernel names
+SCOPES = ("k3", "k3deep", "all")
 
 
 def _recip32(v: float) -> float:
@@ -64,18 +81,15 @@ _RECIP_127 = _recip32(127.0)
 class Int8Config:
     """int8 serving options. ``act_scale``: the static activation scale, or
     None for the dynamic max-abs scale (float epilogues only). ``scope``:
-    ``k3`` or ``k3deep`` (``all``, which adds grouped and depthwise convs,
-    is not ported)."""
+    ``k3``, ``k3deep`` or ``all`` (every ``Conv``, grouped and depthwise
+    ones included)."""
 
     act_scale: Optional[float] = STATIC_ACT_SCALE
     scope: str = "k3deep"
 
     def __post_init__(self):
-        if self.scope == "all":
-            raise NotImplementedError(
-                "int8 scope 'all' (grouped and depthwise convs) is not ported")
-        if self.scope not in ("k3", "k3deep"):
-            raise ValueError(f"int8 scope must be 'k3' or 'k3deep', got {self.scope!r}")
+        if self.scope not in SCOPES:
+            raise ValueError(f"int8 scope must be one of {SCOPES}, got {self.scope!r}")
         if self.act_scale is not None and not self.act_scale > 0:
             raise ValueError(f"act_scale must be > 0 or None, got {self.act_scale}")
 
@@ -110,18 +124,34 @@ def _pad4(c: int) -> int:
 
 
 def gated(conv: M.Conv, hw: int, cfg: Int8Config) -> bool:
-    """The JAX gate (``nn/modules.py`` Conv): g == 1 and kh >= 3, or in
-    k3deep a 1x1 whose input has ``hw`` <= INT8_DEEP_HW pixels."""
+    """The JAX gate (``nn/modules.py`` Conv), in its order: never a
+    deformable or a space-to-depth conv; in scope all, every other conv;
+    else g == 1 and kh >= 3, or in k3deep a 1x1 whose input has ``hw`` <=
+    INT8_DEEP_HW pixels."""
     c = conv.conv
+    if not isinstance(c, nn.Conv2d) or conv.spd:
+        return False
+    if cfg.scope == "all":
+        return True
     if c.groups != 1:
         return False
     return c.kernel_size[0] >= 3 or (cfg.scope == "k3deep" and hw <= INT8_DEEP_HW)
 
 
+def _grouped(c: nn.Conv2d) -> bool:
+    """Whether ``int8_conv_f32`` cannot take the conv (its kernel is dense,
+    1x1 or 3x3, stride 1 or 2, undilated): the route is then
+    ``int8_group_conv_f32``, which takes any of them."""
+    k = c.kernel_size
+    return (c.groups != 1 or k[0] != k[1] or k[0] not in (1, 3) or c.stride[0] != c.stride[1]
+            or c.stride[0] not in (1, 2) or c.padding[0] != c.padding[1]
+            or c.dilation != (1, 1))
+
+
 @dataclasses.dataclass
 class _Weights:
     key: tuple
-    w: torch.Tensor  # int8 (N, kh, kw, Kp)
+    w: torch.Tensor  # int8 (N, kh, kw, Kp); (N, kh, kw, C / g) unpadded on the grouped route
     sw: torch.Tensor  # float32 (N,)
     ep: torch.Tensor  # float32 (4, N): deq (for a static scale), mean, mul, beta
 
@@ -139,7 +169,8 @@ def _weights(conv: M.Conv, act_scale: Optional[float]) -> _Weights:
         return cached
     with torch.no_grad():
         wq, sw = quantize_weight(conv.conv.weight.float())
-        wq = pad_channels(wq.permute(0, 2, 3, 1), _pad4(wq.shape[1]))
+        k = wq.shape[1] if _grouped(conv.conv) else _pad4(wq.shape[1])
+        wq = pad_channels(wq.permute(0, 2, 3, 1), k)
         mul = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
         deq = sw * float(np.float32(act_scale)) if act_scale is not None else torch.zeros_like(sw)
         ep = torch.stack([deq, bn.running_mean.float(), mul, bn.bias.float()]).contiguous()
@@ -158,7 +189,8 @@ class Int8Plan:
         self.names = names  # conv -> module path
 
     def counts(self) -> Dict[str, int]:
-        """Kernel launches one forward makes, per route."""
+        """Kernel launches one forward makes, per route (every route, 0 where
+        the plan has none)."""
         return {r: sum(v == r for v in self.routes.values()) for r in ROUTES}
 
     def paths(self) -> Dict[str, str]:
@@ -180,7 +212,7 @@ class Int8Plan:
         c = conv.conv
         scale = self.cfg.act_scale
         w = _weights(conv, scale)
-        kp = w.w.shape[-1]
+        kp = c.in_channels if route == "int8_group_conv_f32" else w.w.shape[-1]
         if x.dtype == torch.int8:  # a fused producer's codes, at the static scale
             ep = w.ep
             xq = pad_channels(x, kp)
@@ -188,21 +220,24 @@ class Int8Plan:
             q, sx = quantize_act(x, scale)
             xq = pad_channels(q.permute(0, 2, 3, 1), kp)
             ep = w.ep if scale is not None else torch.cat([(w.sw * sx)[None], w.ep[1:]])
+        act = isinstance(conv.act, nn.SiLU)
+        if route == "int8_group_conv_f32":
+            return K8.int8_group_conv_f32(xq, w.w, ep, c.stride[0], c.padding[0],
+                                          c.dilation[0], c.groups, act)
         if route == "int8_mm_fused":
             B, H, W_, _ = xq.shape
             out = K8.int8_mm_fused(xq.view(-1, kp), w.w.view(-1, kp), ep, _recip32(scale))
             return out.view(B, H, W_, -1)
         if route == "int8_conv3x3_fused":
             return K8.int8_conv3x3_fused(xq, w.w, ep, _recip32(scale))
-        return K8.int8_conv_f32(xq, w.w, ep, c.stride[0], c.padding[0],
-                                isinstance(conv.act, nn.SiLU))
+        return K8.int8_conv_f32(xq, w.w, ep, c.stride[0], c.padding[0], act)
 
 
 def _fusable(p: M.Conv, c: M.Conv, routes: Dict[M.Conv, str], cfg: Int8Config):
     """The fused route of producer ``p`` feeding only gated ``c``, or None."""
     if cfg.act_scale is None or p not in routes or c not in routes:
         return None
-    if not isinstance(p.act, nn.SiLU):
+    if not isinstance(p.act, nn.SiLU) or p.conv.groups != 1:  # K2 and K3 are dense
         return None
     k, s, pad, d = p.conv.kernel_size, p.conv.stride, p.conv.padding, p.conv.dilation
     if s != (1, 1) or d != (1, 1):
@@ -225,6 +260,27 @@ def _producer_pairs(model: nn.Module):
         elif isinstance(m, Hd.V10Detect):  # the box branches
             for seq in (*m.cv2, *m.one2one_cv2):
                 yield seq[0], seq[1]
+        elif isinstance(m, H3.V10Detect3d):  # the standard branches but dep's
+            for heads in (m.o2o_heads(), list(m.o2m_heads)):
+                for name, levels in zip(H3.BRANCHES, heads):
+                    for seq in levels if name != "dep" else ():
+                        if isinstance(seq[0], M.Conv) and isinstance(seq[1], M.Conv):
+                            yield seq[0], seq[1]
+
+
+def _head_branches(head: nn.Module, lv: int, one2many: bool):
+    """The modules of a v10Detect or v10Detect3d head that run at level ``lv``."""
+    if isinstance(head, H3.V10Detect3d):
+        mods = [h[lv] for h in head.o2o_heads()]
+        if one2many:
+            mods += [h[lv] for h in head.o2m_heads]
+        if head.common_head:
+            mods.append(head.common[lv])
+        return mods
+    mods = [head.one2one_cv2[lv], head.one2one_cv3[lv]]
+    if one2many:
+        mods += [head.cv2[lv], head.cv3[lv]]
+    return mods
 
 
 def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
@@ -232,12 +288,11 @@ def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
     """The int8 plan of a ``YOLOModel`` for an (H, W) input, cached on the
     model. Every conv of a YOLOv10 layer sees the layer's input size (the
     strided convs come first in their blocks); the head's convs see their
-    level's. ``stem=True`` (the fused stem route of ``spd_serving``) leaves
-    layer 0 out of the int8 convs, as the JAX package's space-to-depth stem
-    takes it out of its int8 gate."""
-    if model.spec.head_module != "v10Detect":
-        raise NotImplementedError(f"int8 serving of {model.spec.head_module} is not ported "
-                                  "(the JAX Predictor serves the 3D head in float)")
+    level's (a v10Detect or v10Detect3d head). ``stem=True`` (the fused stem
+    route of ``spd_serving``) leaves layer 0 out of the int8 convs, as the
+    JAX package's space-to-depth stem takes it out of its int8 gate."""
+    if model.spec.head_module not in ("v10Detect", "v10Detect3d"):
+        raise NotImplementedError(f"int8 serving of {model.spec.head_module}")
     H, W = hw
     stride = max(model.spec.strides) if model.spec.strides else 32
     if H % stride or W % stride:
@@ -250,19 +305,16 @@ def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
     sizes: Dict[M.Conv, int] = {}
     for s, layer in zip(spec.layers, model.model):
         if s.i == spec.head_index:
-            for lv, st in enumerate(spec.strides):
-                branches = [layer.one2one_cv2[lv], layer.one2one_cv3[lv]]
-                if one2many:
-                    branches += [layer.cv2[lv], layer.cv3[lv]]
-                for br in branches:
+            for lv, st in enumerate(spec.strides[: layer.nl]):
+                for br in _head_branches(layer, lv, one2many):
                     sizes.update((c, (H // st) * (W // st)) for c in br.modules()
                                  if isinstance(c, M.Conv))
             continue
         f0 = s.f if isinstance(s.f, int) else s.f[0]
         st = 1 if s.i == 0 else spec.layers[f0 if f0 >= 0 else s.i + f0].stride
         sizes.update((c, (H // st) * (W // st)) for c in layer.modules() if isinstance(c, M.Conv))
-    routes = {c: "int8_conv_f32" for c, n in sizes.items()
-              if gated(c, n, cfg) and not (stem and c is model.model[0])}
+    routes = {c: "int8_group_conv_f32" if _grouped(c.conv) else "int8_conv_f32"
+              for c, n in sizes.items() if gated(c, n, cfg) and not (stem and c is model.model[0])}
     for p, c in _producer_pairs(model):
         fused = _fusable(p, c, routes, cfg)
         if fused:
