@@ -29,13 +29,19 @@ Phases, each fatal on failure:
                 medians); two yardsticks the port never calls: torch._int_mm
                 on a 1x1 shape (the GEMM alone) and cuDNN's fp16
                 channels-last conv on a 3x3 shape (a float16 route's cost).
-  3c. int8-group - the grouped int8 kernel (int8_group_conv_f32, scope all)
-                at every distinct grouped shape of YOLOv10-S's scope-all plan
-                at 640x640 and YOLOv10-S-3D's at 384x1280, batch 1 and 8,
+  3c. int8-group - the depthwise int8 kernel from float input
+                (int8_dw_conv_f32, the route int8_group_conv_f32 of scope
+                all) at every distinct grouped shape of YOLOv10-S's scope-all
+                plan at 640x640 and YOLOv10-S-3D's at 384x1280, batch 1 and
+                8, and the P3 class branch's 80x80x128 at batch 32, float
                 inputs larger than L2: bit for bit against its twin; device
                 ms beside its bytes bound and cuDNN's float32 grouped conv2d
-                on the same shape (the library column); the sums over one
-                forward's launches.
+                on the same float input (the library column); with
+                --parent-root DIR also the parent checkout's route on the
+                same inputs (quantize_act, the transposing copy, and DIR's
+                int8_group_conv_f32 kernel built from DIR's source), bit for
+                bit against the new one; the sums over one forward's
+                launches.
   4. serving  - YOLOv10-S (full width, nc=80, seeded random weights) answers
                 three float32 predict requests at 640x640 (batch 1, a uniform
                 batch of 8 HD frames and a mixed-shape list) and two int8 ones
@@ -65,11 +71,14 @@ Phases, each fatal on failure:
   4f. int8-all - YOLOv10-S at 640x640 with Int8Config(scope="all") (the
                 fused stem), B=1 and 8, calibrated for it: the plan's counts
                 per route, each kernel launched per forward as often as the
-                plan has it; the detections held to the same forward with
-                every kernel replaced by its twin on the card ([serve]'s int8
-                bars); every gated conv held to the CPU int8 path given the
-                GPU's input; device ms per forward (captured graph) beside
-                k3deep and float32.
+                plan has it (Int8Plan.launches: every grouped conv on
+                int8_dw_conv_f32, none on the codes-in entry); the detections
+                held to the same forward with every kernel replaced by its
+                twin on the card ([serve]'s int8 bars); the same at the
+                dynamic scale (act_scale None: int8_act_absmax before each
+                depthwise launch); every gated conv held to the CPU int8
+                path given the GPU's input; device ms per forward (captured
+                graph) beside k3deep and float32.
   4b. serve3d - YOLOv10-S-3D (full width, nc=3, seeded random weights
                 calibrated on the served frames) answers KITTI-sized requests
                 at 384x1280 (375x1242 uint8 frames): one frame and eight at
@@ -272,17 +281,20 @@ Imports no JAX.
 
     python3 chip_smoke.py --sweep NAMES [--package-root DIR]
 
-with NAMES a comma-separated subset of stem, k1, int8, k2tiles, val2d-std05,
-learn2d-epoch, serve3d-std05 and serve, runs the card line, the build of the
-named kernels and their timings only
+with NAMES a comma-separated subset of stem, k1, int8, k2tiles, group,
+dwtiles, val2d-std05, learn2d-epoch, serve3d-std05 and serve, runs the card line, the
+build of the named kernels and their timings only
 (the stem and K1 as in phase 3, the int8 convs as in phase 3b and K2 as in
-phase 3, "k2tiles" every tile K2 compiles, "val2d-std05" [val2d] at
+phase 3, "k2tiles" every tile K2 compiles, "group" phase 3c, "dwtiles" every
+tile of its kernel, "val2d-std05" [val2d] at
 BatchNorm std 0.5, "learn2d-epoch" [learn2d]'s epoch with and without its
 saves, "serve3d-std05" [serve3d]'s std 0.5 check on frames upsampled by
 cv2's rule and the witnesses of its miss, "serve" the device kernels of one float32 request), with the
 ``yolov10_3d_torch``
 package found under DIR (default: this checkout), so that two checkouts'
-kernels can be timed in one call on one card.
+kernels can be timed in one call on one card. ``--parent-root DIR``, with or
+without --sweep, adds to [int8-group] the grouped route of the checkout
+under DIR, built from its source and timed on the same inputs.
 """
 
 from __future__ import annotations
@@ -328,8 +340,18 @@ KERNELS = {
                       "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv, no TPU kernel)"},
     "int8_group_conv_f32": {
         "route": "cuda", "source": "yolov10_3d_torch/csrc/int8_group_conv.cu",
-        "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv with feature_group_count > 1, "
-                    "scope all; no TPU kernel)"},
+        "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv with feature_group_count > 1 "
+                    "from int8 codes, scope all; no TPU kernel)",
+        "path": "the codes-in entry: a grouped conv with C / g > 1 or fed codes by a fused "
+                "producer, which no shipped model has; held to its twin in [kernels]"},
+    "int8_dw_conv_f32": {
+        "route": "cuda", "source": "yolov10_3d_torch/csrc/int8_group_conv.cu",
+        "replaces": "yolov10_3d_tpu/nn/modules.py:68 (XLA int8_conv + BatchNorm + act with "
+                    "feature_group_count = C from float input, scope all; no TPU kernel)"},
+    "int8_act_absmax": {
+        "route": "cuda", "source": "yolov10_3d_torch/csrc/int8_group_conv.cu",
+        "replaces": "yolov10_3d_tpu/nn/modules.py:77 (int8_conv's dynamic scale, "
+                    "jnp.max(jnp.abs(x)); no TPU kernel)"},
     "hsv_jitter": {"route": "cuda", "source": "yolov10_3d_torch/csrc/hsv_jitter.cu",
                    "replaces": "yolov10_3d_tpu/ops/pallas_preprocess.py:113"},
     "stem_conv": {"route": "cuda", "source": "yolov10_3d_torch/csrc/stem_conv.cu",
@@ -338,10 +360,12 @@ KERNELS = {
 SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
                    "stem_conv")
 SERVE3D_KERNELS = ("stem_conv",)
-# [int8-all] and [int8-3d]: every int8 route of scope all, and the fused stem
-INT8_ALL_KERNELS = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
-                    "int8_group_conv_f32", "stem_conv")
-INT8_ROUTES = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32", "int8_group_conv_f32")
+# [int8-all] and [int8-3d]: the kernels of scope all's routes, and the fused
+# stem; [int8-all]'s dynamic-scale forwards add the reduction
+INT8_ALL_KERNELS = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32", "int8_dw_conv_f32",
+                    "stem_conv")
+INT8_KERNELS = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32", "int8_group_conv_f32",
+                "int8_dw_conv_f32", "int8_act_absmax")  # = Int8Plan.launches()'s keys
 SERVER_KERNELS = ("decode_detect", "stem_conv")
 SOURCES_KERNELS = ("decode_detect", "stem_conv")
 SOURCES_FRAMES = 32  # 640x480: 28 JPEG, 3 PNG, 1 BMP
@@ -808,6 +832,10 @@ def phase_kernels():
             check_group_conv(1, 48, 160, 256, 256, 256, 3, 2, 1, 1, False, "3D model.5.cv2 "),
             check_group_conv(32, 80, 80, 128, 128, 128, 3, 1, 1, 1, True,
                              "2D one2one_cv3.0.0.0 ")),
+        "int8_dw_conv_f32": (
+            check_dw_conv(1, 48, 160, 256, 3, 2, 1, False, "3D model.5.cv2 "),
+            check_dw_conv(32, 80, 80, 128, 3, 1, 1, True, "2D one2one_cv3.0.0.0 ")),
+        "int8_act_absmax": (check_absmax(1), check_absmax(32)),
         "hsv_jitter": (check_k4(1), check_k4(16)),
         "stem_conv": stem,
     }
@@ -956,7 +984,7 @@ def twins_on_card():
     from yolov10_3d_torch.kernels import stem as KS
 
     swaps = [(K8, n) for n in ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
-                               "int8_group_conv_f32")]
+                               "int8_group_conv_f32", "int8_dw_conv_f32", "int8_act_absmax")]
     swaps.append((KS, "stem_conv"))
     saved = {(mod, n): getattr(mod, f"{n}_cuda") for mod, n in swaps}
     try:
@@ -1135,28 +1163,221 @@ def group_plan_shapes(yaml: str, hw) -> list:
     return [(*k, n) for k, n in counts.items()]
 
 
-def phase_group_kernel(card: str) -> dict:
-    """The grouped kernel at every distinct shape of both scope-all plans
-    (YOLOv10-S at 640x640, YOLOv10-S-3D at 384x1280), batch 1 and 8: bit for
-    bit, and the per-forward sums of kernel, bound and cuDNN ms."""
+def _dw_inputs(seed: int, B: int, C: int, H: int, W: int, k: int):
+    """Seeded float32 input buffers (more than twice the L2 cache in all, so
+    that a graph of one call per buffer reads them cold; |x| beyond 8 in
+    places, clamped codes at the static scale), int8 weights, epilogue rows
+    at the static scale and the weight scales."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    n_buf = -(-L2_COLD_BYTES // (B * C * H * W * 4))
+    xs = [3 * torch.randn((B, C, H, W), generator=g, device="cuda") for _ in range(n_buf)]
+    w = torch.randint(-127, 128, (C, k, k, 1), generator=g, device="cuda", dtype=torch.int8)
+    sw = 0.01 * (0.5 + torch.rand(C, generator=g, device="cuda"))
+    ep = torch.stack([sw * (8 / 127), 0.2 * torch.randn(C, generator=g, device="cuda"),
+                      0.5 + torch.rand(C, generator=g, device="cuda"),
+                      0.2 * torch.randn(C, generator=g, device="cuda")]).contiguous()
+    return xs, w, ep, sw
+
+
+class ParentGroupRoute:
+    """The grouped route of another checkout (``--parent-root DIR``), as its
+    Int8Plan.run ran it at the static scale: ``quantize_act``, the
+    transposing copy to NHWC codes, and DIR's ``int8_group_conv_f32`` kernel
+    built here from DIR's csrc/int8_group_conv.cu (the same C signature as
+    the codes-in entry)."""
+
+    def __init__(self, root: Path, tmp: Path):
+        import ctypes
+
+        from yolov10_3d_torch.kernels import _build
+
+        src = root / "yolov10_3d_torch" / "csrc" / "int8_group_conv.cu"
+        lib = tmp / "libparent_int8_group_conv.so"
+        t0 = time.perf_counter()
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
+                       capture_output=True, text=True, timeout=600)
+        print(f"[int8-group] the parent's route: {src} built in {time.perf_counter() - t0:.1f} s")
+        self.fn = ctypes.CDLL(str(lib)).int8_group_conv_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.fn.argtypes = [p, p, p, i, p, i, i, i, i, i, i, i, i, i, i, i, p]
+        self.fn.restype = i
+
+    def __call__(self, x, w, ep, scale, stride, pad, act):
+        import torch
+
+        from yolov10_3d_torch.kernels import int8 as K8
+
+        q, _ = K8.quantize_act(x, scale)
+        xq = q.permute(0, 2, 3, 1).contiguous()
+        (B, H, W, C), (N, kh, kw, _) = xq.shape, w.shape
+        Ho, Wo = K8.conv_out(H, W, kh, kw, stride, pad, 1)
+        out = torch.empty((B, N, Ho, Wo), dtype=torch.float32, device=x.device)
+        err = self.fn(xq.data_ptr(), w.data_ptr(), ep.data_ptr(), int(act), out.data_ptr(), B, H,
+                      W, C, N, C, kh, kw, stride, pad, 1,
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's int8_group_conv_f32 failed: cudaError {err}")
+        return out
+
+
+def check_dw_conv(B: int, H: int, W: int, C: int, k: int, stride: int, pad: int, act: bool,
+                  tag: str = "", parent=None, plain: bool = True) -> dict:
+    """The depthwise kernel from float input (static scale 8/127) against its
+    twin on the same CUDA tensors, bit for bit, over input buffers larger
+    than the L2 cache in all: device ms of the kernel, cuDNN's float32
+    grouped conv of the same float input (the library column: no
+    quantization, no epilogue), the parent's route on the same inputs when
+    ``parent`` is given (bit for bit against the kernel too), and with
+    ``plain`` the twin's and the eager call's ms; the bound in bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    torch.backends.cudnn.allow_tf32 = False
+    scale = 8 / 127
+    xs, w, ep, sw = _dw_inputs(B * H + C + k, B, C, H, W, k)
+    call = lambda x: K8.int8_dw_conv_f32_cuda(x, w, ep, sw, scale, stride, pad, 1, act)  # noqa: E731
+    twin = lambda x: K8.int8_dw_conv_f32_torch(x, w, ep, sw, scale, stride, pad, 1, act)  # noqa: E731
+    got, ref = call(xs[0]), twin(xs[0])
+    torch.cuda.synchronize()
+    what = f"int8_dw_conv_f32 B={B} {H}x{W}x{C} k{k} s{stride}"
+    if got.shape != ref.shape or not torch.equal(got, ref):
+        raise AssertionError(f"{what}: kernel differs from its twin")
+    ms = time_device([lambda x=x: call(x) for x in xs])
+    wf = w.permute(0, 3, 1, 2).float().contiguous()
+    lib_ms = time_device([lambda x=x: F.conv2d(x, wf, None, stride, pad, 1, C) for x in xs])
+    parent_ms = None
+    if parent is not None:
+        if not torch.equal(parent(xs[0], w, ep, scale, stride, pad, act), got):
+            raise AssertionError(f"{what}: the parent's route differs from the new one")
+        parent_ms = time_device([lambda x=x: parent(x, w, ep, scale, stride, pad, act)
+                                 for x in xs])
+    plain_ms = time_device([lambda x=x: twin(x) for x in xs[:2]], replays=2) if plain else None
+    call_ms = time_cuda(lambda: call(xs[0]), 100) if plain else None
+    nbytes = xs[0].numel() * 4 + got.numel() * 4 + w.numel() + ep.numel() * 4
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    r = {"shape": [B, C, H, W, k, stride], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms, "parent_ms": parent_ms,
+         "eager_call_ms": call_ms}
+    print(f"[int8_dw_conv_f32] {tag}B={B} {H}x{W}x{C} k{k} s{stride} p{pad} act={int(act)}: "
+          f"bit-exact vs twin{' and the parent route' if parent else ''} | kernel {ms:.4f} ms "
+          f"(device, graph replay, {len(xs)} input buffers) | bound {bound:.4f} ms (bytes: "
+          f"{nbytes / 1e6:.2f} MB), share {bound / ms:.3f} | cuDNN float32 grouped conv2d "
+          f"(library, no quantization or epilogue) {lib_ms:.4f} ms"
+          + (f" | parent route {parent_ms:.4f} ms ({parent_ms / ms:.2f}x)" if parent else "")
+          + (f" | twin {plain_ms:.4f} ms | eager call {call_ms:.4f} ms" if plain else ""))
+    return r
+
+
+def check_absmax(B: int) -> dict:
+    """The dynamic scale's reduction on YOLOv10-S's largest grouped input at
+    640 (model.5.cv2: 256 x 80 x 80 a frame) against its twin (abs, amax),
+    bit for bit, inputs larger than L2; beside torch.linalg.vector_norm(x,
+    inf), one library call computing the same max; bound: the input's bytes."""
+    import torch
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    xs, _, _, _ = _dw_inputs(B + 1, B, 256, 80, 80, 3)
+    xs[0][-1, 7, 5, 3] = -97.25  # the max, on a negative value of the last image
+    got, ref = K8.int8_act_absmax_cuda(xs[0]), K8.int8_act_absmax_torch(xs[0])
+    torch.cuda.synchronize()
+    if not torch.equal(got, ref) or float(got) != 97.25:
+        raise AssertionError(f"int8_act_absmax B={B}: {float(got)} against the twin's {float(ref)}")
+    ms = time_device([lambda x=x: K8.int8_act_absmax_cuda(x) for x in xs])
+    plain_ms = time_device([lambda x=x: K8.int8_act_absmax_torch(x) for x in xs], replays=5)
+    lib_ms = time_device([lambda x=x: torch.linalg.vector_norm(x, float("inf")) for x in xs])
+    call_ms = time_cuda(lambda: K8.int8_act_absmax_cuda(xs[0]), 100)
+    bound = xs[0].numel() * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"[int8_act_absmax] B={B} 256x80x80: bit-exact vs twin | kernel {ms:.4f} ms | bound "
+          f"{bound:.4f} ms (bytes), share {bound / ms:.3f} | twin {plain_ms:.4f} ms | "
+          f"torch.linalg.vector_norm(x, inf) (library) {lib_ms:.4f} ms | eager call "
+          f"{call_ms:.4f} ms")
+    return {"shape": [B, 256, 80, 80], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+            "eager_call_ms": call_ms}
+
+
+def dw_tile_sweep() -> None:
+    """int8_dw_conv_f32 at every distinct grouped shape of both scope-all
+    plans, B=1 and 8, on each candidate tile (whole planes, 1 to 32 a
+    block; bands of about 32 to 2048 work items): device ms over inputs
+    larger than L2, each tile bit for bit against the twin, beside the tile
+    dw_tiles picks."""
+    import torch
+
+    from yolov10_3d_torch.kernels import int8 as K8
+
+    scale = 8 / 127
+    for yaml, hw in (("yolov10s.yaml", (IMGSZ, IMGSZ)), ("yolov10s_3D.yaml", KITTI_HW)):
+        for H, W, C, _, _, k, st, pad, _, act, count in group_plan_shapes(yaml, hw):
+            Ho, Wo = K8.conv_out(H, W, k, k, st, pad, 1)
+            G = -(-Wo // K8.DW_R)
+            for B in (1, 8):
+                xs, w, ep, sw = _dw_inputs(B * H + C + k, B, C, H, W, k)
+                ref = K8.int8_dw_conv_f32_torch(xs[0], w, ep, sw, scale, st, pad, 1, act)
+                cands = {(p, Ho) for p in (1, 2, 4, 8, 16, 32)}
+                cands |= {(1, max(1, min(Ho, round(n / G)))) for n in (32, 64, 128, 256, 512,
+                                                                      1024, 2048)}
+                pick = K8.dw_tiles(B, C, H, W, k, k, st, pad, 1)
+                cands.add((pick.planes, pick.rows))
+                tiles = [t for t in (K8.dw_tile(B, C, H, W, k, k, st, pad, 1, p, r)
+                                     for p, r in sorted(cands)) if t is not None]
+                res = []
+                for t in tiles:
+                    call = lambda x, t=t: K8.int8_dw_conv_f32_cuda(  # noqa: E731
+                        x, w, ep, sw, scale, st, pad, 1, act, tile=t)
+                    if not torch.equal(call(xs[0]), ref):
+                        raise AssertionError(f"[dwtiles] {H}x{W}x{C} k{k} s{st} B={B} {t}: "
+                                             "differs from the twin")
+                    res.append((time_device([lambda x=x: call(x) for x in xs]), t))
+                best = min(res, key=lambda r: r[0])
+                print(f"[dwtiles] {yaml} {H}x{W}x{C} k{k} s{st} x{count} B={B}: "
+                      + ", ".join(f"{t.planes}x{t.rows} ({t.blocks} blocks) {ms:.4f}"
+                                  for ms, t in res)
+                      + f" | dw_tiles picks {pick.planes}x{pick.rows}: "
+                      + f"{next(ms for ms, t in res if t == pick):.4f} ms, best "
+                      + f"{best[1].planes}x{best[1].rows} {best[0]:.4f} ms")
+
+
+def phase_group_kernel(card: str, parent_root: Path = None) -> dict:
+    """The depthwise kernel at every distinct grouped shape of both scope-all
+    plans (YOLOv10-S at 640x640, YOLOv10-S-3D at 384x1280), batch 1 and 8,
+    and the P3 class branch's shape at batch 32: bit for bit, and the
+    per-forward sums of kernel, bound, cuDNN and (with ``parent_root``) the
+    parent's route."""
     out = {}
-    for name, yaml, hw in (("2D", "yolov10s.yaml", (IMGSZ, IMGSZ)),
-                           ("3D", "yolov10s_3D.yaml", KITTI_HW)):
-        shapes = group_plan_shapes(yaml, hw)
-        n = sum(s[-1] for s in shapes)
-        print(f"[int8-group] {name} {yaml} scope all at {hw[0]}x{hw[1]}: {len(shapes)} distinct "
-              f"grouped shapes, {n} launches a forward ({card})")
-        for B in (1, 8):
-            tot = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
-            for H, W, C, N, g, k, st, pad, dil, act, count in shapes:
-                r = check_group_conv(B, H, W, C, N, g, k, st, pad, dil, act,
-                                     tag=f"{name} x{count} ")
-                for key in tot:
-                    tot[key] += count * r[key]
-            out[(name, B)] = tot
-            print(f"[int8-group] {name} B={B} sum over the {n} launches of a forward: kernel "
-                  f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (share "
-                  f"{tot['bound_ms'] / tot['ms']:.3f}), cuDNN float32 {tot['library_ms']:.4f} ms")
+    with tempfile.TemporaryDirectory() as tmp:
+        parent = ParentGroupRoute(parent_root, Path(tmp)) if parent_root else None
+        for name, yaml, hw in (("2D", "yolov10s.yaml", (IMGSZ, IMGSZ)),
+                               ("3D", "yolov10s_3D.yaml", KITTI_HW)):
+            shapes = group_plan_shapes(yaml, hw)
+            n = sum(sh[-1] for sh in shapes)
+            print(f"[int8-group] {name} {yaml} scope all at {hw[0]}x{hw[1]}: {len(shapes)} "
+                  f"distinct grouped shapes, {n} launches a forward, every one depthwise "
+                  f"({card})")
+            for B in (1, 8):
+                tot = {"ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0, "parent_ms": 0.0}
+                for H, W, C, N, g, k, st, pad, dil, act, count in shapes:
+                    if not C == N == g or dil != 1:
+                        raise AssertionError(f"[int8-group] {yaml}: a grouped conv {C}->{N} "
+                                             f"g{g} d{dil} is not depthwise")
+                    r = check_dw_conv(B, H, W, C, k, st, pad, act, f"{name} x{count} ", parent,
+                                      plain=False)
+                    for key in tot:
+                        tot[key] += count * (r[key] or 0.0)
+                out[(name, B)] = tot
+                print(f"[int8-group] {name} B={B} sum over the {n} launches of a forward: kernel "
+                      f"{tot['ms']:.4f} ms, bound {tot['bound_ms']:.4f} ms (share "
+                      f"{tot['bound_ms'] / tot['ms']:.3f}), cuDNN float32 "
+                      f"{tot['library_ms']:.4f} ms, parent route "
+                      + (f"{tot['parent_ms']:.4f} ms" if parent else "not measured (no "
+                         "--parent-root)"))
+        check_dw_conv(32, 80, 80, 128, 3, 1, 1, True, "2D one2one_cv3.0.0.0 ", parent,
+                      plain=False)
     return out
 
 
@@ -1260,40 +1481,49 @@ def phase_int8_all(card: str) -> dict:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     ALL = Int8Config(scope="all")
+    DYN = Int8Config(act_scale=None, scope="all")  # JAX's dynamic max-abs scale
     imgs = smooth_images(np.random.default_rng(7), [(IMGSZ, IMGSZ)] * 8)
     cal, _ = preprocess_batch(imgs, IMGSZ)
     x8 = torch.from_numpy(cal).permute(0, 3, 1, 2).contiguous().cuda()
     gpu = YOLOv10("yolov10s.yaml", device="cuda", seed=0)
     calibrate(gpu.model, x8, cls_max=6.0, int8=ALL)
     model, spec = gpu.model, gpu.spec
-    plan = plan_int8(model, (IMGSZ, IMGSZ), ALL, stem=True).counts()
+    plan = plan_int8(model, (IMGSZ, IMGSZ), ALL, stem=True)
+    want = {"static": plan.launches(),
+            "dynamic": plan_int8(model, (IMGSZ, IMGSZ), DYN, stem=True).launches()}
     print(f"[int8-all] YOLOv10-S at {IMGSZ}x{IMGSZ}, scope all, the fused stem: launches per "
-          f"forward by route {plan} ({card})")
+          f"forward by route {plan.counts()}, by kernel {want['static']} (dynamic scale: "
+          f"{want['dynamic']}) ({card})")
     for B in (1, 8):  # builds and warms every route
-        with torch.inference_mode():
-            model(x8[:B], fast_eval=True, int8=ALL, stem=True)
+        for cfg in (ALL, DYN):
+            with torch.inference_mode():
+                model(x8[:B], fast_eval=True, int8=cfg, stem=True)
     torch.cuda.synchronize()
     reset_launch_counts()
     for B in (1, 8):
         x = x8[:B]
-        before = dict(launch_counts)
-        with torch.inference_mode():
-            maps = model(x, fast_eval=True, int8=ALL, stem=True)["one2one"]
-        got = {k: launch_counts[k] - before[k] for k in INT8_ROUTES}
-        if got != {k: plan[k] for k in INT8_ROUTES} \
-                or launch_counts["stem_conv"] - before["stem_conv"] != 1:
-            raise AssertionError(f"[int8-all] B={B}: launches {got}, plan {plan}")
-        with twins_on_card(), torch.inference_mode():
-            ref = model(x, fast_eval=True, int8=ALL, stem=True)["one2one"]
-        gap = max(float((a - b).abs().max()) for a, b in zip(maps, ref))
-        st = match_all(rows2d(ref, spec.strides, spec.nc), rows2d(maps, spec.strides, spec.nc),
-                       SCORE_TOL_INT8, BOX_TOL_INT8)
-        print(f"[int8-all] B={B}: launches per forward {got} and the stem once, as planned | "
-              f"vs the twins on the card: maps max abs diff {gap:.3g}, {st['n_compared']} "
-              f"detections compared, max score err {st['max_score_err']:.3g} (bar "
-              f"{SCORE_TOL_INT8}), max box err {st['max_box_err']:.3g} px (bar {BOX_TOL_INT8})")
+        for scale, cfg in (("static", ALL), ("dynamic", DYN)):
+            before = dict(launch_counts)
+            with torch.inference_mode():
+                maps = model(x, fast_eval=True, int8=cfg, stem=True)["one2one"]
+            got = {k: launch_counts[k] - before[k] for k in INT8_KERNELS}
+            if got != want[scale] or launch_counts["stem_conv"] - before["stem_conv"] != 1:
+                raise AssertionError(f"[int8-all] B={B} {scale}: launches {got}, plan "
+                                     f"{want[scale]}")
+            with twins_on_card(), torch.inference_mode():
+                ref = model(x, fast_eval=True, int8=cfg, stem=True)["one2one"]
+            gap = max(float((a - b).abs().max()) for a, b in zip(maps, ref))
+            st = match_all(rows2d(ref, spec.strides, spec.nc),
+                           rows2d(maps, spec.strides, spec.nc), SCORE_TOL_INT8, BOX_TOL_INT8)
+            print(f"[int8-all] B={B} {scale} scale: launches per forward {got} and the stem "
+                  f"once, as planned: the {got['int8_dw_conv_f32']} grouped convs on "
+                  f"int8_dw_conv_f32 from float input, {got['int8_group_conv_f32']} on the "
+                  f"codes-in entry | vs the twins on the card: maps max abs diff {gap:.3g}, "
+                  f"{st['n_compared']} detections compared, max score err "
+                  f"{st['max_score_err']:.3g} (bar {SCORE_TOL_INT8}), max box err "
+                  f"{st['max_box_err']:.3g} px (bar {BOX_TOL_INT8})")
     launches = dict(launch_counts)
-    for k in INT8_ALL_KERNELS:
+    for k in (*INT8_ALL_KERNELS, "int8_act_absmax"):
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched on the [int8-all] path")
     cpu = YOLOv10("yolov10s.yaml", device="cpu", seed=0)
@@ -1309,7 +1539,7 @@ def phase_int8_all(card: str) -> dict:
         figs = {name: forward_figures(
             lambda kw=kw: model(x, fast_eval=True, stem=True, **kw)["one2one"])
             for name, kw in (("float32", {}), ("int8 k3deep", {"int8": Int8Config()}),
-                             ("int8 all", {"int8": ALL}))}
+                             ("int8 all", {"int8": ALL}), ("int8 all dynamic", {"int8": DYN}))}
         print(f"[int8-all] B={B} device ms per forward (captured graph, 10 replays; "
               f"{card}): " + ", ".join(f"{n} {f['ms']:.4f} (peak {f['peak_mib']:.0f} MiB)"
                                        for n, f in figs.items()))
@@ -1343,9 +1573,9 @@ def phase_int8_3d(card: str) -> dict:
     cols = {"center3d": (slice(6, 8), BOX_TOL_INT8), "s3d": (slice(8, 11), REG_TOL_3D),
             "dep_un": (slice(11, 12), REG_TOL_3D)}
     scopes = {s: Int8Config(scope=s) for s in ("k3", "k3deep", "all")}
-    plans = {s: plan_int8(model, KITTI_HW, c, stem=True).counts() for s, c in scopes.items()}
+    plans = {s: plan_int8(model, KITTI_HW, c, stem=True).launches() for s, c in scopes.items()}
     print(f"[int8-3d] YOLOv10-S-3D at {KITTI_HW[0]}x{KITTI_HW[1]}, the fused stem, dense head "
-          f"under int8: launches per forward by route {plans} ({card})")
+          f"under int8: launches per forward by kernel {plans} ({card})")
     for B in (1, 8):  # builds and warms every route
         for c in scopes.values():
             with torch.inference_mode():
@@ -1359,8 +1589,8 @@ def phase_int8_3d(card: str) -> dict:
             with torch.inference_mode():
                 maps = model(x, fast_eval=True, int8=c, stem=True)["one2one"]
                 sparse = model(x, fast_eval=True, int8=c, stem=True, sparse=True)["one2one"]
-            got = {k: launch_counts[k] - before[k] for k in INT8_ROUTES}
-            if got != {k: 2 * plans[s][k] for k in INT8_ROUTES}:  # dense, then sparse
+            got = {k: launch_counts[k] - before[k] for k in INT8_KERNELS}
+            if got != {k: 2 * plans[s][k] for k in INT8_KERNELS}:  # dense, then sparse
                 raise AssertionError(f"[int8-3d] {s} B={B}: launches {got}, plan {plans[s]}")
             if not all(torch.equal(a, b) for a, b in zip(maps, sparse)):
                 raise AssertionError(f"[int8-3d] {s} B={B}: a sparse request under int8 differs "
@@ -4933,9 +5163,18 @@ def learn2d_epoch_sweep(card: str, epochs: int = 60) -> None:
                   f"{card})")
 
 
-SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "stem": "stem_conv",
+SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "group": "int8_group_conv",
+          "dwtiles": "int8_group_conv",
+          "stem": "stem_conv",
           "k1": "decode_detect", "val2d-std05": "decode_detect", "learn2d-epoch": "decode_detect",
           "serve3d-std05": "stem_conv"}
+
+
+def parent_root(argv):
+    """``--parent-root DIR``: a checkout whose grouped route [int8-group]
+    times beside this one's, or None."""
+    return Path(argv[argv.index("--parent-root") + 1]).resolve() if "--parent-root" in argv \
+        else None
 
 
 def sweep_only(argv) -> int:
@@ -4944,7 +5183,10 @@ def sweep_only(argv) -> int:
     timings alone, with the ``yolov10_3d_torch`` package found under DIR. NAMES is a comma-separated
     subset of int8 (phase 3b, then K2 at both sites at B=1, 8 and 32 beside
     torch._int_mm), k2tiles (every tile K2 compiles at those six shapes),
-    stem (the stem at 640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
+    group (phase 3c and the dynamic scale's reduction; with
+    ``--parent-root DIR`` beside DIR's grouped route), dwtiles (every
+    candidate tile of int8_dw_conv_f32 at phase 3c's shapes), stem (the stem at
+    640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
     32), val2d-std05 (``val2d_std05_witness``), learn2d-epoch
     (``learn2d_epoch_sweep``) and serve3d-std05 (``serve3d_std05_witness``),
     so that two checkouts' kernels are timed in one call on one card;
@@ -4969,6 +5211,12 @@ def sweep_only(argv) -> int:
     if "int8" in names:
         phase_int8_layers(card)
         k2_sites()
+    if "dwtiles" in names:
+        dw_tile_sweep()
+    if "group" in names:
+        phase_group_kernel(card, parent_root(argv))
+        check_absmax(1)
+        check_absmax(32)
     if "k2tiles" in names:
         k2_tile_sweep()
     if "val2d-std05" in names:
@@ -5013,7 +5261,7 @@ def main() -> int:
     kern = phase_kernels()
     done("build, kernels")
     sweep = phase_int8_layers(card)
-    phase_group_kernel(card)
+    phase_group_kernel(card, parent_root(sys.argv))
     serving, medians = phase_serving(card)
     done("int8-layers, int8-group, serve")
     int8_all = phase_int8_all(card)
@@ -5079,7 +5327,7 @@ def main() -> int:
     learn2d = phase_learn2d(card)
     done("learn2d")
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS},
-                "int8_group_conv_f32": 0}
+                "int8_group_conv_f32": 0, "int8_dw_conv_f32": 0, "int8_act_absmax": 0}
     # K4 and K1; K1 and the stem; K1; K4; K1, the stem, K2, K3 and int8_conv_f32
     for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, learn2d):
         for k in KERNELS:
@@ -5091,7 +5339,7 @@ def main() -> int:
     for k in SOURCES_KERNELS:  # and prediction over files
         launches[k] += sources[k]
     for counts in (int8_all, int8_3d):  # scope all in 2D and 3D, and 3D at k3 and k3deep
-        for k in INT8_ALL_KERNELS:
+        for k in (*INT8_KERNELS, "stem_conv"):
             launches[k] += counts[k]
     if not set(KERNELS) == set(kern) == set(launches) == set(serving):
         raise AssertionError(f"kernel tables disagree: {set(KERNELS)}, {set(kern)}, {set(launches)}")

@@ -357,14 +357,13 @@ def test_int8_kernels_check_inputs(cuda_device):
         K8.int8_conv_f32_cuda(x, w, ep[:, :2].contiguous(), 1, 1, True)
 
 
-# --------------------------------------------------- grouped int8 conv (scope all)
-# (B, H, W, C, N, groups, k, stride, pad, dil, act): depthwise 3x3 stride 1
-# and 2, 7x7 (RepVGGDW) and 5x5 at ragged sizes (the dw kernel, C % 4 == 0);
+# ------------------------------------ grouped int8 conv from codes (scope all)
+# (B, H, W, C, N, groups, k, stride, pad, dil, act), the codes-in entry:
+# depthwise 3x3 stride 1 and 2, 7x7 (RepVGGDW) and 5x5 at ragged sizes;
 # YOLOv10-S's depthwise shapes at 640 (SCDown.cv2 128 at 160x160 stride 2,
 # CIB's 512 at 20x20, the P3 class branch's 128 at 80x80) and the 3D head's
 # 40x128 P3 at batch 8; g = 4 with C/g = 8 (words) and C/g = 3 (bytes), a
-# depthwise C = 6 (the byte kernel), channel multiplier 2, a dense g = 1
-# 5x5, and dilation 2.
+# depthwise C = 6, channel multiplier 2, a dense g = 1 5x5, and dilation 2.
 GROUP_CASES = [(2, 19, 23, 36, 36, 36, 3, 1, 1, 1, True),
                (2, 19, 23, 36, 36, 36, 3, 2, 1, 1, False),
                (1, 20, 20, 128, 128, 128, 7, 1, 3, 1, False),
@@ -432,6 +431,120 @@ def test_int8_group_conv_checks_inputs(cuda_device):
         K8.int8_group_conv_f32_cuda(x.transpose(1, 2), w, ep, 1, 1, 1, 4, True)
     with pytest.raises(ValueError, match="ep must be"):
         K8.int8_group_conv_f32_cuda(x, w, ep[:, :2].contiguous(), 1, 1, 1, 4, True)
+
+
+# ------------------------------- depthwise int8 conv from float input (scope all)
+# (B, C, H, W, k, stride, pad, dil): every kind of shipped shape (3x3 at stride
+# 1 and 2, the 7x7; W 20, 40, 80, 160; H 12 to 80) at batch 1 and 8, ragged
+# planes (W not a multiple of 4: scalar loads and stores; several planes a
+# block), a 5x5, and dilation 2 (the runtime-loop variant)
+DW_CASES = [(1, 128, 80, 80, 3, 1, 1, 1), (8, 128, 80, 80, 3, 1, 1, 1),
+            (1, 256, 80, 80, 3, 2, 1, 1), (8, 512, 40, 40, 3, 2, 1, 1),
+            (1, 512, 20, 20, 7, 1, 3, 1), (8, 512, 20, 20, 7, 1, 3, 1),
+            (8, 256, 20, 20, 3, 1, 1, 1), (1, 256, 48, 160, 3, 2, 1, 1),
+            (8, 64, 48, 160, 3, 1, 1, 1), (1, 512, 24, 80, 3, 2, 1, 1),
+            (8, 512, 12, 40, 7, 1, 3, 1), (8, 256, 12, 40, 3, 1, 1, 1),
+            (1, 24, 13, 11, 3, 1, 1, 1), (8, 20, 13, 11, 7, 1, 3, 1), (8, 12, 17, 9, 3, 2, 1, 1),
+            (1, 6, 9, 13, 5, 1, 2, 1), (2, 8, 15, 15, 3, 1, 2, 2), (3, 5, 7, 6, 3, 2, 1, 1)]
+DW_IDS = ["x".join(map(str, c)) for c in DW_CASES]
+
+
+def _dw_case(seed, B, C, H, W, k, device, spread=3.0):
+    """Float input (|x| beyond 8 in places: codes clamped at the static
+    scale), int8 weights, a realistic epilogue and weight scales."""
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((B, C, H, W), generator=g) * spread
+    w = torch.randint(-127, 128, (C, k, k, 1), generator=g, dtype=torch.int8)
+    sw = 0.01 * (0.5 + torch.rand(C, generator=g))
+    ep = torch.stack([sw * (8 / 127), torch.randn(C, generator=g) * 0.2,
+                      0.5 + torch.rand(C, generator=g), torch.randn(C, generator=g) * 0.2]).float()
+    return x.to(device), w.to(device), ep.contiguous().to(device), sw.to(device)
+
+
+def test_int8_dw_conv_refuses_cpu_tensors():
+    """No silent fallback: the wrapper takes CUDA tensors only; the
+    dispatcher takes the twin for CPU tensors and launches nothing."""
+    x, w, ep, sw = _dw_case(0, 2, 8, 6, 5, 3, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        K8.int8_dw_conv_f32_cuda(x, w, ep, sw, 8 / 127, 1, 1, 1, True)
+    with pytest.raises(ValueError, match="unsupported device"):
+        K8.int8_dw_conv_f32(x.to("meta"), w, ep, sw, 8 / 127, 1, 1, 1, True)
+    before = dict(launch_counts)
+    assert K8.int8_dw_conv_f32(x, w, ep, sw, None, 2, 1, 1, False).shape == (2, 8, 3, 3)
+    assert launch_counts == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_scale", [8 / 127, None], ids=["static", "dynamic"])
+@pytest.mark.parametrize("B,C,H,W,k,stride,pad,dil", DW_CASES, ids=DW_IDS)
+def test_int8_dw_conv_matches_twin(cuda_device, B, C, H, W, k, stride, pad, dil, act_scale):
+    """The depthwise conv from float input against its twin, bit for bit;
+    one launch counted per call, and one of the reduction under the
+    dynamic scale."""
+    x, w, ep, sw = _dw_case(C + k + H, B, C, H, W, k, cuda_device)
+    before = dict(launch_counts)
+    got = K8.int8_dw_conv_f32(x, w, ep, sw, act_scale, stride, pad, dil, True)
+    assert launch_counts["int8_dw_conv_f32"] == before["int8_dw_conv_f32"] + 1
+    assert launch_counts["int8_act_absmax"] == before["int8_act_absmax"] + (act_scale is None)
+    want = K8.int8_dw_conv_f32_torch(x, w, ep, sw, act_scale, stride, pad, dil, True)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_dw_conv_batch_strided_input(cuda_device):
+    """A channel slice of a wider tensor (images apart by more than C H W,
+    as C2f's split hands CIB its input): bit for bit, both scales."""
+    x, w, ep, sw = _dw_case(7, 8, 64, 20, 20, 3, cuda_device)
+    wide = torch.cat([x, x.flip(1)], 1)[:, 32:96]
+    assert not wide.is_contiguous() and wide[0].is_contiguous()
+    for scale in (8 / 127, None):
+        got = K8.int8_dw_conv_f32(wide, w, ep, sw, scale, 1, 1, 1, True)
+        want = K8.int8_dw_conv_f32_torch(wide, w, ep, sw, scale, 1, 1, 1, True)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), scale
+
+
+@pytest.mark.cuda
+def test_int8_dw_conv_extremes(cuda_device):
+    """An all-zero input under the dynamic scale (sx = 1e-12); inputs whose
+    scaled values sit on .5 code boundaries (scale 1/16, so x * 16 is exact:
+    round half to even); inputs far beyond +-127 codes; +-127 codes at every
+    tap of a 7x7 with +-127 weights (the largest sums, both signs), at
+    batch 1 and 8: bit for bit against the twin."""
+    for B in (1, 8):
+        x, w, ep, sw = _dw_case(11, B, 64, 20, 20, 7, cuda_device)
+        zero = torch.zeros_like(x)
+        halves = (torch.randint(-300, 300, x.shape, device=cuda_device) + 0.5) / 16
+        far = x.sign() * 1e4
+        g = torch.Generator().manual_seed(3)
+        signs = (torch.randint(0, 2, x.shape, generator=g) * 2 - 1).float().to(cuda_device)
+        wmax = torch.full_like(w, 127)
+        wmax[::2] = -127
+        for xin, ww, scale in ((zero, w, None), (halves, w, 1 / 16), (far, w, 8 / 127),
+                               (far, w, None), (8 * signs, wmax, 8 / 127), (signs, wmax, None)):
+            for act in (True, False):
+                got = K8.int8_dw_conv_f32(xin, ww, ep, sw, scale, 1, 3, 1, act)
+                want = K8.int8_dw_conv_f32_torch(xin, ww, ep, sw, scale, 1, 3, 1, act)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (B, scale, act)
+
+
+@pytest.mark.cuda
+def test_int8_dw_conv_checks_inputs(cuda_device):
+    x, w, ep, sw = _dw_case(1, 2, 12, 8, 8, 3, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        K8.int8_dw_conv_f32_cuda(x.transpose(2, 3), w, ep, sw, 8 / 127, 1, 1, 1, True)
+    with pytest.raises(TypeError):
+        K8.int8_dw_conv_f32_cuda(x.double(), w, ep, sw, 8 / 127, 1, 1, 1, True)
+    with pytest.raises(TypeError):
+        K8.int8_dw_conv_f32_cuda(x, w.float(), ep, sw, 8 / 127, 1, 1, 1, True)
+    with pytest.raises(ValueError, match="w must be"):
+        K8.int8_dw_conv_f32_cuda(x, w[:6].contiguous(), ep, sw, 8 / 127, 1, 1, 1, True)
+    with pytest.raises(ValueError, match="ep must be"):
+        K8.int8_dw_conv_f32_cuda(x, w, ep[:, :6].contiguous(), sw, None, 1, 1, 1, True)
+    with pytest.raises(ValueError, match="CUDA"):
+        K8.int8_dw_conv_f32_cuda(x, w, ep, sw.cpu(), None, 1, 1, 1, True)
 
 
 # ------------------------------------------------------------ K4 hsv_jitter

@@ -219,7 +219,9 @@ def test_checkpoints_and_unknown_sources_raise():
     with pytest.raises(FileNotFoundError, match="unsupported source"):
         model.predict("notes.txt")
     with pytest.raises(KeyError, match="unknown config keys"):
-        model.predict(np.zeros((64, 64, 3), np.uint8), half=True)
+        model.predict(np.zeros((64, 64, 3), np.uint8), no_such_key=True)
+    # a key of JAX's default.yaml whose behaviour the port lacks is accepted, as in JAX
+    assert len(model.predict(np.zeros((64, 64, 3), np.uint8), imgsz=64, half=True)) == 1
 
 
 def test_predict_classes_filter():

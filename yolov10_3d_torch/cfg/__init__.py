@@ -16,50 +16,111 @@ from typing import Any, Dict, List, Optional, Tuple
 
 CFG_DIR = Path(__file__).resolve().parent
 
-# The cfg/default.yaml keys the Predictor and the trainers read, with the JAX
-# defaults. spd_serving (on, as in the JAX package) serves layer 0 through
-# the fused stem kernel (nn/modules.py Conv.fused_stem). The 2D trainer
-# raises on the training options it has not ported (engine/trainer.py); the
-# 3D trainer runs every 3D key here, the distillation and DINOv2 teacher
-# keys included (engine/trainer3d.py, models/dino.py).
+# Every key of the JAX package's cfg/default.yaml, with its value after JAX's
+# coercion (get_cfg().to_dict()), copied here so that the card needs no
+# PyYAML; and the port's own ``stream``. A key is accepted wherever JAX
+# accepts it. The engine reads the keys it has ported; a path that needs a
+# key's behaviour the port lacks refuses on its own: the port builds the
+# detection heads only, so the classify and pose keys (crop_fraction, kobj,
+# pose) have no path to reach (ROADMAP item 13, other heads and tasks); live
+# streams (stream_buffer) raise naming item 22; the 2D trainer raises on the
+# training options it has not ported (engine/trainer.py). Keys no JAX engine
+# path reads (half, save_conf, plots, project, ...) are accepted and do
+# nothing, as in JAX. spd_serving (on, as in the JAX package)
+# serves layer 0 through the fused stem kernel (nn/modules.py
+# Conv.fused_stem); the 3D trainer runs every 3D key, the distillation and
+# DINOv2 teacher keys included (engine/trainer3d.py, models/dino.py).
 DEFAULTS: Dict[str, Any] = {
-    # predict
-    "conf": None,
-    "max_det": 50,
-    "imgsz": [960, 640],
-    "classes": None,
-    "int8": False,
-    "spd_serving": True,
-    "device_preprocess": True,  # same-shape uint8 chunks letterboxed on the device
-    "source": None,
-    "stream": False,
-    "vid_stride": 1,
-    "save_txt": False,
-    "save_crop": False,
+    # task and mode
+    "task": "detect",
+    "mode": "train",
     # train
     "model": None,
     "data": None,
-    "device": None,
     "epochs": 400,
+    "time": None,
+    "patience": 150,
     "batch": 32,
+    "imgsz": [960, 640],
     "save": True,
-    "save_dir": None,
     "save_period": -1,
     "ckpt_period_steps": 0,
-    "val": True,
+    "val_period": 1,
     "cache": False,
+    "device": None,
     "workers": 4,
+    "project": None,
+    "name": None,
+    "exist_ok": False,
+    "pretrained": True,
     "optimizer": "AdamW",
+    "verbose": True,
     "seed": 5,
+    "deterministic": True,
     "single_cls": False,
     "rect": False,
     "cos_lr": False,
     "close_mosaic": 10,
     "resume": False,
+    "device_preprocess": True,  # same-shape uint8 chunks letterboxed on the device
+    "spd_serving": True,
     "device_aug": False,
     "amp": True,
     "fraction": 1.0,
+    "profile": False,
+    "freeze": None,
     "multi_scale": False,
+    "overlap_mask": True,
+    "mask_ratio": 4,
+    "dropout": 0.0,
+    "pretrained_backbone": True,
+    # val / test
+    "val": True,
+    "split": "val",
+    "save_json": False,
+    "save_hybrid": False,
+    "conf": None,
+    "iou": 0.7,
+    "max_det": 50,
+    "half": False,
+    "dnn": False,
+    "plot_labels": False,
+    "plots": False,
+    # predict
+    "source": None,
+    "stream": False,  # the port's own: predict(stream=True) yields Results
+    "vid_stride": 1,
+    "stream_buffer": False,
+    "visualize": False,
+    "augment": False,
+    "agnostic_nms": False,
+    "classes": None,
+    "retina_masks": False,
+    "embed": None,
+    "use_o2m_depth": False,
+    "use_dino_depth": False,
+    "dino_path": None,
+    # visualize
+    "show": False,
+    "save_frames": False,
+    "save_txt": False,
+    "save_conf": False,
+    "save_crop": False,
+    "show_labels": True,
+    "show_conf": True,
+    "show_boxes": True,
+    "line_width": None,
+    # export
+    "format": "stablehlo",
+    "keras": False,
+    "optimize": False,
+    "int8": False,
+    "dynamic": False,
+    "simplify": False,
+    "opset": None,
+    "workspace": 4,
+    "nms": False,
+    # optimizer / schedule
     "lr0": 0.001,
     "lrf": 0.01,
     "momentum": 0.937,
@@ -67,32 +128,20 @@ DEFAULTS: Dict[str, Any] = {
     "warmup_epochs": 3.0,
     "warmup_momentum": 0.8,
     "warmup_bias_lr": 0.1,
+    # loss gains
     "box": 5.0,
     "cls": 1.0,
-    "dfl": 1.5,
-    "nbs": 64,
-    "hsv_h": 0.015,
-    "hsv_s": 0.7,
-    "hsv_v": 0.4,
-    "degrees": 0.0,
-    "scale": 0.4,
-    "shear": 0.0,
-    "perspective": 0.0,
-    "flipud": 0.0,
-    "fliplr": 0.5,
-    "mosaic": 1.0,
-    "mosaic9": 0.0,
-    "copy_paste": 0.0,  # the segment task's (item 13); detection draws nothing for it
-    "patience": 150,
-    "val_period": 1,
-    "pretrained": True,
-    # 3D loss gains
     "loss2d": 2.0,
     "depth": 1.0,
     "offset3d": 10.0,
     "size3d": 1.0,
     "heading": 1.0,
-    # 3D task-aligned assignment
+    "dfl": 1.5,
+    "pose": 12.0,
+    "kobj": 1.0,
+    "label_smoothing": 0.0,
+    "nbs": 64,
+    # task-aligned assignment
     "tal_topk": 8,
     "tal_alpha": 0.5,
     "tal_beta": 1.0,
@@ -101,41 +150,116 @@ DEFAULTS: Dict[str, Any] = {
     "tal_2d": True,
     "kps_dist_metric": "l1",
     "constrain_anchors": True,
-    # 3D training extras and the KITTI dataset's augmentation
+    # 3D training extras
     "htl": False,
     "close_mixup": 0,
     "max_depth_threshold": 120,
     "min_depth_threshold": 1,
     "min_scale": 0.8,
     "max_scale": 1.2,
-    "translate": 0.1,
-    "random_crop": 0.5,
-    "mixup": 0.5,
-    "cam_dis": False,
-    "kitti_resolution": None,
-    "load_depth_maps": False,
-    "fgdm_loss": False,
-    "fgdm_loss_weight": 2,
-    "use_o2m_depth": False,
-    "use_dino_depth": False,
+    "overfit": False,
     "distillation": False,
     "distillation_temp": 2,
     "distillation_weight": 0.75,
     "distillation_loss": "soft",
     "distillation_no_mixup": True,
+    "load_depth_maps": False,
+    "fgdm_loss": False,
+    "fgdm_loss_weight": 2,
     "fgdm_supervision": False,
     "fgdm_supervision_weight": 1,
-    "dino_path": None,
+    # augmentation
+    "hsv_h": 0.015,
+    "hsv_s": 0.7,
+    "hsv_v": 0.4,
+    "degrees": 0.0,
+    "translate": 0.1,
+    "scale": 0.4,
+    "shear": 0.0,
+    "perspective": 0.0,
+    "flipud": 0.0,
+    "fliplr": 0.5,
+    "random_crop": 0.5,
+    "bgr": 0.0,
+    "mosaic": 1.0,
+    "mosaic9": 0.0,
+    "mixup": 0.5,
+    "cam_dis": False,
+    "kitti_resolution": None,
+    "copy_paste": 0.0,  # the segment task's (item 13); detection draws nothing for it
+    "auto_augment": "randaugment",
+    "erasing": 0.4,
+    "crop_fraction": 1.0,
+    "cfg": None,
+    "tracker": "botsort.yaml",
+    "save_dir": None,
+    "weights": None,
+}
+
+# JAX's typed key groups (yolov10_3d_tpu/cfg/__init__.py), for _coerce
+CFG_FLOAT_KEYS = {
+    "warmup_epochs", "box", "cls", "dfl", "degrees", "shear", "time",
+    "loss2d", "depth", "offset3d", "size3d", "heading",
+    "tal_alpha", "tal_beta", "tal_gamma",
+}
+CFG_FRACTION_KEYS = {
+    "dropout", "iou", "lr0", "lrf", "momentum", "weight_decay",
+    "warmup_momentum", "warmup_bias_lr", "label_smoothing", "hsv_h", "hsv_s",
+    "hsv_v", "translate", "scale", "perspective", "flipud", "fliplr", "bgr",
+    "mosaic", "mixup", "copy_paste", "conf", "fraction", "random_crop",
+}
+CFG_INT_KEYS = {
+    "epochs", "patience", "workers", "seed", "close_mosaic",
+    "mask_ratio", "max_det", "vid_stride", "line_width", "workspace", "nbs",
+    "save_period", "val_period", "ckpt_period_steps", "tal_topk", "close_mixup",
+}
+CFG_BOOL_KEYS = {
+    "save", "exist_ok", "verbose", "deterministic", "single_cls", "rect",
+    "cos_lr", "overlap_mask", "val", "save_json", "save_hybrid", "half",
+    "dnn", "plots", "show", "save_txt", "save_conf", "save_crop",
+    "save_frames", "show_labels", "show_conf", "visualize", "augment",
+    "agnostic_nms", "retina_masks", "show_boxes", "keras", "optimize",
+    "int8", "dynamic", "simplify", "nms", "profile", "multi_scale", "spd_serving",
+    "tal_2d", "tal_3d", "constrain_anchors", "htl", "overfit",
+    "distillation", "load_depth_maps", "fgdm_loss", "fgdm_supervision",
+    "use_o2m_depth", "use_dino_depth", "plot_labels", "pretrained_backbone",
+    "cam_dis", "amp", "stream_buffer", "device_preprocess", "device_aug",
 }
 
 
+_TRUE, _FALSE = ("true", "1", "yes"), ("false", "0", "no")
+
+
+def _coerce(key: str, v: Any) -> Any:
+    """JAX's coercion: int keys to int (not bools), float and fraction keys
+    to float, bool keys given as strings by their spelling; None stays. A
+    string that spells neither true nor false raises, where JAX reads it as
+    False: ``spd_serving="all"`` (a build option's value) must not serve
+    silently without the fused stem."""
+    if v is None:
+        return v
+    try:
+        if key in CFG_INT_KEYS and not isinstance(v, bool):
+            return int(v)
+        if key in CFG_FLOAT_KEYS or key in CFG_FRACTION_KEYS:
+            return float(v)
+        if key in CFG_BOOL_KEYS and isinstance(v, str):
+            if v.lower() not in _TRUE + _FALSE:
+                raise ValueError(f"not a bool spelling ({'/'.join(_TRUE + _FALSE)})")
+            return v.lower() in _TRUE
+    except (TypeError, ValueError) as e:
+        raise ValueError(f"config key '{key}'={v!r}: {e}") from e
+    return v
+
+
 def get_cfg(overrides: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """DEFAULTS < overrides; an unknown key is an error, as in the JAX get_cfg."""
-    overrides = dict(overrides or {})
+    """DEFAULTS < overrides, coerced as JAX's get_cfg coerces; an unknown key
+    raises KeyError, as in JAX, except with the value None, which JAX drops."""
+    overrides = {k: v for k, v in (overrides or {}).items() if v is not None or k in DEFAULTS}
     unknown = sorted(set(overrides) - set(DEFAULTS))
     if unknown:
         raise KeyError(f"unknown config keys {unknown}; valid keys: {sorted(DEFAULTS)}")
-    return {**DEFAULTS, **overrides}
+    return {k: _coerce(k, v) for k, v in {**DEFAULTS, **overrides}.items()}
 
 
 def load_dataset_yaml(path) -> Dict[str, Any]:

@@ -22,7 +22,9 @@ launch_counts: Dict[str, int] = {
     "int8_mm_fused": 0,  # K2, kernels/int8.py
     "int8_conv3x3_fused": 0,  # K3, kernels/int8.py
     "int8_conv_f32": 0,  # kernels/int8.py
-    "int8_group_conv_f32": 0,  # kernels/int8.py, csrc/int8_group_conv.cu
+    "int8_group_conv_f32": 0,  # kernels/int8.py, csrc/int8_group_conv.cu (codes in)
+    "int8_dw_conv_f32": 0,  # kernels/int8.py, csrc/int8_group_conv.cu (depthwise, float in)
+    "int8_act_absmax": 0,  # the dynamic scale's reduction before int8_dw_conv_f32
     "hsv_jitter": 0,  # K4, kernels/hsv.py
     "stem_conv": 0,  # the fused serving stem, kernels/stem.py
 }

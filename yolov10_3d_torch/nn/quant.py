@@ -32,7 +32,12 @@ gated conv:
   parts of the net (residual adds, attention, the float convs) see what
   they see in the JAX int8 path.
 - ``int8_group_conv_f32`` for the rest (scope ``all``'s grouped and
-  depthwise convs, and any other filter), float32 NCHW out as well.
+  depthwise convs, and any other filter), float32 NCHW out as well. A
+  depthwise conv on it (every grouped conv of the shipped models) takes its
+  float NCHW input as it arrives and quantizes inside the kernel
+  (``int8_dw_conv_f32``: one launch, or two under the dynamic scale); a
+  grouped conv with C / g > 1, or one fed codes by a fused producer, which no
+  shipped plan has, is quantized first and takes the codes-in kernel.
 
 ``V10Detect3d`` is planned like ``V10Detect``: each branch's convs at its
 level's size; the first conv of a standard branch [Conv(k1), Conv(k2), 1x1]
@@ -50,7 +55,7 @@ weight scale are data, and the divisions by them stay divisions.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, FrozenSet, Optional, Tuple
 
 import numpy as np
 import torch
@@ -58,6 +63,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import int8 as K8
+from ..kernels.int8 import RECIP_127, quantize_act, recip32
 from . import heads as Hd
 from . import heads3d as H3
 from . import modules as M
@@ -65,16 +71,8 @@ from . import modules as M
 INT8_DEEP_HW = 512  # k3deep: a 1x1 conv quantizes when its input has H*W <= this
 STATIC_ACT_SCALE = 8.0 / 127.0  # the JAX Predictor's scale: |x| <= 8 after SiLU on BN'd nets
 ROUTES = ("int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
-          "int8_group_conv_f32")  # = kernel names
+          "int8_group_conv_f32")  # kernel names; the grouped route also runs int8_dw_conv_f32
 SCOPES = ("k3", "k3deep", "all")
-
-
-def _recip32(v: float) -> float:
-    """float32 reciprocal of float32(v), as XLA folds ``x / constant``."""
-    return float(np.float32(1.0) / np.float32(v))
-
-
-_RECIP_127 = _recip32(127.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,22 +92,10 @@ class Int8Config:
             raise ValueError(f"act_scale must be > 0 or None, got {self.act_scale}")
 
 
-def quantize_act(x: torch.Tensor, act_scale: Optional[float]) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``int8_conv``'s activation quantization: (int8 codes, float32 scale)."""
-    if act_scale is None:
-        sx = x.abs().amax() * _RECIP_127 + 1e-12
-        q = x / sx  # a 0-dim tensor on x's device: a true division on the card too
-    else:
-        # a fill on the device, not a host copy: legal inside a CUDA graph capture
-        sx = torch.full((), act_scale, dtype=torch.float32, device=x.device)
-        q = x * _recip32(act_scale)
-    return torch.round(q).clamp_(-127, 127).to(torch.int8), sx
-
-
 def quantize_weight(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``int8_conv``'s weight quantization of an OIHW float weight: (int8
     OIHW codes, float32 per-output-channel scale)."""
-    sw = w.abs().amax(dim=(1, 2, 3)) * _RECIP_127 + 1e-12
+    sw = w.abs().amax(dim=(1, 2, 3)) * RECIP_127 + 1e-12
     wq = torch.round(w / sw[:, None, None, None]).clamp_(-127, 127).to(torch.int8)
     return wq, sw
 
@@ -182,16 +168,31 @@ class Int8Plan:
     """The route of every gated conv of one model at one input size."""
 
     def __init__(self, cfg: Int8Config, hw: Dict[M.Conv, int], routes: Dict[M.Conv, str],
-                 names: Dict[M.Conv, str]):
+                 names: Dict[M.Conv, str], codes_in: FrozenSet[M.Conv] = frozenset()):
         self.cfg = cfg
         self.hw = hw  # input H*W of every conv the forward runs
         self.routes = routes  # gated conv -> route, in forward order
         self.names = names  # conv -> module path
+        self.codes_in = codes_in  # the gated convs a fused producer hands int8 codes
 
     def counts(self) -> Dict[str, int]:
         """Kernel launches one forward makes, per route (every route, 0 where
         the plan has none)."""
         return {r: sum(v == r for v in self.routes.values()) for r in ROUTES}
+
+    def launches(self) -> Dict[str, int]:
+        """Kernel launches one forward makes, per kernel (``launch_counts``'
+        int8 keys): the grouped route splits into ``int8_dw_conv_f32`` (and
+        ``int8_act_absmax`` under the dynamic scale) for a depthwise conv fed
+        float input, ``int8_group_conv_f32`` otherwise."""
+        out = dict.fromkeys((*ROUTES, "int8_dw_conv_f32", "int8_act_absmax"), 0)
+        for conv, r in self.routes.items():
+            if r == "int8_group_conv_f32" and _dw_float_in(conv, conv in self.codes_in):
+                out["int8_dw_conv_f32"] += 1
+                out["int8_act_absmax"] += self.cfg.act_scale is None
+            else:
+                out[r] += 1
+        return out
 
     def paths(self) -> Dict[str, str]:
         """Module path -> route of the gated convs."""
@@ -212,6 +213,11 @@ class Int8Plan:
         c = conv.conv
         scale = self.cfg.act_scale
         w = _weights(conv, scale)
+        act = isinstance(conv.act, nn.SiLU)
+        if route == "int8_group_conv_f32" and _dw_float_in(conv, x.dtype == torch.int8):
+            x = x if x[0].is_contiguous() else x.contiguous()  # a no-op on the shipped models
+            return K8.int8_dw_conv_f32(x, w.w, w.ep, w.sw, scale, c.stride[0], c.padding[0],
+                                       c.dilation[0], act)
         kp = c.in_channels if route == "int8_group_conv_f32" else w.w.shape[-1]
         if x.dtype == torch.int8:  # a fused producer's codes, at the static scale
             ep = w.ep
@@ -220,17 +226,23 @@ class Int8Plan:
             q, sx = quantize_act(x, scale)
             xq = pad_channels(q.permute(0, 2, 3, 1), kp)
             ep = w.ep if scale is not None else torch.cat([(w.sw * sx)[None], w.ep[1:]])
-        act = isinstance(conv.act, nn.SiLU)
         if route == "int8_group_conv_f32":
             return K8.int8_group_conv_f32(xq, w.w, ep, c.stride[0], c.padding[0],
                                           c.dilation[0], c.groups, act)
         if route == "int8_mm_fused":
             B, H, W_, _ = xq.shape
-            out = K8.int8_mm_fused(xq.view(-1, kp), w.w.view(-1, kp), ep, _recip32(scale))
+            out = K8.int8_mm_fused(xq.view(-1, kp), w.w.view(-1, kp), ep, recip32(scale))
             return out.view(B, H, W_, -1)
         if route == "int8_conv3x3_fused":
-            return K8.int8_conv3x3_fused(xq, w.w, ep, _recip32(scale))
+            return K8.int8_conv3x3_fused(xq, w.w, ep, recip32(scale))
         return K8.int8_conv_f32(xq, w.w, ep, c.stride[0], c.padding[0], act)
+
+
+def _dw_float_in(conv: M.Conv, codes: bool) -> bool:
+    """Whether a conv on the grouped route runs ``int8_dw_conv_f32``: a
+    depthwise conv given float input (not a fused producer's codes)."""
+    c = conv.conv
+    return not codes and c.groups == c.in_channels == c.out_channels
 
 
 def _fusable(p: M.Conv, c: M.Conv, routes: Dict[M.Conv, str], cfg: Int8Config):
@@ -315,10 +327,12 @@ def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
         sizes.update((c, (H // st) * (W // st)) for c in layer.modules() if isinstance(c, M.Conv))
     routes = {c: "int8_group_conv_f32" if _grouped(c.conv) else "int8_conv_f32"
               for c, n in sizes.items() if gated(c, n, cfg) and not (stem and c is model.model[0])}
+    codes_in = set()
     for p, c in _producer_pairs(model):
         fused = _fusable(p, c, routes, cfg)
         if fused:
             routes[p] = fused
+            codes_in.add(c)
     names = {m: n for n, m in model.named_modules() if m in sizes}
-    plan = model.int8_plans[key] = Int8Plan(cfg, sizes, routes, names)
+    plan = model.int8_plans[key] = Int8Plan(cfg, sizes, routes, names, frozenset(codes_in))
     return plan
