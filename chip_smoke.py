@@ -178,7 +178,7 @@ Phases, each fatal on failure:
   6b. host-aug - the host augmentation's C++ library (native/host_aug.cc,
                 built with g++) against its numpy twins (data/cv2_rules.py;
                 this host has no cv2): host-mode items of the same set from
-                one seed, 32 at the JAX defaults and 8 with degrees 10,
+                one seed, 12 at the JAX defaults and 4 with degrees 10,
                 shear 2, perspective 5e-4 and mosaic9 0.5, equal bit for bit
                 in every key and in the generator's final state; ms library
                 against twin (warpAffine and warpPerspective 1280²→640², HSV
@@ -194,6 +194,22 @@ Phases, each fatal on failure:
                 Then device_aug=True, close_mosaic=1, half the set, 2
                 epochs: tile batches and K4 in the first, host batches in
                 the second.
+  6c'. train-options - the trainer's options ported last (ROADMAP queue 1,
+                item 1) on the [train] set with 16 tall (480x640) and 16 wide
+                (640x320) frames added, YOLOv10-S at 640, batch 16, amp:
+                rect (an epoch and rect validation, K1 on non-square maps),
+                multi_scale (an epoch at 480/640/800), cache "ram" and "disk"
+                (two epochs each): ms a step, img/s and loader-wait share an
+                epoch; the first two batches of each option stepped on the
+                card and the CPU at [train-lockstep]'s bars (a parameter
+                beyond them held to a float64 step: within twice the CPU
+                float32's distance from it, plus the bar); amp (JAX's
+                bfloat16 rule) on the card no further from float64 than 2x
+                the CPU's amp step; device_train_augment with crop_hw !=
+                out_hw on the card (K4) vs the CPU (images 1e-6, labels
+                equal); data-parallel steps (world 1 under NCCL, 2 gloo ranks
+                on cuda:0) against the one-process step on the global batch
+                at [train-lockstep]'s bars, with their ms a step.
   6d. head3d-options - YOLOv10-S-3D with each head option set of
                 tests/test_torch_head3d_options.py (dsconv, use_predecessors,
                 common_head, half_channels, deform and two combinations;
@@ -273,7 +289,7 @@ Phases, each fatal on failure:
                 scored beside it.
 
 Each path (serving, int8-all, serve3d, int8-3d, server, sources, val3d, train,
-train-host, head3d-options, distill3d, dino-val, json3d, ckpt, val2d, learn3d, learn2d) is
+train-host, train-options, head3d-options, distill3d, dino-val, json3d, ckpt, val2d, learn3d, learn2d) is
 driven with the launch counts set to 0 just before it and read just after. The last three lines are
 the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
 {...}}.
@@ -3113,7 +3129,7 @@ def isolated_steps(trainer, amp: bool, n: int = 5) -> list:
 
 
 def phase_train(card: str, data: Path) -> dict:
-    """YOLOv10.train on the synthetic set ``data`` in amp (bf16 autocast;
+    """YOLOv10.train on the synthetic set ``data`` in amp (bfloat16, JAX's rule;
     no float32 run: the script's time goes to the learn-proofs, and the last
     float32 figures are PERF.md's). Returns the launch counts."""
     import torch
@@ -3149,7 +3165,7 @@ def phase_train(card: str, data: Path) -> dict:
     ms = statistics.median(steady)
     traced_ms = sum(times[i] for i in profiled)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    print(f"[train] YOLOv10-S amp (bf16 autocast) {steps} micro-steps of 16 at 640x640, "
+    print(f"[train] YOLOv10-S amp (bfloat16, JAX's rule) {steps} micro-steps of 16 at 640x640, "
           f"{state.optimizer.updates} optimizer updates (accumulate {state.optimizer.accumulate}): "
           f"median {ms:.1f} ms/step ({len(steady)} steady steps, not traced; all: "
           f"{', '.join(f'{t:.0f}' for t in times)} ms), {16 / ms * 1e3:.1f} img/s; epoch "
@@ -3280,7 +3296,7 @@ def phase_train3d_lockstep(card: str) -> dict:
 
 def phase_train3d(card: str) -> dict:
     """YOLOv10("yolov10s_3D.yaml").train on a synthetic KITTI tree: two
-    epochs with per-epoch AP40 validation in amp (bf16 autocast), then one
+    epochs with per-epoch AP40 validation in amp (bfloat16, JAX's rule), then one
     epoch of a ``fgdm_predictor: true`` model with the depth maps, the FGDM
     loss and HTL. Returns the hand kernels' launches."""
     import torch
@@ -4708,7 +4724,9 @@ def last_ckpt_witness(model, state, last: Path, data: Path, tmp: Path) -> dict:
     return {"bytes": len(written), "val": val}
 
 
-HOST_AUG_SAMPLES = 32  # [host-aug]'s default-hyp samples, library against twins
+# [host-aug]'s samples, library against twins, at the defaults and with warps
+# (32 and 8 until the script neared its time limit)
+HOST_AUG_SAMPLES, HOST_AUG_WARP_SAMPLES = 12, 4
 HOST_AUG_WARP = {"degrees": 10.0, "shear": 2.0, "perspective": 5e-4, "mosaic9": 0.5}
 
 
@@ -4725,8 +4743,9 @@ def phase_host_aug(card: str, data: Path) -> None:
     """The host augmentation's library (``native/host_aug.cc``, built here
     with g++) against its numpy twins (``data/cv2_rules.py``) on this host,
     which has no cv2: host-mode items of the [train] set from one seed,
-    32 at the JAX defaults and 8 with warps, perspective and mosaic9, equal
-    bit for bit in every key and in the generator's final state; per-op ms
+    12 at the JAX defaults and 4 with warps, perspective and mosaic9 (the 4
+    must take a mosaic9 and a perspective warp), equal bit for bit in every
+    key and in the generator's final state; per-op ms
     library against twin; the loader's img/s alone at workers 0, 2, 4."""
     import numpy as np
 
@@ -4743,24 +4762,37 @@ def phase_host_aug(card: str, data: Path) -> None:
     images = data.parent / "images"
     hyp = get_cfg()
     sample_ms = {}
-    for case, over, n in (("defaults", {}, HOST_AUG_SAMPLES), ("warp", HOST_AUG_WARP, 8)):
-        runs = {}
-        for name, ops in (("library", A.NATIVE), ("twin", A.TWIN)):
-            ds = YOLODataset(images, imgsz=IMGSZ, hyp={**hyp, **over}, seed=11, device_aug=False,
-                             ops=ops)
-            items, ms = [], []
-            for i in range(n):
-                t0 = time.perf_counter()
-                items.append(ds[(7 * i) % len(ds)])
-                ms.append((time.perf_counter() - t0) * 1e3)
-            runs[name] = (items, ds.rng.bit_generator.state, ms)
+    for case, over, n in (("defaults", {}, HOST_AUG_SAMPLES),
+                          ("warp", HOST_AUG_WARP, HOST_AUG_WARP_SAMPLES)):
+        runs, seen = {}, []
+        mosaic9 = A.mosaic9
+        A.mosaic9 = lambda *a, **k: seen.append("mosaic9") or mosaic9(*a, **k)
+        try:
+            for name, ops in (("library", A.NATIVE), ("twin", A.TWIN)):
+                warp = ops.warp_perspective
+                ops = ops._replace(warp_perspective=lambda *a, **k: seen.append(
+                    "perspective") or warp(*a, **k))
+                ds = YOLODataset(images, imgsz=IMGSZ, hyp={**hyp, **over}, seed=11,
+                                 device_aug=False, ops=ops)
+                items, ms = [], []
+                for i in range(n):
+                    t0 = time.perf_counter()
+                    items.append(ds[(7 * i) % len(ds)])
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                runs[name] = (items, ds.rng.bit_generator.state, ms)
+        finally:
+            A.mosaic9 = mosaic9
+        branches = {b: seen.count(b) // 2 for b in ("mosaic9", "perspective")}
+        if over and not all(branches.values()):
+            raise AssertionError(f"host-aug: the warp samples miss a branch {branches}")
         (lib, lib_state, lib_ms), (twin, twin_state, twin_ms) = runs["library"], runs["twin"]
         bad = [(i, k) for i, (a, b) in enumerate(zip(lib, twin)) for k in a
                if not np.array_equal(a[k], b[k])]
         n_boxes = sum(int(it["mask_gt"].sum()) for it in lib)
         sample_ms[case] = (statistics.median(lib_ms), statistics.median(twin_ms))
         print(f"[host-aug] {case} ({over or 'JAX defaults'}): {n} samples at {IMGSZ}, "
-              f"{n_boxes} boxes; library vs twins: {len(bad)} keys differ "
+              f"{n_boxes} boxes, mosaic9 {branches['mosaic9']}, perspective warps "
+              f"{branches['perspective']}; library vs twins: {len(bad)} keys differ "
               f"{bad[:6]}, generator state {'equal' if lib_state == twin_state else 'DIFFERS'}; "
               f"ms a sample (decode included), median: library {sample_ms[case][0]:.1f}, "
               f"twins {sample_ms[case][1]:.1f}")
@@ -4902,6 +4934,449 @@ def phase_train_host(card: str, data: Path) -> dict:
             raise AssertionError(f"train-host: device_aug run saw {kinds}, K4 {k4}")
         counts["hsv_jitter"] += k4
     print(f"[train-host] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+OPTIONS_FRAMES = 16  # [train-options]: frames of each aspect ratio added to the [train] set
+DP_BATCH = 16  # [train-options]' data-parallel steps timed: the phase's batch, 8 rows a rank
+DP_HELD = 4  # and the step held to the one-process step: 2 rows a rank
+AMP_ROWS = 4  # [train-options]' amp step: rows of the first rect batch
+
+
+def options_set(data: Path) -> Path:
+    """The [train] set (640x480 frames) with OPTIONS_FRAMES frames of two more
+    aspect ratios added: 480x640 (tall) and 640x320 (wide)."""
+    import numpy as np
+
+    root = data.parent
+    rng = np.random.default_rng(11)
+    for tag, (h, w) in (("tall", (640, 480)), ("wide", (320, 640))):
+        for i in range(OPTIONS_FRAMES):
+            img, rows = painted_image(rng, h, w)
+            write_png(root / "images" / f"{tag}{i:02d}.png", img)
+            (root / "labels" / f"{tag}{i:02d}.txt").write_text(
+                "\n".join(f"{c} {x:.6f} {y:.6f} {bw:.6f} {bh:.6f}" for c, x, y, bw, bh in rows))
+    return data
+
+
+@contextlib.contextmanager
+def train_capture(starts: list, first: list):
+    """Inside: the model state every ``TrainState.create`` starts from (on
+    the CPU) is appended to ``starts``, and the first two host batches the
+    trainer moves to the device to ``first``."""
+    import torch
+
+    from yolov10_3d_torch.engine.trainer import DetectionTrainer
+    from yolov10_3d_torch.train.state import TrainState
+
+    create, to_device = TrainState.create.__func__, DetectionTrainer.to_device
+
+    def capture_start(cls, model, opt):
+        starts.append({k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+        return create(cls, model, opt)
+
+    def capture_batch(self, b):
+        if len(first) < 2:
+            first.append({k: torch.as_tensor(v).clone() for k, v in b.items()})
+        return to_device(self, b)
+
+    TrainState.create, DetectionTrainer.to_device = classmethod(capture_start), capture_batch
+    try:
+        yield
+    finally:
+        TrainState.create, DetectionTrainer.to_device = classmethod(create), to_device
+
+
+def option_run(data: Path, tmp: Path, tag: str, epochs: int = 1, **opt) -> dict:
+    """One ``YOLOv10("yolov10s.yaml").train`` with ``opt`` at 640, batch 16,
+    workers 4 (amp, the host augmentation: the JAX defaults): per epoch the
+    median ms a step (host clock between synchronisations), img/s and the
+    loader-wait share; the launches, the start state and the first two
+    host batches."""
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+
+    times, starts, first = [], [], []
+    model = YOLOv10("yolov10s.yaml")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    with timed_train_steps(times), train_capture(starts, first):
+        state = model.train(data=str(data), imgsz=IMGSZ, batch=16, epochs=epochs, save=False,
+                            workers=4, save_dir=str(tmp / tag), **{"val": False, **opt})
+    wall = time.perf_counter() - t0
+    counts = dict(launch_counts)
+    with open(tmp / tag / "results.csv") as f:
+        rows = list(csv.DictReader(f))
+    per = len(times) // epochs
+    if len(rows) != epochs or not per or not all(
+            math.isfinite(float(v)) for r in rows for k, v in r.items() if k != "epoch"):
+        raise AssertionError(f"train-options {tag}: {len(rows)} epochs, rows {rows}")
+    figures = []
+    for e, r in enumerate(rows):
+        ep = times[e * per:(e + 1) * per]
+        secs = float(r["time"])
+        figures.append({"ms": statistics.median(ep[2:] if e == 0 and per > 4 else ep),
+                        "img_s": 16 * per / secs, "wait": max(0.0, 1 - sum(ep) / 1e3 / secs)})
+    return {"model": model, "state": state, "start": starts[0], "first": first, "rows": rows,
+            "figures": figures, "counts": counts, "wall": wall}
+
+
+def opt_line(tag: str, run: dict) -> str:
+    return f"{tag}: " + "; ".join(
+        f"epoch {e + 1} median {f['ms']:.1f} ms/step, {f['img_s']:.1f} img/s, loader-wait share "
+        f"{f['wait']:.3f}" for e, f in enumerate(run["figures"])) + f" (call {run['wall']:.1f} s)"
+
+
+def step_on(start: dict, batch: dict, device: str, dtype=None, amp: bool = False):
+    """One SGD step of YOLOv10-S (nc 80) from ``start`` on ``batch`` (NHWC
+    uint8 frames and their labels) on ``device``; float32 unless ``dtype``
+    (float64 for a reference) or ``amp``. -> (loss terms, state dict on the
+    CPU)."""
+    import torch
+
+    from yolov10_3d_torch.cfg import resolve_model_cfg
+    from yolov10_3d_torch.nn.build import build_model
+    from yolov10_3d_torch.train.optim import Optimizer
+    from yolov10_3d_torch.train.state import TrainState, make_train_step
+
+    model, spec = build_model(resolve_model_cfg("yolov10s"), nc=80, device=device)
+    model.load_state_dict(start)
+    b = {k: v.to(device) for k, v in batch.items()}
+    if dtype is not None:
+        model = model.to(dtype)
+        b["img"] = b["img"].permute(0, 3, 1, 2).to(dtype).div(255.0)
+    kw = dict(name="SGD", lr0=0.01, epochs=10, steps_per_epoch=10, warmup_epochs=0.0,
+              batch_size=len(batch["img"]), nbs=len(batch["img"]))
+    state = TrainState.create(model, Optimizer(model, **kw))
+    step = make_train_step(nc=spec.nc, strides=spec.strides, amp=amp, nhwc=dtype is None)
+    _, metrics = step(state, b)
+    return ({k: float(v) for k, v in metrics.items()},
+            {k: v.detach().cpu() for k, v in model.state_dict().items()})
+
+
+def update_gap(got: dict, want: dict, start: dict) -> tuple:
+    """``got``'s update against ``want``'s at [train-lockstep]'s bar -> (the
+    worst error as a share of its update's largest element, the parameters
+    beyond 1e-2 of it plus 1e-4 of the model's largest update, the BN
+    statistics' max abs diff)."""
+    params = [k for k, v in want.items() if v.is_floating_point()
+              and not k.endswith(("running_mean", "running_var"))]
+    big = max(float((want[k] - start[k]).abs().max()) for k in params)
+    worst, bad = 0.0, []
+    for k in params:
+        d_got, d_want = got[k].double() - start[k], want[k].double() - start[k]
+        top, err = float(d_want.abs().max()), float((d_got - d_want).abs().max())
+        worst = max(worst, err / (top + 1e-30))
+        if err > 1e-2 * top + 1e-4 * big:
+            bad.append(k)
+    bn = max(float((got[k] - want[k]).abs().max()) for k in want
+             if k.endswith(("running_mean", "running_var")))
+    return worst, bad, bn
+
+
+def beyond_bar(tag: str, bad: list, got: dict, ref: dict, start: dict, rows: dict,
+               rec: list, names: tuple) -> str:
+    """Each parameter of ``bad``, whose update in ``got`` missed
+    [train-lockstep]'s bar against ``ref``'s, held to a float64 step on the
+    card from ``start`` on ``rows`` with the TAL assignments ``rec``
+    replayed: no further from it than twice ``ref``'s update plus the bar.
+    -> the note to print; ``names`` name ``got`` and ``ref``."""
+    import torch
+
+    if not bad:
+        return ""
+    with assignments(replay=list(rec)):
+        _, s64 = step_on(start, rows, "cuda", dtype=torch.float64)
+    params = [k for k, v in s64.items() if v.is_floating_point()
+              and not k.endswith(("running_mean", "running_var"))]
+    big = max(float((s64[k] - start[k].double()).abs().max()) for k in params)
+    ratios = []
+    for k in bad:
+        top = float((s64[k] - start[k].double()).abs().max())
+        d_got = float((got[k].double() - s64[k]).abs().max())
+        d_ref = float((ref[k].double() - s64[k]).abs().max())
+        ratios.append((k, d_got, d_ref))
+        if d_got > 2 * d_ref + 1e-2 * top + 1e-4 * big:
+            raise AssertionError(f"train-options {tag}: {k} {names[0]} {d_got:.3g} off float64, "
+                                 f"{names[1]} {d_ref:.3g} (top {top:.3g})")
+    return (f"; beyond the bar, against float64 ({names[0]} / {names[1]}): "
+            + ", ".join(f"{k} {a:.3g} / {b:.3g}" for k, a, b in ratios))
+
+
+def hold_lockstep(tag: str, start: dict, batch: dict) -> str:
+    """One float32 step (TF32 off) on the card and on the CPU from ``start``
+    on the first two rows of ``batch``, the card's TAL assignments replayed
+    on the CPU: [train-lockstep]'s bars (terms rtol 1e-3, updates 1e-2 of
+    their largest element plus 1e-4 of the model's largest update). A
+    parameter beyond its bar is held to a float64 step on the card (the
+    same assignments) instead: no further from it than twice the CPU's
+    float32 update plus the bar. On some batches float32 itself misses the
+    bar (the CPU's own float32 SPPF.cv1 update of the first host batch is
+    1.1 bars off float64), so two float32 runs cannot meet it."""
+    two = {k: v[:2] for k, v in batch.items()}
+    rec = []
+    with assignments(record=rec):
+        mg, sg = step_on(start, two, "cuda")
+    kept = list(rec)
+    with assignments(replay=rec):
+        mc, sc = step_on(start, two, "cpu")
+    terms = max(abs(mg[k] - mc[k]) / max(abs(mc[k]), 1e-12) for k in mc)
+    worst, bad, bn = update_gap(sg, sc, start)
+    note = beyond_bar(tag, bad, sg, sc, start, two, kept, ("card", "CPU float32"))
+    if terms > 1e-3:
+        raise AssertionError(f"train-options {tag}: card step off the CPU's (terms {terms:.3g})")
+    return (f"{tag} {tuple(two['img'].shape[1:3])}: terms {terms:.3g}, updates worst {worst:.3g} "
+            f"of their own, BN {bn:.3g}{note}")
+
+
+def update_layers(got: dict, exact: dict, start: dict) -> dict:
+    """The update's distance from ``exact``'s, relative to that update's
+    norm, and its cosine with it: over every parameter (``"all"``) and per
+    top-level layer (``model.<i>``). A zero update reads (1, 0)."""
+    import torch
+
+    params = [k for k, v in exact.items() if v.is_floating_point()
+              and not k.endswith(("running_mean", "running_var", "num_batches_tracked"))]
+    groups = {"all": params}
+    for k in params:
+        groups.setdefault(".".join(k.split(".")[:2]), []).append(k)
+    out = {}
+    for name, keys in groups.items():
+        u = torch.cat([(got[k].double() - start[k].double()).reshape(-1) for k in keys])
+        e = torch.cat([(exact[k].double() - start[k].double()).reshape(-1) for k in keys])
+        en = float(e.norm())
+        out[name] = (float((u - e).norm()) / en, float(u @ e) / (float(u.norm()) * en + 1e-300))
+    return out
+
+
+def dp_step(case, device: str):
+    """[train-options]' data-parallel run on this rank's rows
+    (``parallel/dp.py``) of two global batches. ``case`` = (start state,
+    held batch, timed batch or None, dtype, steps): one SGD step on the held
+    batch (float32 with TF32 off, or float64) -> its terms and state; then,
+    from ``start`` again, ``steps`` steps on the timed batch -> the median ms
+    of all but the first (None without a timed batch)."""
+    import torch
+
+    from yolov10_3d_torch.cfg import resolve_model_cfg
+    from yolov10_3d_torch.nn.build import build_model
+    from yolov10_3d_torch.parallel import dp
+    from yolov10_3d_torch.train.optim import Optimizer
+    from yolov10_3d_torch.train.state import TrainState, make_train_step
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    start, held, timed, dtype, steps = case
+
+    def stepper(batch):
+        model, spec = build_model(resolve_model_cfg("yolov10s"), nc=80, device=device)
+        model.load_state_dict(start)
+        model.to(dtype)
+        dp.global_batchnorm(model)
+        kw = dict(name="SGD", lr0=0.01, epochs=10, steps_per_epoch=10, warmup_epochs=0.0,
+                  batch_size=len(batch["img"]), nbs=len(batch["img"]))
+        state = TrainState.create(model, Optimizer(model, **kw))
+        step = make_train_step(nc=spec.nc, strides=spec.strides, nhwc=True,
+                               ranks=dp.current())
+        rows = {k: v[dp.rows(len(v))].to(device) for k, v in batch.items()}
+        return model, lambda: step(state, rows)[1]
+
+    model, run = stepper(held)
+    metrics = run()
+    out = ({k: float(v) for k, v in metrics.items()},
+           {k: v.detach().cpu().clone() for k, v in model.state_dict().items()})
+    if timed is None:
+        return (*out, None)
+    _, run = stepper(timed)
+    times = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return (*out, statistics.median(times[1:]))
+
+
+def dp_rank(case, rank: int, device: str) -> None:
+    """A spawned rank of [train-options]' data-parallel runs."""
+    dp_step(case, device)
+
+
+def hold_dp(start: dict, batch: dict) -> None:
+    """[train-options]' 9g, as one process, as world 1 under NCCL and as 2
+    gloo ranks on cuda:0: one SGD step of YOLOv10-S on the first DP_HELD
+    rows of ``batch``, held to the one-process step at [train-lockstep]'s
+    bars, and ms a step on all DP_BATCH rows (the phase's batch; the median
+    of two steps after a first). The parameters a float32 run leaves beyond
+    the bars (SPPF.cv1's update is ill-conditioned in float32: on one batch
+    the CPU's float32 update is 1.1 bars off float64) are decided in
+    float64: the same ranks' float64 step against the one-process float64
+    step, within 1e-6 of their update's largest element."""
+    import torch
+
+    from yolov10_3d_torch.parallel import dp
+
+    held = {k: v[:DP_HELD] for k, v in batch.items()}
+    timed = {k: v[:DP_BATCH] for k, v in batch.items()}
+    case = (start, held, timed, torch.float32, 3)
+    m1, s1, ms1 = dp_step(case, "cuda:0")
+    out, exact = [f"one process {ms1:.1f} ms/step"], None
+    for tag, devices in (("world 1, NCCL", ["cuda:0"]),
+                         ("2 gloo ranks on cuda:0", ["cuda:0", "cuda:0"])):
+        t0 = time.perf_counter()
+        m, s, ms_dp = dp.launch(dp_rank, case, devices, main=lambda: dp_step(case, "cuda:0"))
+        terms = max(abs(m[k] - m1[k]) / max(abs(m1[k]), 1e-12) for k in m1)
+        worst, bad, bn = update_gap(s, s1, start)
+        note = ""
+        if bad:
+            case64 = (start, held, None, torch.float64, 0)
+            if exact is None:
+                exact = dp_step(case64, "cuda:0")[1]
+            s64 = dp.launch(dp_rank, case64, devices, main=lambda: dp_step(case64, "cuda:0"))[1]
+            gap = max(float((s64[k] - exact[k]).abs().max())
+                      / (float((exact[k] - start[k].double()).abs().max()) + 1e-300) for k in bad)
+            note = f"; beyond the bar in float32: {bad}, in float64 {gap:.3g} of their update"
+            if gap > 1e-6:
+                raise AssertionError(f"train-options 9g {tag}: {bad} in float64 {gap:.3g}")
+        out.append(f"{tag} ({dp.backend_for(devices)}) {ms_dp:.1f} ms/step, terms {terms:.3g}, "
+                   f"updates worst {worst:.3g}, BN {bn:.3g}{note} (call "
+                   f"{time.perf_counter() - t0:.1f} s)")
+        if terms > 1e-3:
+            raise AssertionError(f"train-options 9g {tag}: terms {terms:.3g}")
+    print(f"[train-options] 9g, YOLOv10-S at 640, float32: one SGD step on a global batch of "
+          f"{DP_HELD} held, ms a step on {DP_BATCH}: " + "; ".join(out))
+
+
+def phase_train_options(card: str, data: Path) -> dict:
+    """The trainer's options once refused (ROADMAP queue 1, item 1), on the
+    [train] set with 16 tall (480x640) and 16 wide (640x320) frames added:
+    YOLOv10-S at 640, batch 16, amp, the host augmentation.
+    - rect: one epoch and validation with rect batches (K1 on non-square
+      maps); multi_scale: one epoch (batches at 480, 640 and 800); cache
+      "ram" and "disk": two epochs each (epoch 2 reads the cache). Per
+      option ms a step, img/s and the loader-wait share; the first two
+      batches of rect, multi_scale and cache (ram's; disk's must equal them)
+      each stepped once on the card and on the CPU from the run's start
+      state ([train-lockstep]'s bars, float32, TF32 off, two rows).
+    - amp (JAX's bfloat16 rule): one step on the card, on the CPU and in
+      float64 on the card from the same state and AMP_ROWS rows, the amp
+      steps replaying the float64 step's assignments; per top-level layer
+      and over the whole model, the card's update no further from float64
+      than 1.25x the CPU's and its cosine with it within 0.1 of the CPU's
+      and positive (a zero update reads distance 1, cosine 0). At this size
+      the bfloat16 update has little direction outside the head even on the
+      CPU (whole cosine 0.15 at 4 rows), so the bars follow the CPU layer
+      by layer.
+    - 9c: ``device_train_augment`` with crop_hw != out_hw (crops of 800 and
+      480x544 to 640) on the card (K4) against its CPU run: images within
+      1e-6, labels equal.
+    - 9g (``hold_dp``): one SGD step of YOLOv10-S on a global batch of 4
+      as one process, as world 1 under NCCL and as 2 gloo ranks on cuda:0,
+      each held to the one-process step at [train-lockstep]'s bars (float64
+      where float32 cannot decide); ms a step on the phase's batch of 16
+      (8 rows a rank).
+    Returns the launches (K1 of rect validation, K4 of the 9c calls)."""
+    import torch
+
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.ops.device_aug import augment_core, draw_augment
+
+    t_phase = time.perf_counter()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    options_set(data)
+    counts = {k: 0 for k in KERNELS}
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        rect = option_run(data, tmp, "rect", rect=True, val=True)
+        k1 = rect["counts"]["decode_detect"]
+        vt = rect["model"].trainer.validator.timings
+        n_val = math.ceil(len(rect["model"].trainer.train_ds) / 16)
+        if k1 != n_val or not math.isfinite(float(rect["rows"][0]["mAP50"])):
+            raise AssertionError(f"train-options rect: K1 {k1}, row {rect['rows'][0]}")
+        counts["decode_detect"] += k1
+        ds = rect["model"].trainer.train_ds
+        val_shapes = sorted({tuple(int(v) for v in s) for s in ds.rect_shapes})
+        print(f"[train-options] {opt_line('rect', rect)}; rect shapes {val_shapes}; validation "
+              f"{vt['images']} images in {vt['total']:.2f} s, K1 {k1} ({card})")
+        ms = option_run(data, tmp, "multi_scale", multi_scale=True)
+        sizes = sorted({tuple(b["img"].shape[1:3]) for b in ms["first"]})
+        print(f"[train-options] {opt_line('multi_scale', ms)}; first batches {sizes}")
+        cached = {}
+        for cache in ("ram", "disk"):
+            cached[cache] = option_run(data, tmp, f"cache-{cache}", epochs=2, cache=cache)
+            print(f"[train-options] {opt_line(f'cache={cache}', cached[cache])}")
+        if not all(torch.equal(a[k], b[k]) for a, b in zip(cached["ram"]["first"],
+                                                            cached["disk"]["first"]) for k in a):
+            raise AssertionError("train-options: cache=disk's first batches differ from ram's")
+        npys = len(list(data.parent.glob("images/*.npy")))
+        if npys != len(ds):
+            raise AssertionError(f"train-options: cache=disk left {npys} of {len(ds)} .npy files")
+        for f in data.parent.glob("images/*.npy"):
+            f.unlink()
+        for tag, run in (("rect", rect), ("multi_scale", ms), ("cache", cached["ram"])):
+            for i, b in enumerate(run["first"]):
+                lines.append(hold_lockstep(f"{tag} batch {i + 1}", run["start"], b))
+        print("[train-options] first two batches, card vs CPU (float32, TF32 off, two rows, the "
+              "card's assignments): " + "; ".join(lines))
+
+        # amp: JAX's bfloat16 rule, the card against the CPU, both against float64
+        start = rect["start"]
+        rows = {k: v[:AMP_ROWS] for k, v in rect["first"][0].items()}
+        t0 = time.perf_counter()
+        rec = []
+        with assignments(record=rec):
+            _, s_exact = step_on(start, rows, "cuda", dtype=torch.float64)
+        with assignments(replay=list(rec)):
+            _, s_card = step_on(start, rows, "cuda", amp=True)
+        with assignments(replay=list(rec)):
+            _, s_cpu = step_on(start, rows, "cpu", amp=True)
+        card_l, cpu_l = (update_layers(s, s_exact, start) for s in (s_card, s_cpu))
+        bad = [k for k in card_l if card_l[k][0] > 1.25 * cpu_l[k][0]
+               or card_l[k][1] < cpu_l[k][1] - 0.1 or card_l[k][1] <= 0]
+        # the groups where a zero update (distance 1, cosine 0) misses a bar
+        zero_fails = sum(1.0 > 1.25 * d or c > 0.1 for d, c in cpu_l.values())
+        print(f"[train-options] amp (bfloat16, JAX's rule), {AMP_ROWS} rows, the float64 "
+              f"step's assignments: update distance from float64 / cosine with it, card "
+              f"{card_l['all'][0]:.4g} / {card_l['all'][1]:.4g}, CPU {cpu_l['all'][0]:.4g} / "
+              f"{cpu_l['all'][1]:.4g}; per layer card "
+              + ", ".join(f"{k[6:]} {d:.3g}/{c:.3g}" for k, (d, c) in card_l.items() if k != "all")
+              + "; CPU " + ", ".join(f"{k[6:]} {d:.3g}/{c:.3g}" for k, (d, c) in cpu_l.items()
+                                     if k != "all")
+              + f" (bars: every layer and the whole within 1.25x the CPU's distance and 0.1 "
+              f"of its cosine, the cosine positive; a zero update misses them in {zero_fails} "
+              f"of {len(cpu_l)} groups) ({time.perf_counter() - t0:.1f} s)")
+        if bad:
+            raise AssertionError(f"train-options amp: card {[(k, card_l[k]) for k in bad]} "
+                                 f"against CPU {[(k, cpu_l[k]) for k in bad]}")
+
+        # 9c: the resize after the device crop, card against CPU
+        (tiles, labels, mask), _ = lockstep_batch()
+        gaps = []
+        for crop in ((800, 800), (480, 544)):
+            draws = draw_augment(2, (IMGSZ, IMGSZ), crop, (0.015, 0.7, 0.4), 0.5,
+                                 torch.Generator().manual_seed(5))
+            reset_launch_counts()
+            gpu = augment_core(tiles.cuda(), labels.cuda(), mask.cuda(), **draws,
+                               out_hw=(IMGSZ, IMGSZ), crop_hw=crop, max_boxes=32)
+            torch.cuda.synchronize()
+            counts["hsv_jitter"] += launch_counts["hsv_jitter"]
+            cpu = augment_core(tiles, labels, mask, **draws, out_hw=(IMGSZ, IMGSZ),
+                               crop_hw=crop, max_boxes=32)
+            err = float((gpu["img"].cpu() - cpu["img"]).abs().max())
+            same = all(torch.equal(gpu[k].cpu(), cpu[k]) for k in ("gt_labels", "gt_bboxes",
+                                                                     "mask_gt"))
+            gaps.append(f"crop {crop}: images max abs {err:.3g}, labels equal {same}")
+            if err > 1e-6 or not same or launch_counts["hsv_jitter"] != 1:
+                raise AssertionError(f"train-options 9c: {gaps[-1]}, K4 "
+                                     f"{launch_counts['hsv_jitter']}")
+        print("[train-options] 9c, device_train_augment to 640x640, card (K4) vs CPU: "
+              + "; ".join(gaps))
+
+        hold_dp(start, rect["first"][0])  # 9g
+    print(f"[train-options] phase {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -5294,6 +5769,8 @@ def main() -> int:
         done("host-aug")
         train_host = phase_train_host(card, data)
         done("train-host")
+        options = phase_train_options(card, data)
+        done("train-options")
     try:  # as above: [train3d] runs even when its lockstep misses a bar
         phase_train3d_lockstep(card)
     except AssertionError as e:
@@ -5329,7 +5806,7 @@ def main() -> int:
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS},
                 "int8_group_conv_f32": 0, "int8_dw_conv_f32": 0, "int8_act_absmax": 0}
     # K4 and K1; K1 and the stem; K1; K4; K1, the stem, K2, K3 and int8_conv_f32
-    for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, learn2d):
+    for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, options, learn2d):
         for k in KERNELS:
             launches[k] += counts[k]
     for k in SERVE3D_KERNELS:  # the 3D requests run the stem kernel too, with every head option

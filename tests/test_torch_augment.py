@@ -125,14 +125,17 @@ def test_device_augment_matches_jax_given_its_draws(fliplr):
 
 
 def test_device_augment_draws_and_unported_resize():
+    """The draws' wrapper at out_hw and, with a crop of another size (once
+    refused), the resize to out_hw: images in [0, 1] at out_hw, boxes
+    normalized to it (held to JAX in ``test_torch_train_options.py``)."""
     tiles, labels, mask = _tiles_case(3)
     args = [torch.from_numpy(a) for a in (tiles, labels, mask)]
-    out = device_train_augment(*args, torch.Generator().manual_seed(0), out_hw=(32, 32),
-                               crop_hw=(32, 32), max_boxes=10)
-    assert out["img"].shape == (2, 3, 32, 32) and out["gt_bboxes"].shape == (2, 10, 4)
-    assert 0.0 <= float(out["img"].min()) and float(out["img"].max()) <= 1.0
-    with pytest.raises(NotImplementedError, match="crop_hw != out_hw"):
-        device_train_augment(*args, torch.Generator(), out_hw=(32, 32), crop_hw=(40, 40))
+    for crop in ((32, 32), (40, 48), (24, 20)):
+        out = device_train_augment(*args, torch.Generator().manual_seed(0), out_hw=(32, 32),
+                                   crop_hw=crop, max_boxes=10)
+        assert out["img"].shape == (2, 3, 32, 32) and out["gt_bboxes"].shape == (2, 10, 4)
+        assert 0.0 <= float(out["img"].min()) and float(out["img"].max()) <= 1.0
+        assert float(out["gt_bboxes"].max()) <= 1.0 and bool(out["mask_gt"].any())
 
 
 def _png(img, filters):
@@ -332,13 +335,23 @@ def test_train_one_epoch_on_cpu(png_tree, tmp_path, monkeypatch):
 @pytest.mark.parametrize("option,item", [
     ({"device_aug": False}, "9a"), ({"degrees": 10.0}, "9a"), ({"close_mosaic": 1}, "9a"),
     ({"rect": True}, "9e"), ({"multi_scale": True}, "9e"), ({"cache": "ram"}, "9e"),
-    ({"device": "0,1"}, "9g"),
+    ({"device": "cpu,cpu"}, "9g"),
 ])
-def test_unported_training_options_raise(png_tree, option, item):
-    """Each training option of the JAX trainer the port lacks raises and
-    names its ROADMAP item, instead of training some other way. The three
-    of item 9a are ported (the host augmentation): they train, as in the
-    JAX trainer, on the host path."""
+def test_unported_training_options_raise(png_tree, option, item, monkeypatch):
+    """Each training option of the JAX trainer that the port once refused
+    now trains. The three of item 9a (the host augmentation) train, as in
+    the JAX trainer, on the host path. Those of item 9e train on the host
+    path at 128 px and feed the step exactly the batches of JAX's
+    DataLoader over JAX's dataset with the same options (rect: the dataset
+    sorted by aspect ratio and its batches permuted whole; multi_scale:
+    batches resized to 96 and 160; cache: the images kept in memory). A
+    device list of two CPU ranks (item 9g) trains one float32 step on the
+    global batch of 4 at 128 px (at 64 px each rank's target-score sum
+    clamps to 1, so a per-rank normaliser would not show): its results.csv
+    terms within rtol 2e-4 of a one-process run's, its update and BN
+    statistics within the lockstep bars (``_hold_dp_update``; the two runs
+    differ in the order of float32 sums only, and over five steps float32
+    chaos moves a running mean by 2%)."""
     kw = dict(data=str(png_tree), imgsz=64, batch=2, epochs=1, device_aug=True, val=False,
               save=False, workers=0)
     if item == "9a":
@@ -346,5 +359,72 @@ def test_unported_training_options_raise(png_tree, option, item):
         assert model.train(**{**kw, **option}).step == 5
         assert not model.trainer.train_ds.tile_mode
         return
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
-        YOLOv10("yolov10n.yaml", device="cpu").train(**{**kw, **option})
+    if item == "9e":
+        from yolov10_3d_torch.engine.trainer import DetectionTrainer
+
+        seen, real = [], DetectionTrainer.to_device
+        monkeypatch.setattr(DetectionTrainer, "to_device",
+                            lambda self, b: seen.append({k: np.array(v) for k, v in b.items()})
+                            or real(self, b))
+        model = YOLOv10("yolov10n.yaml", device="cpu")
+        kw = {**kw, "device_aug": False, "imgsz": 128, "mosaic": 1.0, **option}
+        assert model.train(**kw).step == 5
+        args = model.trainer.args
+        root = png_tree.parent / "images" / "train"
+        jds = JaxYOLODataset(root, imgsz=128, augment=True, hyp=dict(args), seed=args["seed"],
+                             cache=args["cache"] or None)
+        jl = JaxDataLoader(jds, 2, seed=args["seed"], num_threads=1, rect=bool(args["rect"]),
+                           multi_scale=bool(args["multi_scale"]))
+        want = list(jl)
+        assert len(seen) == len(want) == 5
+        for got, w in zip(seen, want):
+            for k, v in w.items():
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
+        shapes = {b["img"].shape[1:3] for b in want}
+        if "multi_scale" in option:
+            assert shapes - {(128, 128)}, shapes
+        if "rect" in option:
+            assert model.trainer.train_ds.im_files == jds.im_files != sorted(jds.im_files)
+        if "cache" in option:
+            assert all(im is not None for im in model.trainer.train_ds._ram)
+        return
+    # one float32 step of 2 images a rank (amp, the default, would compare bfloat16 noise)
+    runs, kw = {}, {**kw, "batch": 4, "fraction": 0.4, "amp": False, "imgsz": 128}
+    from yolov10_3d_torch.train.state import TrainState
+
+    starts, create = [], TrainState.create.__func__
+    monkeypatch.setattr(TrainState, "create", classmethod(
+        lambda cls, m, o: starts.append({k: v.clone() for k, v in m.state_dict().items()})
+        or create(cls, m, o)))
+    for name, device in (("dp", option["device"]), ("one", "cpu")):
+        model = YOLOv10("yolov10n.yaml", device="cpu")
+        state = model.train(**{**kw, "device": device, "save_dir": str(png_tree.parent / name)})
+        assert state.step == 1
+        with open(png_tree.parent / name / "results.csv") as f:
+            (row,) = list(csv.DictReader(f))
+        runs[name] = (row, {k: v.clone() for k, v in state.model.state_dict().items()})
+    (row, got), (row1, want) = runs["dp"], runs["one"]
+    for k in ("loss", "box_om", "cls_om", "dfl_om", "box_oo", "cls_oo", "dfl_oo"):
+        np.testing.assert_allclose(float(row[k]), float(row1[k]), rtol=2e-4,
+                                   atol=2e-4 * float(row1["loss"]), err_msg=k)
+    _hold_dp_update(starts, got, want)
+
+
+def _hold_dp_update(starts, got, want):
+    """Both runs from one start (the two captured starts equal): every
+    parameter's update within 2e-3 of its largest element plus 1e-4 of the
+    model's largest update plus one float32 spacing of the parameter, the
+    BN statistics within 1e-5."""
+    start, other = starts
+    assert all(torch.equal(start[k], other[k]) for k in start)
+    params = [k for k, v in want.items() if v.is_floating_point()
+              and not k.endswith(("running_mean", "running_var"))]
+    big = max(float((want[k] - start[k]).abs().max()) for k in params)
+    for k in params:
+        top = float((want[k] - start[k]).abs().max())
+        ulp = float(np.spacing(np.float32(float(start[k].abs().max()))))
+        torch.testing.assert_close(got[k] - start[k], want[k] - start[k], rtol=0,
+                                   atol=2e-3 * top + 1e-4 * big + ulp, msg=k)
+    for k in want:
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5, msg=k)

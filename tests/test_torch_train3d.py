@@ -319,12 +319,61 @@ def test_train3d_needs_a_card_unless_cpu_is_asked(kitti, monkeypatch):
 
 @pytest.mark.parametrize("option,item", [
     ({"rect": True}, "item 9e"), ({"multi_scale": True}, "item 9e"),
-    ({"cache": "ram"}, "item 9e"), ({"device": "0,1"}, "item 9g"),
+    ({"cache": "ram"}, "item 9e"), ({"device": "cpu,cpu"}, "item 9g"),
 ])
-def test_unported_train3d_options_raise(kitti, option, item):
-    args = {"data": str(kitti), "save": False, **option}
-    with pytest.raises(NotImplementedError, match=item):
-        YOLOv10("yolov10n_3D.yaml", device="cpu").train(**args)
+def test_unported_train3d_options_raise(kitti, option, item, monkeypatch, tmp_path):
+    """The options the 3D trainer once refused train as the JAX trainer
+    does. Item 9e: one epoch of batch 4 feeds the step exactly the batches
+    of JAX's DataLoader over JAX's KITTI training split with the same
+    options: rect and cache change nothing (the 3D datasets have no
+    set_rectangle and take no cache), multi_scale resizes the frames (to
+    64x256 and 128x384 at 96x320) and nothing else. Item 9g: a device list
+    of two CPU ranks trains one float32 step on the global batch of 8, its
+    13 loss columns within rtol 2e-4 of a one-process run's, its update and
+    BN statistics within the lockstep bars (``_hold_dp_update``)."""
+    from yolov10_3d_tpu.cfg import get_cfg as jax_get_cfg
+    from yolov10_3d_tpu.data.dataset import DataLoader as JaxDataLoader
+    from yolov10_3d_tpu.engine.trainer3d import build_3d_dataset as jax_build_3d_dataset
+    from yolov10_3d_torch.engine.trainer3d import Detection3DTrainer
+
+    kw = dict(data=str(kitti), kitti_resolution=RES, epochs=1, batch=4, val=False, save=False,
+              workers=0, amp=False)
+    if item == "item 9e":
+        seen, real = [], Detection3DTrainer.to_device
+        monkeypatch.setattr(Detection3DTrainer, "to_device",
+                            lambda self, b: seen.append({k: np.array(v) for k, v in b.items()})
+                            or real(self, b))
+        assert YOLOv10("yolov10n_3D.yaml", device="cpu").train(**kw, **option).step == 2
+        jargs = jax_get_cfg(overrides={**kw, **option})
+        jds = jax_build_3d_dataset(str(kitti), Path(kitti).parent, "train", jargs)
+        want = list(JaxDataLoader(jds, 4, seed=jargs.seed, num_threads=1,
+                                  rect=bool(jargs.rect), multi_scale=bool(jargs.multi_scale)))
+        assert len(seen) == len(want) == 2
+        for got, w in zip(seen, want):
+            for k in w:
+                np.testing.assert_array_equal(got[k], w[k], err_msg=k)
+        shapes = {b["img"].shape[1:3] for b in want}
+        assert (shapes != {(RES[1], RES[0])}) == ("multi_scale" in option), shapes
+        return
+    runs = {}
+    from yolov10_3d_torch.train.state import TrainState
+
+    starts, create = [], TrainState.create.__func__
+    monkeypatch.setattr(TrainState, "create", classmethod(
+        lambda cls, m, o: starts.append({k: v.clone() for k, v in m.state_dict().items()})
+        or create(cls, m, o)))
+    for name, device in (("dp", option["device"]), ("one", "cpu")):
+        model = YOLOv10("yolov10n_3D.yaml", device="cpu")
+        state = model.train(**{**kw, "batch": 8, "device": device,
+                               "save_dir": str(tmp_path / name)})
+        assert state.step == 1
+        (row,) = _rows(tmp_path / name / "results.csv")
+        runs[name] = (row, {k: v.clone() for k, v in state.model.state_dict().items()})
+    (row, got), (row1, want) = runs["dp"], runs["one"]
+    for k in ("loss", *ITEM_KEYS):
+        np.testing.assert_allclose(float(row[k]), float(row1[k]), rtol=2e-4,
+                                   atol=2e-4 * float(row1["loss"]), err_msg=k)
+    _hold_dp_update(starts, got, want)
 
 
 @pytest.mark.parametrize("option", [
@@ -361,3 +410,23 @@ def test_json_yaml_opens_its_dataset(kitti, name, tmp_path):
         trainer.build_dataset(tmp_path, "train")
     cls = WaymoDataset if "waymo" in name else Omni3Dataset
     assert issubclass(cls, TK.KITTIDataset)
+
+
+def _hold_dp_update(starts, got, want):
+    """Both runs from one start (the two captured starts equal): every
+    parameter's update within 2e-3 of its largest element plus 1e-4 of the
+    model's largest update plus one float32 spacing of the parameter, the
+    BN statistics within 1e-5."""
+    start, other = starts
+    assert all(torch.equal(start[k], other[k]) for k in start)
+    params = [k for k, v in want.items() if v.is_floating_point()
+              and not k.endswith(("running_mean", "running_var"))]
+    big = max(float((want[k] - start[k]).abs().max()) for k in params)
+    for k in params:
+        top = float((want[k] - start[k]).abs().max())
+        ulp = float(np.spacing(np.float32(float(start[k].abs().max()))))
+        torch.testing.assert_close(got[k] - start[k], want[k] - start[k], rtol=0,
+                                   atol=2e-3 * top + 1e-4 * big + ulp, msg=k)
+    for k in want:
+        if k.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(got[k], want[k], rtol=0, atol=1e-5, msg=k)

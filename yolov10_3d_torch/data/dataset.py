@@ -11,8 +11,12 @@ from a buffer of recently decoded samples, with its labels padded to
 sample and three partners drawn from ``self.rng``) with their labels in
 tile-frame pixels; ``ops/device_aug.py`` does the rest on the device. In
 validation mode (``augment=False``) it returns the image letterboxed without
-upscaling and its labels padded. ``DataLoader`` batches any of them, in a
-seeded per-epoch order or in file order.
+upscaling, to imgsz or, after ``set_rectangle``, to its batch's shape, and
+its labels padded. ``cache`` keeps decoded images in memory (``"ram"``) or
+as ``<stem>.npy`` beside each image (``"disk"``, read back memory-mapped).
+``DataLoader`` batches any of them, in a seeded per-epoch order or in file
+order, with ``rect`` as whole batches of like aspect ratio and with
+``multi_scale`` each batch's images resized by a scale of a fixed ladder.
 
 Images are decoded without cv2 or PIL, by cv2's rule (``data/image_io.py``:
 JPEG, PNG and BMP; ``decode_png`` is re-exported here).
@@ -21,7 +25,9 @@ JPEG, PNG and BMP; ``decode_png`` is re-exported here).
 from __future__ import annotations
 
 import hashlib
+import os
 import queue
+import zipfile
 from collections import deque
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -32,10 +38,11 @@ import numpy as np
 import torch
 
 from .augment import NATIVE, HostOps, train_augment
-from .image_io import IMG_FORMATS, decode_png, imread  # noqa: F401  (decode_png: re-exported)
+from .image_io import IMG_FORMATS, decode_png, image_size, imread  # noqa: F401  (decode_png: re-exported)
 from .preprocess import letterbox
 
 PARTNER_BUFFER = 32  # samples kept for host mode's mosaic partners (JAX's buffer_size)
+SCALE_CHOICES = (0.75, 1.0, 1.25)  # multi_scale's ladder (JAX's scale_choices)
 
 
 def img2label_path(img_path: str) -> str:
@@ -47,6 +54,20 @@ def img2label_path(img_path: str) -> str:
     if sa in p:
         p = sb.join(p.rsplit(sa, 1))
     return str(Path(p).with_suffix(".txt"))
+
+
+def _atomic_write(path: Path, write) -> None:
+    """``write(f)`` into a file beside ``path``, then renamed onto it: a
+    reader (another rank of a data-parallel run) sees the whole file or
+    none."""
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    try:
+        with open(tmp, "wb") as f:
+            write(f)
+        os.replace(tmp, path)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
 
 
 def _load_image(path: str) -> np.ndarray:
@@ -63,8 +84,10 @@ class YOLODataset:
     (H, W, 3) uint8, gt_labels (M,), gt_bboxes (M, 4) normalized xywh,
     mask_gt (M,), im_id}, the image augmented (``train_augment`` with
     ``self.rng``, the cv2 operations from ``ops``) or letterboxed to imgsz
-    without upscaling. ``img_path`` is a directory of images or a .txt list
-    of image paths; labels live under the parallel ``labels`` directory."""
+    (or its ``rect_shapes`` entry) without upscaling. ``img_path`` is a
+    directory of images or a .txt list of image paths; labels live under the
+    parallel ``labels`` directory. ``cache``: None, ``"ram"`` or ``"disk"``
+    (any other value caches nothing, as in JAX)."""
 
     def __init__(
         self,
@@ -78,6 +101,7 @@ class YOLODataset:
         augment: bool = True,
         device_aug: bool = True,
         ops: HostOps = NATIVE,
+        cache: Optional[str] = None,
     ):
         self.augment = augment
         self.device_aug = device_aug
@@ -91,6 +115,9 @@ class YOLODataset:
         if fraction < 1.0:
             self.im_files = self.im_files[: max(1, round(len(self.im_files) * fraction))]
         self.label_files = [img2label_path(f) for f in self.im_files]
+        self.cache = cache
+        self._ram: List[Optional[np.ndarray]] = [None] * len(self.im_files)
+        self.rect_shapes: Optional[np.ndarray] = None  # (N, 2) h, w after set_rectangle
         self.labels = self._load_labels(Path(img_path))
         # the mosaic partners of host mode come from recently decoded samples
         self._buffer: deque = deque(maxlen=PARTNER_BUFFER)
@@ -130,12 +157,12 @@ class YOLODataset:
             z = np.load(cache_path, allow_pickle=False)
             if str(z["hash"]) == want and int(z["n"]) == len(self.im_files):
                 return [z[f"l{i}"] for i in range(len(self.im_files))]
-        except (FileNotFoundError, KeyError, ValueError, OSError):
+        except (FileNotFoundError, KeyError, ValueError, OSError, zipfile.BadZipFile):
             pass
         labels = [self._parse_label_file(i) for i in range(len(self.im_files))]
-        try:
-            np.savez_compressed(cache_path, hash=want, n=len(labels),
-                                **{f"l{i}": lab for i, lab in enumerate(labels)})
+        try:  # written whole or not at all: data-parallel ranks read it meanwhile
+            _atomic_write(cache_path, lambda f: np.savez_compressed(
+                f, hash=want, n=len(labels), **{f"l{i}": lab for i, lab in enumerate(labels)}))
         except OSError:  # a read-only dataset directory: the cache is optional
             pass
         return labels
@@ -157,9 +184,75 @@ class YOLODataset:
     def __len__(self) -> int:
         return len(self.im_files)
 
+    # -- the image cache --
+    def _disk_cache_path(self, i: int) -> Path:
+        p = Path(self.im_files[i])
+        return p.parent / (p.stem + ".npy")
+
+    def _load_cached_image(self, i: int) -> np.ndarray:
+        """Image i: kept in ``_ram`` after its first decode (``"ram"``), or
+        read from its ``.npy`` memory-mapped, written there after its first
+        decode (``"disk"``; a directory that cannot be written caches
+        nothing)."""
+        if self.cache == "ram":
+            if self._ram[i] is None:
+                self._ram[i] = _load_image(self.im_files[i])
+            return self._ram[i]
+        if self.cache == "disk":
+            npy = self._disk_cache_path(i)
+            if npy.exists():
+                return np.load(npy, mmap_mode="r")
+            img = _load_image(self.im_files[i])
+            try:
+                _atomic_write(npy, lambda f: np.save(f, img))
+            except OSError:
+                pass
+            return img
+        return _load_image(self.im_files[i])
+
+    # -- rect batches --
+    def image_shapes(self) -> np.ndarray:
+        """(N, 2) h, w of every image from its header (``image_size``: the
+        size as stored, EXIF orientation not applied, as PIL's size)."""
+        if getattr(self, "_shapes", None) is None:
+            out = np.zeros((len(self.im_files), 2), np.int64)
+            for i, f in enumerate(self.im_files):
+                w, h = image_size(Path(f).read_bytes(), f)
+                out[i] = (h, w)
+            self._shapes = out
+        return self._shapes
+
+    def set_rectangle(self, batch_size: int, stride: int = 32, pad: float = 0.0) -> np.ndarray:
+        """Sort the images by aspect ratio h / w (stable) and give each batch
+        of ``batch_size`` one stride-aligned shape: ``rect_shapes`` (N, 2)
+        h, w. The files, labels and caches are reordered with the images,
+        training sets too (their augmented items ignore the shapes)."""
+        shapes = self.image_shapes().astype(np.float64)
+        ar = shapes[:, 0] / shapes[:, 1]
+        order = np.argsort(ar, kind="stable")
+        self.im_files = [self.im_files[i] for i in order]
+        self.label_files = [self.label_files[i] for i in order]
+        self.labels = [self.labels[i] for i in order]
+        self._ram = [self._ram[i] for i in order]
+        self._shapes = self._shapes[order]
+        ar = ar[order]
+        h0, w0 = self.imgsz
+        self.rect_shapes = np.zeros((len(ar), 2), np.int64)
+        for b in range(int(np.ceil(len(ar) / batch_size))):
+            sel = slice(b * batch_size, (b + 1) * batch_size)
+            mini, maxi = ar[sel].min(), ar[sel].max()
+            shape = [1.0, 1.0]
+            if maxi < 1:
+                shape = [maxi, 1.0]
+            elif mini > 1:
+                shape = [1.0, 1.0 / mini]
+            self.rect_shapes[sel] = np.ceil(np.array(shape) * np.array([h0, w0]) / stride
+                                            + pad).astype(int) * stride
+        return self.rect_shapes
+
     def _raw(self, i: int) -> Tuple[np.ndarray, np.ndarray]:
         """(img HWC RGB uint8, labels (n, 5) cls + xyxy px)."""
-        img = _load_image(self.im_files[i])
+        img = np.asarray(self._load_cached_image(i))
         h, w = img.shape[:2]
         lab = self.labels[i]
         if not len(lab):
@@ -239,10 +332,12 @@ class YOLODataset:
         return self.load_tiles(self.tile_indices(i))
 
     def val_item(self, i: int) -> Dict[str, np.ndarray]:
-        """Image ``i`` letterboxed to imgsz without upscaling, its labels in
-        the fixed (max_boxes, ...) layout."""
+        """Image ``i`` letterboxed to imgsz (its rect shape after
+        ``set_rectangle``) without upscaling, its labels in the fixed
+        (max_boxes, ...) layout."""
         img, labels = self._raw(i)
-        img, ratio, (dw, dh) = letterbox(img, self.imgsz, scaleup=False)
+        target = tuple(self.rect_shapes[i]) if self.rect_shapes is not None else self.imgsz
+        img, ratio, (dw, dh) = letterbox(img, target, scaleup=False)
         if len(labels):
             labels = labels.copy()
             labels[:, [1, 3]] = labels[:, [1, 3]] * ratio + dw
@@ -273,6 +368,35 @@ class YOLODataset:
         return self.host_item(i) if self.augment else self.val_item(i)
 
 
+def batch_scale(seed: int, epoch: int, b: int,
+                choices: Sequence[float] = SCALE_CHOICES) -> float:
+    """multi_scale's scale of batch ``b`` of an epoch: a draw of
+    ``default_rng((seed + epoch) * 100003 + b)`` from the ladder (JAX's
+    ``_batch_scale``)."""
+    return float(np.random.default_rng((seed + epoch) * 100003 + b).choice(choices))
+
+
+def resize_batch(batch: Dict[str, np.ndarray], scale: float, resize=NATIVE.resize,
+                 stride: int = 32) -> Dict[str, np.ndarray]:
+    """The stacked images of ``batch["img"]`` (B, H, W, C) resized by
+    ``scale`` to stride-aligned sides, image by image with cv2's
+    INTER_LINEAR rule (``resize(img, (w, h))``), the other keys untouched
+    (normalized boxes do not change; JAX's ``_resize_batch``). A batch
+    without ``img`` (tiles) is returned as it is."""
+    if "img" not in batch or scale == 1.0:
+        return batch
+    img = batch["img"]
+    h, w = img.shape[1:3]
+    nh = max(int(round(h * scale / stride)) * stride, stride)
+    nw = max(int(round(w * scale / stride)) * stride, stride)
+    if (nh, nw) == (h, w):
+        return batch
+    out = np.empty((img.shape[0], nh, nw, img.shape[3]), img.dtype)
+    for i in range(img.shape[0]):
+        out[i] = resize(np.ascontiguousarray(img[i]), (nw, nh))
+    return {**batch, "img": out}
+
+
 class _Failure:
     def __init__(self, error: BaseException):
         self.error = error
@@ -285,7 +409,12 @@ class DataLoader:
     """Batches of a ``YOLODataset`` as torch tensors (pinned when asked): in
     the order of ``np.random.default_rng(seed + epoch)`` with ``shuffle``,
     else in file order; the short last batch dropped with ``drop_last``
-    (training), kept without (validation).
+    (training), kept without (validation). With ``rect`` the dataset is
+    sorted by aspect ratio (``set_rectangle``, at the first call) and cut
+    into whole batches, which ``shuffle`` permutes; with ``multi_scale``
+    each batch's images are resized by ``batch_scale`` (``resize_batch``,
+    the dataset's ``ops.resize``). These follow JAX's ``_batches``,
+    ``_batch_scale`` and ``_resize_batch``.
 
     ``workers=0`` loads in the caller's thread, item by item, as the JAX
     loader does on one thread. Otherwise a producer thread makes the draws
@@ -300,7 +429,8 @@ class DataLoader:
     PREFETCH = 2
 
     def __init__(self, dataset: YOLODataset, batch_size: int, seed: int = 0, workers: int = 4,
-                 pin_memory: bool = False, shuffle: bool = True, drop_last: bool = True):
+                 pin_memory: bool = False, shuffle: bool = True, drop_last: bool = True,
+                 rect: bool = False, multi_scale: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -308,6 +438,8 @@ class DataLoader:
         self.pin_memory = pin_memory
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.rect = rect
+        self.multi_scale = multi_scale
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -315,13 +447,22 @@ class DataLoader:
 
     def _batches(self) -> List[np.ndarray]:
         idx = np.arange(len(self.dataset))
-        if self.shuffle:
-            np.random.default_rng(self.seed + self.epoch).shuffle(idx)
         bs = self.batch_size
-        batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
+        if self.rect and hasattr(self.dataset, "set_rectangle"):
+            if self.dataset.rect_shapes is None:
+                self.dataset.set_rectangle(bs)
+            batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
+            if self.shuffle:
+                perm = np.random.default_rng(self.seed + self.epoch).permutation(len(batches))
+                batches = [batches[i] for i in perm]
+        else:
+            if self.shuffle:
+                np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+            batches = [idx[i:i + bs] for i in range(0, len(idx), bs)]
         return [b for b in batches if len(b) == bs] if self.drop_last else batches
 
-    def _collate(self, sel: np.ndarray, map_fn=None) -> Dict[str, torch.Tensor]:
+    def _collate(self, sel: np.ndarray, map_fn=None, scale: float = 1.0
+                 ) -> Dict[str, torch.Tensor]:
         ds = self.dataset
         if ds.tile_mode:
             idxs = [ds.tile_indices(int(i)) for i in sel]  # draws in order
@@ -344,14 +485,19 @@ class DataLoader:
             items = [item for item, _ in done]
             for _, fresh in done:
                 ds._buffer.extend(fresh)
-        out = {k: torch.from_numpy(np.stack([it[k] for it in items])) for k in items[0]}
+        stacked = resize_batch({k: np.stack([it[k] for it in items]) for k in items[0]}, scale,
+                               ds.ops.resize)
+        out = {k: torch.from_numpy(v) for k, v in stacked.items()}
         return {k: v.pin_memory() for k, v in out.items()} if self.pin_memory else out
+
+    def _scale(self, b: int) -> float:
+        return batch_scale(self.seed, self.epoch, b) if self.multi_scale else 1.0
 
     def __iter__(self) -> Iterator[Dict[str, torch.Tensor]]:
         batches = self._batches()
         if self.workers == 0:
-            for sel in batches:
-                yield self._collate(sel)
+            for b, sel in enumerate(batches):
+                yield self._collate(sel, scale=self._scale(b))
             self.epoch += 1
             return
         q: "queue.Queue" = queue.Queue(maxsize=self.PREFETCH)
@@ -369,8 +515,8 @@ class DataLoader:
 
         def produce():
             try:
-                for sel in batches:
-                    if stop.is_set() or not put(self._collate(sel, pool.map)):
+                for b, sel in enumerate(batches):
+                    if stop.is_set() or not put(self._collate(sel, pool.map, self._scale(b))):
                         return
                 put(_END)
             except Exception as e:  # handed to the consumer, which raises it
@@ -398,20 +544,24 @@ class DictLoader:
     (``KITTIDataset``), each key stacked, as the JAX DataLoader collates them:
     in order with the last batch kept short (validation), or with
     ``shuffle`` (training) in the order of ``np.random.default_rng(seed +
-    epoch)``, the short last batch dropped (set ``epoch`` before each epoch). ``workers=0`` loads in the caller's thread, so a
-    dataset that draws from its own generator (the KITTI training splits)
-    yields the same items as the JAX loader on one thread; otherwise a pool
-    of ``workers`` threads loads the next batch's items while the caller
-    works on this one, and is joined when the iteration ends, fails or is
-    abandoned."""
+    epoch)``, the short last batch dropped (set ``epoch`` before each epoch).
+    ``workers=0`` loads in the caller's thread, so a dataset that draws from
+    its own generator (the KITTI training splits) yields the same items as
+    the JAX loader on one thread; otherwise a pool of ``workers`` threads
+    loads the next batch's items while the caller works on this one, and is
+    joined when the iteration ends, fails or is abandoned. ``multi_scale``
+    resizes each batch's ``img`` as ``DataLoader`` does and leaves every
+    other key as it is, pixel coordinates and calibration included: the
+    JAX loader does the same to a 3D batch."""
 
     def __init__(self, dataset, batch_size: int, workers: int = 0, shuffle: bool = False,
-                 seed: int = 0):
+                 seed: int = 0, multi_scale: bool = False):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.workers = max(0, int(workers))
         self.shuffle = shuffle
         self.seed = seed
+        self.multi_scale = multi_scale
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -429,11 +579,16 @@ class DictLoader:
     def collate(items: Sequence[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
         return {k: np.stack([it[k] for it in items]) for k in items[0]}
 
+    def _scaled(self, batch: Dict[str, np.ndarray], b: int) -> Dict[str, np.ndarray]:
+        if not self.multi_scale:
+            return batch
+        return resize_batch(batch, batch_scale(self.seed, self.epoch, b))
+
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         batches = self._batches()
         if self.workers == 0:
-            for sel in batches:
-                yield self.collate([self.dataset[int(i)] for i in sel])
+            for b, sel in enumerate(batches):
+                yield self._scaled(self.collate([self.dataset[int(i)] for i in sel]), b)
             return
         pool = ThreadPoolExecutor(max_workers=self.workers, thread_name_prefix="dict-loader")
         try:
@@ -443,6 +598,6 @@ class DictLoader:
                 items = [f.result() for f in pending]
                 pending = ([pool.submit(load, int(i)) for i in batches[b + 1]]
                            if b + 1 < len(batches) else [])
-                yield self.collate(items)
+                yield self._scaled(self.collate(items), b)
         finally:
             pool.shutdown(wait=True, cancel_futures=True)

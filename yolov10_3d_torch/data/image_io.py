@@ -127,6 +127,47 @@ def encode_jpeg(img: np.ndarray, style: str = "pil") -> bytes:
     return image_codec.jpeg_encode(img, JPEG_QUALITY[style])
 
 
+def image_size(data: bytes, name: str = "image") -> tuple:
+    """(w, h) of an image file from its header, without decoding: a JPEG's
+    frame header (SOFn), a PNG's IHDR, a BMP's info header. The size as
+    stored, as PIL's ``Image.size`` reports it: EXIF orientation is not
+    applied (cv2's decode applies it). ValueError for bytes that are no
+    image or a header cut short; NotImplementedError for TIFF and WebP."""
+    fmt = image_format(data)
+    try:
+        if fmt == "png":
+            return struct.unpack(">II", data[16:24])
+        if fmt == "bmp":
+            dib = struct.unpack("<I", data[14:18])[0]
+            if dib == 12:  # BITMAPCOREHEADER
+                return struct.unpack("<HH", data[18:22])
+            w, h = struct.unpack("<ii", data[18:26])
+            return w, abs(h)  # a negative height: rows stored top-down
+        if fmt == "jpeg":
+            pos = 2
+            while pos + 4 <= len(data):
+                if data[pos] != 0xFF:
+                    break
+                marker = data[pos + 1]
+                if marker == 0xFF:  # fill byte
+                    pos += 1
+                    continue
+                if marker in (0xD8, 0x01) or 0xD0 <= marker <= 0xD7:  # no length
+                    pos += 2
+                    continue
+                if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):  # SOFn
+                    h, w = struct.unpack(">HH", data[pos + 5:pos + 9])
+                    return w, h
+                pos += 2 + struct.unpack(">H", data[pos + 2:pos + 4])[0]
+            raise ValueError(f"{name}: no JPEG frame header")
+    except struct.error:
+        raise ValueError(f"{name}: truncated {fmt.upper()} header") from None
+    if fmt in ("tiff", "webp"):
+        raise NotImplementedError(f"{name}: {fmt.upper()} images are not decoded by the port "
+                                  f"({_UNPORTED})")
+    raise ValueError(f"{name}: not an image file (JPEG, PNG or BMP)")
+
+
 # ------------------------------------------------------------------ EXIF
 
 def exif_orientation(data: bytes) -> int:

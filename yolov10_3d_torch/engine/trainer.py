@@ -18,9 +18,17 @@ appends the terms, lr and validation metrics to ``results.csv``, tracks the
 best fitness, writes ``last.ckpt``, ``best.ckpt`` and every ``save_period``
 epochs ``epoch{n}.ckpt`` (and every ``ckpt_period_steps`` micro-steps a
 mid-epoch ``last.ckpt``) in the JAX package's format on a writer thread,
-and stops early after ``patience`` epochs without a better fitness. The
-options a task has not ported raise ``NotImplementedError`` naming their
-ROADMAP item (queue 1, item 9).
+and stops early after ``patience`` epochs without a better fitness.
+
+``rect`` batches the dataset by aspect ratio (training and validation),
+``multi_scale`` resizes each training batch by a scale of a fixed ladder
+and ``cache`` keeps decoded images in memory or beside the files, as the
+JAX loader does (``data/dataset.py``). A device list (``device="0,1"`` or
+``[0, 1]``) trains data-parallel with the JAX package's global-batch
+semantics (``parallel/dp.py``): one process a device, the batch rounded
+down to a multiple of their count, every rank loading the global batch and
+stepping on its rows, rank 0 validating and writing ``results.csv`` and the
+checkpoints; ``train()`` returns rank 0's state.
 """
 
 from __future__ import annotations
@@ -41,8 +49,9 @@ from ..data.dataset import DataLoader, YOLODataset
 from ..device import resolve_device
 from ..nn.build import build_model
 from ..nn.heads import detect_bias_init
-from ..ops.device_aug import device_train_augment
-from ..train.loss import v10_detect_loss
+from ..ops.device_aug import augment_core, draw_augment
+from ..parallel import dp
+from ..train.loss import ONE_PROCESS, v10_detect_loss
 from ..train.optim import Optimizer, resolve_auto_optimizer
 from ..train.state import TrainState, make_train_step
 from ..utils.checkpoint import AsyncCheckpointer, Snapshot, load_checkpoint
@@ -53,18 +62,11 @@ LOGGER = logging.getLogger(__name__)
 TILE_KEYS = ("tiles", "tile_labels", "tile_mask")
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1, item {item})")
-
-
-def check_ported(args: Dict[str, Any]) -> None:
-    """Raise for every training option of the JAX trainer that the port lacks."""
-    for k in ("rect", "multi_scale", "cache"):
-        if args[k]:
-            raise _not_ported(f"{k}={args[k]!r}", "9e")
-    dev = args["device"]
-    if isinstance(dev, (list, tuple)) or "," in str(dev or ""):
-        raise _not_ported(f"multi-GPU training (device={dev!r})", "9g")
+def _train_rank(spec, rank: int, device: str) -> None:
+    """Rank ``rank`` of a device list's run: the trainer of ``spec`` (its
+    class and arguments) on ``device``."""
+    cls, args = spec
+    cls({**args, "device": device})._train()
 
 
 class EarlyStopping:
@@ -97,9 +99,9 @@ class DetectionTrainer:
     nhwc = True  # the loader's images are NHWC uint8 (the device augmentation returns NCHW)
 
     def __init__(self, args: Dict[str, Any]):
-        check_ported(args)
         self.args = args
-        self.device = resolve_device(args["device"] or "cuda")
+        self.devices = dp.parse_devices(args["device"])  # one a rank, or None
+        self.device = resolve_device(self.devices[0] if self.devices else args["device"] or "cuda")
         self.save_dir = Path(args["save_dir"] or "runs/train")
         self.state: Optional[TrainState] = None
         self._ckpt_writer: Optional[AsyncCheckpointer] = None
@@ -120,14 +122,16 @@ class DetectionTrainer:
     def build_dataset(self, path, mode: str):
         args = self.args
         train = mode == "train"
+        # JAX passes ``cache or None``: cache=True caches nothing (ROADMAP queue 3)
         return YOLODataset(path, imgsz=args["imgsz"], augment=train, hyp=args,
                            fraction=args["fraction"] if train else 1.0,
                            single_cls=args["single_cls"], seed=args["seed"],
-                           device_aug=self.device_aug_active())
+                           device_aug=self.device_aug_active(), cache=args["cache"] or None)
 
     def build_loader(self, dataset, batch: int):
         return DataLoader(dataset, batch, seed=self.args["seed"], workers=self.args["workers"],
-                          pin_memory=self.device.type == "cuda")
+                          pin_memory=self.device.type == "cuda", rect=bool(self.args["rect"]),
+                          multi_scale=bool(self.args["multi_scale"]))
 
     def make_preprocess_fn(self):
         """The device augmentation of tile batches, or None on the host path."""
@@ -142,11 +146,15 @@ class DetectionTrainer:
         gains = (args["hsv_h"], args["hsv_s"], args["hsv_v"])
 
         def preprocess(batch, step):
-            out = device_train_augment(
-                batch["tiles"], batch["tile_labels"], batch["tile_mask"],
-                step_generator(args["seed"], step), out_hw=hw, crop_hw=hw,
-                max_boxes=batch["tile_labels"].shape[2], hsv_gains=gains,
-                fliplr=float(args["fliplr"]))
+            # the draws of the global batch (device_train_augment's), this rank's rows of them
+            tiles = batch["tiles"]
+            n = tiles.shape[0] * dp.world()
+            draws = draw_augment(n, tuple(tiles.shape[2:4]), hw, gains, float(args["fliplr"]),
+                                 step_generator(args["seed"], step))
+            mine = dp.rows(n)
+            out = augment_core(tiles, batch["tile_labels"], batch["tile_mask"],
+                               **{k: v[mine] for k, v in draws.items()}, out_hw=hw, crop_hw=hw,
+                               max_boxes=batch["tile_labels"].shape[2])
             return {**{k: v for k, v in batch.items() if k not in TILE_KEYS}, **out}
 
         return preprocess
@@ -154,10 +162,11 @@ class DetectionTrainer:
     def make_loss(self, spec):
         """``loss_fn(preds, batch) -> (total, terms)``: the v10 dual loss."""
         gains = (self.args["box"], self.args["cls"], self.args["dfl"])
+        ranks = dp.current() or ONE_PROCESS
 
         def loss_fn(preds, batch):
             return v10_detect_loss(preds, batch, nc=spec.nc, strides=spec.strides, gains=gains,
-                                   one2many_topk=10)
+                                   one2many_topk=10, ranks=ranks)
 
         return loss_fn
 
@@ -188,24 +197,38 @@ class DetectionTrainer:
         """The validation metrics of the EMA weights, with a ``fitness`` key;
         the validator stays on ``self.validator``."""
         loader = DataLoader(val_ds, batch_size, shuffle=False, drop_last=False,
-                            workers=self.args["workers"], pin_memory=self.device.type == "cuda")
+                            workers=self.args["workers"], pin_memory=self.device.type == "cuda",
+                            rect=bool(self.args["rect"]))
         self.validator = self.get_validator(self.eval_model(), self.names)
         return self.validator(loader)
 
     # -- main --
     def train(self) -> TrainState:
+        """Train; over a device list, on one rank a device (rank 0 here)."""
+        if self.devices and dp.current() is None:
+            if getattr(self, "teacher", None) is not None:
+                raise ValueError("a teacher object cannot be handed to the other ranks of a "
+                                 "device list: load it from dino_path")
+            return dp.launch(_train_rank, (type(self), self.args), self.devices,
+                             main=self._train)
+        return self._train()
+
+    def _train(self) -> TrainState:
         args, dev = self.args, self.device
+        main = dp.is_main()
         data = load_dataset_yaml(args["data"])
         self.names = data["names"]
         model, spec = build_model(resolve_model_cfg(args["model"]), nc=data["nc"], device=dev,
                                   seed=args["seed"])
         self.init_params(model, spec)
+        dp.global_batchnorm(model)  # over a device list: statistics of the global batch
         self.model, self.spec = model, spec
 
         root = Path(data.get("path") or ".")
         train_ds = self.train_ds = self.build_dataset(root / data["train"], "train")
-        val_ds = self.build_dataset(root / data["val"], "val") if args["val"] else None
-        batch = args["batch"]
+        val_ds = self.build_dataset(root / data["val"], "val") if args["val"] and main else None
+        batch = args["batch"] if dp.current() is None else dp.global_batch(args["batch"],
+                                                                          dp.world())
         loader = self.build_loader(train_ds, batch)
         steps_per_epoch = max(len(loader), 1)
 
@@ -224,7 +247,8 @@ class DetectionTrainer:
         step_fn = make_train_step(nc=spec.nc, strides=spec.strides,
                                   gains=(args["box"], args["cls"], args["dfl"]), amp=args["amp"],
                                   preprocess_fn=self.make_preprocess_fn(),
-                                  loss_fn=self.make_loss(spec), nhwc=self.nhwc)
+                                  loss_fn=self.make_loss(spec), nhwc=self.nhwc,
+                                  ranks=dp.current())
         state = self.state = TrainState.create(model, opt)
 
         start_epoch, skip_batches, resumed_best = 0, 0, None
@@ -241,6 +265,8 @@ class DetectionTrainer:
                 if skip_batches:
                     start_epoch = int(meta.get("epoch", start_epoch))
                 self.on_resume_meta(meta)
+        # every rank starts from rank 0's weights
+        dp.broadcast_([*model.state_dict().values(), *state.ema_params])
 
         self.validator = None
         stopper = EarlyStopping(args["patience"])
@@ -279,11 +305,13 @@ class DetectionTrainer:
                     if skip_batches > 0:
                         skip_batches -= 1
                         continue
+                    if dp.current() is not None:  # this rank's rows of the global batch
+                        b = {k: v[dp.rows(len(v))] for k, v in b.items()}
                     state, metrics = step_fn(state, self.to_device({**b, **extras}))
                     sums = metrics if sums is None else {k: sums[k] + v
                                                          for k, v in metrics.items()}
                     n_run += 1
-                    if ckpt_every and nb % ckpt_every == 0 and args["save"]:
+                    if ckpt_every and nb % ckpt_every == 0 and args["save"] and main:
                         self.save_ckpt(weights / "last.ckpt", state, {
                             "epoch": epoch, "batches_done": nb,
                             "best_fitness": best_fitness or 0.0, **base_meta,
@@ -300,14 +328,16 @@ class DetectionTrainer:
                     results = self.run_val(state, val_ds, batch)
                     fitness = results["fitness"]
                     row.update({k: v for k, v in results.items() if np.isscalar(v)})
+                fitness = dp.broadcast_float(fitness, dev)  # rank 0 validates
                 self.last_metrics = row
-                self._write_csv(csv_path, row)
+                if main:
+                    self._write_csv(csv_path, row)
                 # the meta is built after the update, so that last.ckpt never
                 # records a best that a resume would overwrite best.ckpt with
                 improved = best_fitness is None or fitness > best_fitness
                 if improved:
                     best_fitness = fitness
-                if args["save"]:
+                if args["save"] and main:
                     meta = {"epoch": epoch, "best_fitness": best_fitness or 0.0, **base_meta,
                             "train_args": {k: v for k, v in args.items() if isinstance(
                                 v, (int, float, str, bool, list, type(None)))},

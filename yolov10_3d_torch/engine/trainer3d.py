@@ -13,7 +13,10 @@ backbone grafted from a ``.ckpt`` or ``.pt`` (``pretrained=path``), 3D
 validation of the EMA weights every ``val_period`` epochs (fitness
 ``metrics/3D``), and HTL's state in every checkpoint's meta.
 ``device_aug`` and ``close_mosaic`` do nothing here, as in the JAX trainer:
-the 3D datasets make neither tiles nor mosaics.
+the 3D datasets make neither tiles nor mosaics. Nor does ``rect`` (the 3D
+datasets have no ``set_rectangle``), and validation never takes it;
+``multi_scale`` resizes the training frames and nothing else of the batch,
+as the JAX loader does.
 """
 
 from __future__ import annotations
@@ -29,9 +32,11 @@ import torch
 from ..data.dataset import DictLoader
 from ..models.dino import load_dino_teacher
 from ..nn.heads3d import detect3d_bias_init
+from ..parallel import dp
 from ..train.distill import supervision_fgdm_loss, supervision_head_loss
 from ..train.fgdm import foreground_depth_map_loss
 from ..train.htl import HierarchicalTaskLearning
+from ..train.loss import ONE_PROCESS
 from ..train.loss3d import ITEM_KEYS, detect3d_loss
 from ..train.state import TrainState
 from ..utils.weights import graft_backbone
@@ -71,7 +76,7 @@ class Detection3DTrainer(DetectionTrainer):
 
     def build_loader(self, dataset, batch: int):
         return DictLoader(dataset, batch, workers=self.args["workers"], shuffle=True,
-                          seed=self.args["seed"])
+                          seed=self.args["seed"], multi_scale=bool(self.args["multi_scale"]))
 
     def make_preprocess_fn(self):
         return None
@@ -83,12 +88,13 @@ class Detection3DTrainer(DetectionTrainer):
         embeddings on foreground pixels), summed into ``dis``. Without a
         teacher the distillation terms are skipped with a warning."""
         hyp = dict(self.args)
+        ranks = dp.current() or ONE_PROCESS  # every term's counts over the global batch
         fgdm_loss_fn = None
         if hyp.get("fgdm_loss"):
             fgdm_loss_fn = functools.partial(
                 foreground_depth_map_loss,
                 depth_min=float(hyp.get("min_depth_threshold", 1.0)),
-                depth_max=float(hyp.get("max_depth_threshold", 120.0)))
+                depth_max=float(hyp.get("max_depth_threshold", 120.0)), ranks=ranks)
 
         distilling = hyp.get("distillation") or hyp.get("fgdm_supervision")
         if distilling and self.teacher is None and hyp.get("dino_path"):
@@ -99,7 +105,7 @@ class Detection3DTrainer(DetectionTrainer):
                 "YOLOv10.train(teacher=...), set trainer.teacher, or point dino_path at a "
                 "saved DINOv2 state dict; the distillation terms are SKIPPED this run")
         crit = dict(criterion=str(hyp.get("distillation_loss", "soft")),
-                    T=float(hyp.get("distillation_temp", 2.0)))
+                    T=float(hyp.get("distillation_temp", 2.0)), ranks=ranks)
         parts = []
         if hyp.get("distillation") and self.teacher is not None:
             def head_distill(preds, batch, aux):
@@ -135,7 +141,7 @@ class Detection3DTrainer(DetectionTrainer):
 
         def loss_fn(preds, batch):
             return detect3d_loss(preds, batch, nc=spec.nc, strides=spec.strides, hyp=hyp,
-                                 fgdm_loss_fn=fgdm_loss_fn, distill_fn=distill_fn)
+                                 fgdm_loss_fn=fgdm_loss_fn, distill_fn=distill_fn, ranks=ranks)
 
         return loss_fn
 

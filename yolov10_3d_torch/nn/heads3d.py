@@ -55,7 +55,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.topk import topk_lowest_index
-from .modules import Conv, run
+from .modules import Conv, promoted, run
 
 OUTPUT_CHANNELS = {"cls": None, "o2d": 2, "s2d": 2, "o3d": 2, "s3d": 3, "hd": 24, "dep": 1,
                    "dep_un": 1}  # cls: nc
@@ -282,11 +282,12 @@ class DepthPredictor(nn.Module):
 
     def forward(self, xs: Sequence[torch.Tensor]):
         """-> (logits (B, D + 1, H, W), depth (B, H, W), embeddings (B, hidden, H, W))
-        on P4's grid."""
-        src_8 = self.downsample(xs[0])
-        src_16 = self.proj(xs[1])
+        on P4's grid. The layers compute in float32 whatever the input's
+        dtype (``promoted``: the JAX layers have flax's default dtype)."""
+        src_8 = promoted(self.downsample, xs[0])
+        src_16 = promoted(self.proj, xs[1])
         p5 = F.interpolate(xs[2], size=src_16.shape[-2:], mode="bilinear", align_corners=False)
-        src_32 = self.upsample(p5)
+        src_32 = promoted(self.upsample, p5)
         src = (src_8 + src_16 + src_32) / 3
         emb = self.depth_head[:3](src)
         logits = self.depth_classifier(self.depth_head[3:](emb))

@@ -9,7 +9,15 @@ Numerical conventions, as in the JAX package:
   - activation SiLU;
   - BatchNorm eps 1e-3, torch momentum 0.03 (flax keep-fraction 0.97);
     eval normalises with the running statistics;
-  - "same" autopad p = k // 2.
+  - "same" autopad p = k // 2;
+  - dtypes follow the input, as the JAX modules' ``dtype=x.dtype``: a
+    ``Conv`` (and a ``DeformableConv2d``) computes in its input's dtype with
+    its float32 parameters cast to it, and its BatchNorm outputs that dtype
+    from float32 statistics and parameters (torch's BatchNorm takes a
+    bfloat16 input with float32 parameters so); a bare ``nn.Conv2d`` run by
+    ``run`` promotes its input to its parameters' dtype, as flax's default
+    dtype does. A bfloat16 input (amp) so runs in bfloat16 up to the heads'
+    last 1x1 convs, which compute in float32.
 
 Every forward takes ``plan``, the int8 plan of the call (``nn/quant.py``), or
 None for float32. A ``Conv`` the plan routes to a fused kernel returns int8
@@ -54,12 +62,28 @@ def autopad(k: int, p: Optional[int] = None, d: int = 1) -> int:
 
 def run(m: nn.Module, x, plan):
     """``m(x)``, handing the int8 plan to the port's blocks; runs an
-    ``nn.Sequential`` child by child."""
+    ``nn.Sequential`` child by child, a bare conv through ``promoted``."""
     if isinstance(m, nn.Sequential):
         for sub in m:
             x = run(sub, x, plan)
         return x
-    return m(x) if isinstance(m, nn.Conv2d) else m(x, plan)
+    return promoted(m, x) if isinstance(m, nn.Conv2d) else m(x, plan)
+
+
+def promoted(m: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """``m(x)`` with ``x`` promoted to the dtype of ``m``'s parameters where
+    it is narrower (flax's default dtype: a bfloat16 input to a float32
+    layer computes in float32)."""
+    return m(x.to(torch.promote_types(x.dtype, next(m.parameters()).dtype)))
+
+
+def conv_as_input(c: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``c(x)`` computed in ``x``'s dtype (the JAX ``dtype=x.dtype``): the
+    parameters are cast to it where they differ."""
+    if x.dtype == c.weight.dtype:
+        return c(x)
+    b = c.bias.to(x.dtype) if c.bias is not None else None
+    return F.conv2d(x, c.weight.to(x.dtype), b, c.stride, c.padding, c.dilation, c.groups)
 
 
 class DeformableConv2d(nn.Module):
@@ -86,9 +110,9 @@ class DeformableConv2d(nn.Module):
             m.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        offset = self.offset_conv(x)
-        modulator = 2.0 * torch.sigmoid(self.modulator_conv(x))
-        return deform_conv2d(x, offset, modulator, self.regular_conv.weight, None,
+        offset = conv_as_input(self.offset_conv, x)
+        modulator = 2.0 * torch.sigmoid(conv_as_input(self.modulator_conv, x))
+        return deform_conv2d(x, offset, modulator, self.regular_conv.weight.to(x.dtype), None,
                              stride=self.stride, padding=self.padding)
 
 
@@ -122,7 +146,12 @@ class Conv(nn.Module):
         route = plan.route(self, x) if plan is not None else None
         if route is not None:
             return plan.run(self, x, route)
-        y = spd_conv(x, self.conv.weight) if self.spd else self.conv(x)
+        if self.spd:
+            y = spd_conv(x, self.conv.weight.to(x.dtype))
+        elif isinstance(self.conv, nn.Conv2d):
+            y = conv_as_input(self.conv, x)
+        else:
+            y = self.conv(x)
         return self.act(self.bn(y))
 
     def fused_stem(self, x: torch.Tensor) -> torch.Tensor:

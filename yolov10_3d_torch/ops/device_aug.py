@@ -4,8 +4,10 @@
 The host loader only decodes images into letterboxed uint8 tiles with
 tile-frame labels (``data/dataset.py`` tile mode). On the device, for each
 sample: the fixed 2x2 mosaic of its four tiles, a crop window at a random
-offset (the reference's random mosaic centre), the HSV jitter (kernel K4 on
-the card), a random horizontal flip, and the same transforms of the labels,
+offset (the reference's random mosaic centre), a bilinear resize to the
+output size where the crop differs from it (JAX's antialiased weights,
+``ops/preprocess.py`` ``resize_bilinear``), the HSV jitter (kernel K4 on the
+card), a random horizontal flip, and the same transforms of the labels,
 compacted to the front of a fixed-size target array.
 
 The random draws are split from the deterministic core:
@@ -22,6 +24,7 @@ from typing import Dict, Tuple
 import torch
 
 from ..kernels.hsv import hsv_jitter
+from .preprocess import resize_bilinear
 
 
 def draw_augment(B: int, tile_hw: Tuple[int, int], crop_hw: Tuple[int, int],
@@ -48,15 +51,12 @@ def augment_core(tiles_u8: torch.Tensor, tile_labels: torch.Tensor, tile_mask: t
     tile_labels (B, 4, M, 5) cls + xyxy px in the tile frame, tile_mask
     (B, 4, M) bool. Returns {img (B, 3, oh, ow) float32 [0, 1], gt_labels
     (B, K) int64, gt_bboxes (B, K, 4) normalized xywh, mask_gt (B, K) bool}
-    with K = min(4 M, max_boxes)."""
+    with K = min(4 M, max_boxes). A crop of another size than ``out_hw`` is
+    resized to it before the HSV jitter, and its labels scaled with it."""
     B, T, H, W, _ = tiles_u8.shape
     M = tile_labels.shape[2]
     oh, ow = out_hw
     ch, cw = crop_hw
-    if (ch, cw) != (oh, ow):
-        raise NotImplementedError(
-            "device_train_augment with crop_hw != out_hw (a resize after the crop) is not "
-            "ported yet (ROADMAP queue 1, item 9c)")
     if not (0 < ch <= 2 * H and 0 < cw <= 2 * W):
         raise ValueError(f"crop {crop_hw} does not fit the {2 * H}x{2 * W} mosaic")
     dev = tiles_u8.device
@@ -67,30 +67,35 @@ def augment_core(tiles_u8: torch.Tensor, tile_labels: torch.Tensor, tile_mask: t
     crop = torch.stack([canvas[b, y:y + ch, x:x + cw]
                         for b, (y, x) in enumerate(zip(oy.tolist(), ox.tolist()))])
     img = crop.permute(0, 3, 1, 2).to(torch.float32, memory_format=torch.contiguous_format)
-    img = hsv_jitter(img.div_(255.0),
+    img = resize_bilinear(img.div_(255.0), (oh, ow)).contiguous()
+    img = hsv_jitter(img,
                      gains.to(torch.float32).contiguous().to(dev, non_blocking=True))
     flip = flip.to(dev, non_blocking=True)
     img = torch.where(flip[:, None, None, None], img.flip(-1), img)
 
-    # labels: tile frame -> canvas (tile t at row t // 2, column t % 2) -> crop -> flip
+    # labels: tile frame -> canvas (tile t at row t // 2, column t % 2) -> crop
+    # -> output scale -> flip
     lab = tile_labels.float()
     t = torch.arange(T, device=dev)[None, :, None]
     dy = (t // 2 * H).float()
     dx = (t % 2 * W).float()
     oyf = oy.to(dev, non_blocking=True).float()[:, None, None]
     oxf = ox.to(dev, non_blocking=True).float()[:, None, None]
-    x1 = (lab[..., 1] + dx - oxf).clamp(0, ow)
-    y1 = (lab[..., 2] + dy - oyf).clamp(0, oh)
-    x2 = (lab[..., 3] + dx - oxf).clamp(0, ow)
-    y2 = (lab[..., 4] + dy - oyf).clamp(0, oh)
+    sx, sy = ow / cw, oh / ch
+    x1 = ((lab[..., 1] + dx - oxf) * sx).clamp(0, ow)
+    y1 = ((lab[..., 2] + dy - oyf) * sy).clamp(0, oh)
+    x2 = ((lab[..., 3] + dx - oxf) * sx).clamp(0, ow)
+    y2 = ((lab[..., 4] + dy - oyf) * sy).clamp(0, oh)
     fx = flip[:, None, None]
     x1, x2 = torch.where(fx, ow - x2, x1), torch.where(fx, ow - x1, x2)
     w = x2 - x1
     h = y2 - y1
     valid = (tile_mask.bool() & (w > 2.0) & (h > 2.0)).reshape(B, T * M)
     cls = lab[..., 0].reshape(B, T * M)
-    xywh = torch.stack([(x1 + x2) / 2 / ow, (y1 + y2) / 2 / oh, w / ow, h / oh],
-                       -1).reshape(B, T * M, 4)
+    # a tensor divisor: CUDA divides by a Python scalar through its
+    # reciprocal, the CPU truly; both divide a tensor by a tensor truly
+    size = torch.tensor([ow, oh, ow, oh], dtype=lab.dtype, device=dev)
+    xywh = (torch.stack([(x1 + x2) / 2, (y1 + y2) / 2, w, h], -1) / size).reshape(B, T * M, 4)
 
     # valid boxes first (stable), padded or cut to max_boxes
     order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)[:, :max_boxes]

@@ -14,19 +14,21 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.preprocess import resize_bilinear
+from .loss import ONE_PROCESS
 
 
 def _masked_criterion(pred: torch.Tensor, teacher: torch.Tensor, mask_f: torch.Tensor,
                       n: torch.Tensor, kind: str, T: float) -> torch.Tensor:
     """Soft-KL, mse or cos over (..., C) embeddings with a float validity mask
-    (..., 1) and a normaliser ``n``."""
+    (..., 1) and its count ``n`` (at least 1; the global batch's across
+    data-parallel ranks)."""
     C = pred.shape[-1]
     if kind == "soft":
         soft_t = F.softmax(teacher / T, -1)
         log_p = F.log_softmax(pred / T, -1)
         return ((soft_t * (torch.log(soft_t + 1e-12) - log_p)) * mask_f).sum() / n * (T ** 2)
     if kind == "mse":
-        return (((pred - teacher) ** 2) * mask_f).sum() / (mask_f.sum() * C).clamp(min=1)
+        return (((pred - teacher) ** 2) * mask_f).sum() / (n * C)
     if kind == "cos":
         pn = pred / (torch.linalg.norm(pred, dim=-1, keepdim=True) + 1e-12)
         tn = teacher / (torch.linalg.norm(teacher, dim=-1, keepdim=True) + 1e-12)
@@ -60,10 +62,12 @@ def supervision_head_loss(
     T: float = 2.0,
     weight: float = 0.75,
     no_mixup: bool = True,
+    ranks=ONE_PROCESS,
 ) -> torch.Tensor:
     """The depth-branch embeddings of the foreground anchors toward the
     teacher's feature at their ground truth's projected 3D centre (the
-    teacher cell at round(c / w * Wt), clamped)."""
+    teacher cell at round(c / w * Wt), clamped); the count of those anchors
+    is the global batch's across ``ranks``."""
     B, A, C = pred_embeddings.shape
     Ct, Ht, Wt = teacher_embeddings.shape[1:]
     _check_widths(C, Ct, "distillation")
@@ -79,7 +83,7 @@ def supervision_head_loss(
     if no_mixup:
         valid = valid & ~mixed_mask.bool()[:, None]
     vf = valid.to(dt)[..., None]
-    n = valid.sum().clamp(min=1)
+    n = ranks.sum(valid.sum()).clamp(min=1)
     return _masked_criterion(pred_embeddings.to(dt), t_per_anchor, vf, n, criterion, T) * weight
 
 
@@ -91,16 +95,18 @@ def supervision_fgdm_loss(
     criterion: str = "soft",
     T: float = 2.0,
     weight: float = 1.0,
+    ranks=ONE_PROCESS,
 ) -> torch.Tensor:
     """The FGDM embeddings toward the teacher on foreground pixels: both
     the teacher's features and the ground-truth depth maps resized to the
-    FGDM grid (antialiased, as ``jax.image.resize``), the mask d > 0."""
+    FGDM grid (antialiased, as ``jax.image.resize``), the mask d > 0, its
+    count the global batch's across ``ranks``."""
     B, C, Hf, Wf = fgdm_embeddings.shape
     _check_widths(C, teacher_embeddings.shape[1], "fgdm_supervision")
     dt = _dtype(fgdm_embeddings)
     t = resize_bilinear(teacher_embeddings.to(dt), (Hf, Wf)).permute(0, 2, 3, 1)
     d = resize_bilinear(gt_depth_maps.float()[:, None], (Hf, Wf))[:, 0]
     mask = (d > 0).to(dt)[..., None]
-    n = (d > 0).sum().clamp(min=1)
+    n = ranks.sum((d > 0).sum()).clamp(min=1)
     pred = fgdm_embeddings.to(dt).permute(0, 2, 3, 1)
     return _masked_criterion(pred, t, mask, n, criterion, T) * weight

@@ -11,6 +11,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from .loss import ONE_PROCESS
+
 
 def bin_depths(depth_map: torch.Tensor, depth_min: float, depth_max: float,
                num_bins: int = 80, mode: str = "LID") -> torch.Tensor:
@@ -52,9 +54,11 @@ def foreground_depth_map_loss(
     gamma: float = 2.0,
     fg_weight: float = 13.0,
     bg_weight: float = 1.0,
+    ranks=ONE_PROCESS,
 ) -> torch.Tensor:
     """Focal loss over the LID bins with foreground/background weights, the
-    sum over the logits' grid divided by its pixel count."""
+    sum over the logits' grid divided by its pixel count (the global
+    batch's across the data-parallel ranks of ``ranks``)."""
     B, _, H, W = depth_logits.shape
     # nearest-downsample the GT depth map to the logits grid; the sample
     # positions are computed in float32, as the JAX package computes them
@@ -69,4 +73,4 @@ def foreground_depth_map_loss(
     target = bin_depths(dm, depth_min, depth_max, num_bins)
     loss = focal_ce(depth_logits, target, alpha, gamma, dim=1)  # (B, H, W)
     weights = torch.where(dm > 0, fg_weight, bg_weight)
-    return (loss * weights).sum() / dm.numel()
+    return (loss * weights).sum() / (dm.numel() * ranks.world)

@@ -6,7 +6,11 @@ Targets are padded per image: ``gt_labels`` (B, M) int, ``gt_bboxes``
 in float32 whatever the dtype of the head maps (float64 maps stay float64:
 a reference run); the assigner's targets are float32. The JAX package's analytic
 backward passes of the BCE and DFL terms (a TPU memory measure) are plain
-autograd here: the same values and gradients.
+autograd here: the same values and gradients. ``ranks`` is the batch's
+group: ``ONE_PROCESS``, or the data-parallel group (``parallel/dp.py``),
+across which each rank's loss divides by the global target-score sum and
+scales by the global batch size, so the ranks' losses sum to the loss of
+the global batch.
 """
 
 from __future__ import annotations
@@ -21,6 +25,21 @@ from ..ops.postprocess import flatten_feats
 from .tal import assign
 
 REG_MAX = 16
+
+
+class _OneProcess:
+    """The batch reductions of one process: counts stay local, the batch is
+    the whole batch (``parallel/dp.py`` ``DataParallel`` is the same
+    interface across ranks)."""
+
+    world = 1
+
+    @staticmethod
+    def sum(t: torch.Tensor) -> torch.Tensor:
+        return t
+
+
+ONE_PROCESS = _OneProcess()
 
 
 class DetLossAux(NamedTuple):
@@ -66,9 +85,10 @@ def detection_loss(
     gains: Tuple[float, float, float] = (7.5, 0.5, 1.5),
     tal_topk: int = 10,
     reg_max: int = REG_MAX,
+    ranks=ONE_PROCESS,
 ) -> Tuple[torch.Tensor, DetLossAux]:
     """v8-style loss over raw NCHW head maps. gains = (box, cls, dfl).
-    Returns (total * batch size, the gained terms)."""
+    Returns (total * global batch size, the gained terms)."""
     x, shapes = flatten_feats(feats)
     x = x if x.dtype == torch.float64 else x.float()
     B, A, _ = x.shape
@@ -94,7 +114,7 @@ def detection_loss(
         batch["gt_labels"], gt_bboxes, mask_gt,
         topk=tal_topk, alpha=0.5, beta=6.0,
     )
-    target_scores_sum = res.target_scores.sum().clamp(min=1.0)
+    target_scores_sum = ranks.sum(res.target_scores.sum()).clamp(min=1.0)
 
     loss_cls = _bce_logits(pred_scores, res.target_scores).sum() / target_scores_sum
 
@@ -110,7 +130,7 @@ def detection_loss(
 
     box_g, cls_g, dfl_g = gains
     aux = DetLossAux(loss_box * box_g, loss_cls * cls_g, loss_dfl * dfl_g)
-    return (aux.box + aux.cls + aux.dfl) * B, aux
+    return (aux.box + aux.cls + aux.dfl) * (B * ranks.world), aux
 
 
 def v10_detect_loss(
@@ -121,13 +141,14 @@ def v10_detect_loss(
     strides: Sequence[int],
     gains: Tuple[float, float, float] = (7.5, 0.5, 1.5),
     one2many_topk: int = 10,
+    ranks=ONE_PROCESS,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Consistent dual assignment: the one2many branch with top-k 10 plus the
     one2one branch with top-k 1, summed."""
     l_m, aux_m = detection_loss(preds["one2many"], batch, nc=nc, strides=strides, gains=gains,
-                                tal_topk=one2many_topk)
+                                tal_topk=one2many_topk, ranks=ranks)
     l_o, aux_o = detection_loss(preds["one2one"], batch, nc=nc, strides=strides, gains=gains,
-                                tal_topk=1)
+                                tal_topk=1, ranks=ranks)
     aux = {
         "box_om": aux_m.box, "cls_om": aux_m.cls, "dfl_om": aux_m.dfl,
         "box_oo": aux_o.box, "cls_oo": aux_o.cls, "dfl_oo": aux_o.dfl,

@@ -6,7 +6,10 @@ gt_center_3d (B, M, 2) px, gt_size_3d (B, M, 3) residual against the class
 mean, gt_depth (B, M), gt_heading_bin (B, M), gt_heading_res (B, M),
 mask_gt (B, M), calib (B, 6), mean_sizes (C, 3) or (B, C, 3). The head maps
 are NCHW. The loss is computed in float32 (float64 maps stay float64: a
-reference run); the assigner always works in float32.
+reference run); the assigner always works in float32. Across the
+data-parallel ranks of ``ranks`` (``train/loss.py``'s ``ONE_PROCESS`` or a
+``parallel/dp.py`` group) the counts and sums that normalise the terms, and
+the batch size, are the global batch's.
 """
 
 from __future__ import annotations
@@ -18,7 +21,7 @@ import torch.nn.functional as F
 
 from ..ops.boxes import make_anchors, xywh2xyxy
 from ..ops.postprocess import flatten_feats
-from .loss import _bce_logits
+from .loss import ONE_PROCESS, _bce_logits
 from .tal3d import assign3d
 
 SPLITS = (2, 2, 2, 3, 24, 1, 1)  # o2d, s2d, o3d, s3d, hd, dep, dep_un
@@ -53,6 +56,7 @@ def dd_detection_loss(
     hyp: Dict[str, float],
     tal_topk: int = 8,
     return_aux: bool = False,
+    ranks=ONE_PROCESS,
 ):
     """Single-branch 3D loss. Returns (total * batch size, {box2d, cls, dep,
     o3d, s3d, hd}); with ``return_aux`` also the assignment's fg_mask and
@@ -98,8 +102,8 @@ def dd_detection_loss(
     )
 
     fg = res.fg_mask.float()
-    n_fg = fg.sum().clamp(min=1.0)
-    target_scores_sum = res.target_scores.sum().clamp(min=1.0)
+    n_fg = ranks.sum(fg.sum()).clamp(min=1.0)
+    target_scores_sum = ranks.sum(res.target_scores.sum()).clamp(min=1.0)
     fg3 = fg[..., None]
 
     # 2D: L1 on offset and size in pixels, means over the fg elements
@@ -130,7 +134,7 @@ def dd_detection_loss(
 
     items = {"box2d": loss_box2d, "cls": loss_cls, "dep": loss_dep, "o3d": loss_o3d,
              "s3d": loss_s3d, "hd": loss_hd}
-    total = sum(items.values()) * B
+    total = sum(items.values()) * (B * ranks.world)
     if return_aux:
         return total, items, {"fg_mask": res.fg_mask, "target_gt_idx": res.target_gt_idx}
     return total, items
@@ -153,28 +157,30 @@ def detect3d_loss(
     hyp: Dict[str, float],
     fgdm_loss_fn: Optional[Callable] = None,
     distill_fn: Optional[Callable] = None,
+    ranks=ONE_PROCESS,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Dual-branch 3D loss: the one2many branch at ``tal_topk`` plus the
     one2one branch at top-1, the foreground depth-map loss when
     ``fgdm_loss_fn`` is given and the head returns depth maps, and
     ``distill_fn(preds, batch, aux)`` (the one2many assignment's fg_mask and
-    target_gt_idx in ``aux``) as the ``dis`` term.
+    target_gt_idx in ``aux``) as the ``dis`` term; those two reduce over
+    ``ranks`` themselves (the trainer binds it).
 
     With ``batch["htl_weights"]`` (a (12,) vector in ITEM_KEYS order, set per
     epoch by the trainer), the dual-branch total is ``(w * items).sum() * B``.
     """
     l_m, items_m, aux_m = dd_detection_loss(preds["one2many"], batch, nc=nc, strides=strides,
                                             hyp=hyp, tal_topk=int(hyp.get("tal_topk", 8)),
-                                            return_aux=True)
+                                            return_aux=True, ranks=ranks)
     l_o, items_o = dd_detection_loss(preds["one2one"], batch, nc=nc, strides=strides, hyp=hyp,
-                                     tal_topk=1)
+                                     tal_topk=1, ranks=ranks)
     items = {f"{k}_om": v for k, v in items_m.items()}
     items.update({f"{k}_oo": v for k, v in items_o.items()})
     if "htl_weights" in batch:
         B = preds["one2many"][0].shape[0]
         w = batch["htl_weights"].float()
         vec = torch.stack([items_m[k] for k in _BRANCH_KEYS] + [items_o[k] for k in _BRANCH_KEYS])
-        total = (w * vec).sum() * B
+        total = (w * vec).sum() * (B * ranks.world)
     else:
         total = l_m + l_o
     if fgdm_loss_fn is not None and "depth_maps" in preds and "depth_map" in batch:

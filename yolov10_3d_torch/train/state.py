@@ -5,11 +5,19 @@ batches), the train-mode forward (BN batch statistics, both head branches),
 the dual-assignment loss, the backward, the optimizer's micro-step (clip,
 accumulation, update) and the EMA. The step updates the state in place and
 returns it with its metrics, which stay on the device.
+
+``amp`` is the JAX package's bfloat16 step, the same on the CPU and the
+card: the batch cast to bfloat16, every ``Conv`` computing in it with its
+float32 parameters as master weights (``nn/modules.py``), BatchNorm
+statistics in float32, the loss in float32. There is no autocast.
+
+Across data-parallel ranks (``ranks``, a ``parallel/dp.py`` group) each
+rank steps on its rows of the global batch, the gradients are summed over
+the ranks before the update, and the metrics are the global batch's.
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
@@ -18,7 +26,7 @@ import torch
 from torch import nn
 
 from ..utils.weights import torch_to_flax_variables
-from .loss import v10_detect_loss
+from .loss import ONE_PROCESS, v10_detect_loss
 from .optim import Optimizer, ema_update
 
 
@@ -70,6 +78,7 @@ def make_train_step(
     preprocess_fn: Optional[Callable] = None,
     loss_fn: Optional[Callable] = None,
     nhwc: bool = False,
+    ranks=None,
 ) -> Callable[[TrainState, Dict[str, torch.Tensor]], Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build ``train_step(state, batch)``. A batch holds either ``img`` (B, 3,
     H, W) uint8 or float [0, 1] with its targets, or the tile keys that
@@ -78,8 +87,12 @@ def make_train_step(
     preprocess's is NCHW either way, so one run may mix both kinds. ``loss_fn(preds,
     batch) -> (total, terms)`` replaces the v10 dual loss (the 3D trainer's
     hook); it reads the batch keys it needs (``htl_weights``, ``depth_map``)
-    and ignores the rest. ``amp`` runs the forward under bfloat16 autocast;
-    the loss is float32 either way."""
+    and ignores the rest. ``amp`` casts the image to bfloat16 (a uint8 image
+    first, then divided by 255 in bfloat16, as JAX does) and the forward
+    follows its dtype; the loss is float32 either way. ``ranks`` is the
+    data-parallel group of a rank (``parallel/dp.py``; its model's BatchNorms
+    made global by ``dp.global_batchnorm``): the v10 loss reduces over it, a
+    ``loss_fn`` must itself."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         channels_last = nhwc
@@ -88,25 +101,33 @@ def make_train_step(
             channels_last = False
         img = batch["img"]
         model = state.model
-        dtype = next(model.parameters()).dtype  # float32; float64 for a reference run
+        # float32; float64 for a reference run; bfloat16 under amp
+        dtype = torch.bfloat16 if amp else next(model.parameters()).dtype
         if channels_last:  # uint8 (B, H, W, 3) -> float NCHW on the batch's device
             img = img.permute(0, 3, 1, 2).to(dtype).div(255.0).contiguous()
         elif img.dtype == torch.uint8:
             img = img.to(dtype) / 255.0
+        else:
+            img = img.to(dtype)
         model.train()
-        autocast = (torch.autocast(img.device.type, dtype=torch.bfloat16) if amp
-                    else contextlib.nullcontext())
-        with autocast:
-            preds = model(img)
+        preds = model(img)
         if loss_fn is not None:
             loss, aux = loss_fn(preds, batch)
         else:
             loss, aux = v10_detect_loss(preds, batch, nc=nc, strides=strides, gains=gains,
-                                        one2many_topk=one2many_topk)
+                                        one2many_topk=one2many_topk,
+                                        ranks=ranks if ranks is not None else ONE_PROCESS)
         loss.backward()
+        params = list(model.parameters())
+        if ranks is not None:
+            ranks.sum_grads(params)
         state.optimizer.step()
-        ema_update(state.ema_params, [p.detach() for p in model.parameters()], state.step + 1)
+        ema_update(state.ema_params, [p.detach() for p in params], state.step + 1)
         state.step += 1
-        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        metrics = {"loss": loss.detach(), **{k: v.detach() for k, v in aux.items()}}
+        if ranks is not None:  # the global batch's terms: the ranks' parts summed
+            summed = ranks.sum(torch.stack([v.float() for v in metrics.values()]))
+            metrics = dict(zip(metrics, summed.unbind()))
+        return state, metrics
 
     return train_step
