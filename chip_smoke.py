@@ -141,6 +141,30 @@ Phases, each fatal on failure:
                 as the model it came from (YOLOv10-S, and YOLOv10-S-3D at
                 384x1280). One JPEG request to the InferenceServer, its rows
                 held to the direct call. K1 and the stem once per forward.
+  4h. track  - video and tracking as users call them. A Motion-JPEG AVI
+                written here (mjpeg_avi; frames by the port's encoder in cv2's
+                style): 96 frames of 720x1280 at 30 fps, painted objects
+                moving over a background panned 3 px a frame. The reader's
+                frames (load_source) equal decode_bytes of each payload bit
+                for bit, with the count and paths clip.avi#i. YOLOv10-S at 640
+                (one class, seeded, calibrated on the clip's first frames):
+                predict(stream=True) on the first 16 frames against a CPU run
+                of the same weights ([serve]'s bars), then track(...,
+                "bytetrack") and track(..., "botsort") on them against the
+                trackers run on the CPU's Results: ids equal (STrack._count
+                reset before each run), boxes 0.1 px, conf 1e-4; every
+                score's distance to the trackers' thresholds (0.1, 0.5, 0.6),
+                every association cost's to its threshold (0.8, 0.5, 0.7)
+                and the gap between the two smallest costs of each row and
+                column printed, and from a frame where one is under the
+                score bar on, the card is held to a float64 CPU run instead.
+                frames/s
+                of predict(stream=True) and of track with each tracker over
+                all 96 frames; ms a frame split into AVI read + JPEG decode,
+                the Predictor call, the tracker's update and GMC.apply; the
+                decode's share; K1 and the stem once per frame forwarded.
+                On the host: BoT-SORT's optical flow library
+                (native/optical_flow.cc) bit for bit its numpy rule.
   4c. val3d  - KITTI AP40 validation, YOLOv10("yolov10s_3D.yaml").val(...), on a
                 synthetic KITTI tree the script writes to a temporary directory:
                 16 frames of 375x1242 PNGs (smooth background, painted
@@ -286,10 +310,15 @@ Phases, each fatal on failure:
                 predict(int8=True) on the 8 frames, scored by
                 utils/metrics.py, must reach mAP50 >= 0.9 (K2, K3 and
                 int8_conv_f32 on trained weights), the float32 predict
-                scored beside it.
+                scored beside it. It runs in a child process
+                (``chip_smoke.py --learn2d``) beside learn3d: both are
+                host-bound at batch 8 on small nets, and side by side they
+                keep the script inside its time limit; its counts come back
+                as the child's last line.
 
-Each path (serving, int8-all, serve3d, int8-3d, server, sources, val3d, train,
-train-host, train-options, head3d-options, distill3d, dino-val, json3d, ckpt, val2d, learn3d, learn2d) is
+Each path (serving, int8-all, serve3d, int8-3d, server, sources, track, val3d,
+train, train-host, train-options, head3d-options, distill3d, dino-val, json3d, ckpt,
+val2d, learn3d, learn2d) is
 driven with the launch counts set to 0 just before it and read just after. The last three lines are
 the card line, one JSON object with the per-kernel numbers, and {"ok": true, "device":
 {...}}.
@@ -298,14 +327,14 @@ Imports no JAX.
     python3 chip_smoke.py --sweep NAMES [--package-root DIR]
 
 with NAMES a comma-separated subset of stem, k1, int8, k2tiles, group,
-dwtiles, val2d-std05, learn2d-epoch, serve3d-std05 and serve, runs the card line, the
+dwtiles, val2d-std05, learn2d-epoch, serve3d-std05, track and serve, runs the card line, the
 build of the named kernels and their timings only
 (the stem and K1 as in phase 3, the int8 convs as in phase 3b and K2 as in
 phase 3, "k2tiles" every tile K2 compiles, "group" phase 3c, "dwtiles" every
 tile of its kernel, "val2d-std05" [val2d] at
 BatchNorm std 0.5, "learn2d-epoch" [learn2d]'s epoch with and without its
 saves, "serve3d-std05" [serve3d]'s std 0.5 check on frames upsampled by
-cv2's rule and the witnesses of its miss, "serve" the device kernels of one float32 request), with the
+cv2's rule and the witnesses of its miss, "track" phase 4h, "serve" the device kernels of one float32 request), with the
 ``yolov10_3d_torch``
 package found under DIR (default: this checkout), so that two checkouts'
 kernels can be timed in one call on one card. ``--parent-root DIR``, with or
@@ -329,6 +358,7 @@ import sys
 import tempfile
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 # NVIDIA H100 SXM data sheet: HBM3 rate, float32 (non-tensor-core) peak and
@@ -387,6 +417,17 @@ SOURCES_KERNELS = ("decode_detect", "stem_conv")
 SOURCES_FRAMES = 32  # 640x480: 28 JPEG, 3 PNG, 1 BMP
 BRANCHES_3D = ("cls", "o2d", "s2d", "o3d", "s3d", "hd", "dep", "dep_un")  # o2o_heads.{j}
 TRAIN_KERNELS = ("hsv_jitter",)
+TRACK_KERNELS = ("decode_detect", "stem_conv")
+TRACK_FRAMES = 96  # [track]'s clip: 720x1280 at 30 fps
+TRACK_HELD = 16  # frames held card vs CPU
+TRACK_CONF, TRACK_MAX_DET = 0.25, 32  # predict's default conf; few enough rows to hold
+TRACK_THRESHOLDS = (0.1, 0.5, 0.6)  # BYTETracker's low, high and new-track scores
+# [track]'s net: YOLOv10-S with one class (the same widths but the last class
+# conv). With 80 a random net's top-k keeps one box under several classes at
+# nearly equal scores; the twin tracks it starts are interchangeable, and the
+# card's float32 rounding decides which one a later frame continues. One
+# class has no such twins; the calibration puts rows over the new-track score.
+TRACK_NC, TRACK_CLS_MEAN, TRACK_CLS_MAX = 1, -1.0, 3.0
 TRAIN_FIGURES: dict = {}  # [train]'s figures, printed again beside [train-host]
 
 IMGSZ = 640
@@ -2804,6 +2845,310 @@ def phase_sources(card: str) -> dict:
           f"{ {k: files_counts[k] for k in SOURCES_KERNELS} } for the {forwards} forwards over "
           f"files, { {k: counts[k] for k in SOURCES_KERNELS} } with the server's")
     print(f"[sources] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def mjpeg_avi(path: Path, jpegs, w: int, h: int, fps: int = 30) -> None:
+    """A Motion-JPEG AVI of ``jpegs`` (one JPEG file's bytes a frame): RIFF
+    AVI, hdrl (avih, one strl: strh vids MJPG, strf BITMAPINFOHEADER),
+    LIST movi of 00dc chunks, idx1. The JAX package writes no video; this
+    writes the clips [track] reads."""
+    def chunk(cid: bytes, data: bytes) -> bytes:
+        return cid + struct.pack("<I", len(data)) + data + b"\0" * (len(data) & 1)
+
+    n = len(jpegs)
+    big = max(len(j) for j in jpegs)
+    avih = struct.pack("<IIIIIIIIII4x4x4x4x", 1_000_000 // fps, big * fps, 0, 0x10, n, 0, 1,
+                       big, w, h)
+    strh = struct.pack("<4s4sIHHIIIIIIIIhhhh", b"vids", b"MJPG", 0, 0, 0, 0, 1, fps, 0, n, big,
+                       0xFFFFFFFF, 0, 0, 0, w, h)
+    strf = struct.pack("<IiiHH4sIiiII", 40, w, h, 1, 24, b"MJPG", w * h * 3, 0, 0, 0, 0)
+    hdrl = b"hdrl" + chunk(b"avih", avih) + chunk(b"LIST", b"strl" + chunk(b"strh", strh)
+                                                  + chunk(b"strf", strf))
+    frames, index, off = [], [], 4
+    for j in jpegs:
+        frames.append(chunk(b"00dc", j))
+        index.append(struct.pack("<4sIII", b"00dc", 0x10, off, len(j)))
+        off += len(frames[-1])
+    body = (b"AVI " + chunk(b"LIST", hdrl) + chunk(b"LIST", b"movi" + b"".join(frames))
+            + chunk(b"idx1", b"".join(index)))
+    path.write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+
+
+def track_clip(n: int = TRACK_FRAMES, h: int = 720, w: int = 1280, pan: int = 3, seed: int = 18):
+    """[track]'s frames: a smooth textured background panned ``pan`` px a
+    frame, and eight painted objects (a striped box each) moving across it
+    at their own velocities."""
+    import numpy as np
+
+    from yolov10_3d_torch.data.preprocess import resize_linear
+
+    rng = np.random.default_rng(seed)
+    bw = w + pan * n
+    bg = resize_linear(rng.integers(0, 256, (h // 16, bw // 16, 3), dtype=np.uint8), (bw, h))
+    objs = [dict(x=rng.uniform(0, w), y=rng.uniform(0, h), vx=rng.uniform(-8, 8),
+                 vy=rng.uniform(-5, 5), ow=int(rng.integers(60, 220)), oh=int(rng.integers(60, 260)),
+                 color=rng.integers(0, 256, 3), stripe=int(rng.integers(6, 20))) for _ in range(8)]
+    frames = []
+    for t in range(n):
+        f = bg[:, pan * t:pan * t + w].copy()
+        for o in objs:
+            x0, y0 = int(o["x"] + o["vx"] * t) % (w + o["ow"]) - o["ow"], int(o["y"] + o["vy"] * t)
+            xa, ya, xb, yb = max(x0, 0), max(y0, 0), min(x0 + o["ow"], w), min(y0 + o["oh"], h)
+            if xa >= xb or ya >= yb:
+                continue
+            band = ((np.arange(ya, yb) - y0) // o["stripe"]) % 2 == 0
+            f[ya:yb, xa:xb] = np.where(band[:, None, None], o["color"], 255 - o["color"])
+        frames.append(f)
+    return frames
+
+
+class _Timed:
+    """Wraps ``owner.name`` for the ``with`` block, each call's host ms
+    appended to ``self.ms``."""
+
+    def __init__(self, owner, name: str):
+        self.owner, self.name, self.ms = owner, name, []
+
+    def __enter__(self):
+        self.orig = getattr(self.owner, self.name)
+        orig, ms = self.orig, self.ms
+
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(*a, **kw)
+            finally:
+                ms.append((time.perf_counter() - t0) * 1e3)
+
+        setattr(self.owner, self.name, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.name, self.orig)
+
+
+def tracked_on(results, tracker_name: str, costs=None):
+    """The CPU side of [track]'s hold: ``results`` (copied) through a new
+    tracker as ``YOLOv10.track`` feeds it (``engine/model.py``
+    ``track_result``), the id counter reset first; with ``costs`` each
+    frame's smallest distance of an association decision from flipping is
+    appended: of a cost from its threshold, or between the two smallest
+    costs of a row or a column of a cost matrix when both are within it."""
+    import numpy as np
+
+    from yolov10_3d_torch.engine.model import track_result
+    from yolov10_3d_torch.trackers import BOTSORT, BYTETracker, byte_tracker
+
+    byte_tracker.STrack._count = 0
+    trk = BOTSORT() if tracker_name == "botsort" else BYTETracker()
+    orig = byte_tracker.linear_assignment
+    near = [float("inf")]
+
+    def recording(cost, thresh):
+        if cost.size:  # a cost at its threshold, or two costs of a row or column tied
+            gaps = [np.abs(cost - thresh).min()]
+            for c in (cost, cost.T):  # two candidates of a row within the threshold
+                if c.shape[1] > 1:
+                    s = np.sort(c, 1)
+                    both = s[:, 1] <= thresh
+                    if both.any():
+                        gaps.append((s[both, 1] - s[both, 0]).min())
+            near[0] = min(near[0], float(min(gaps)))
+        return orig(cost, thresh)
+
+    byte_tracker.linear_assignment = recording
+    try:
+        out = []
+        for r in results:
+            near[0] = float("inf")
+            out.append(track_result(trk, copy.deepcopy(r)))
+            if costs is not None:
+                costs.append(near[0])
+    finally:
+        byte_tracker.linear_assignment = orig
+    return out
+
+
+def hold_tracks(ref, got, what: str) -> dict:
+    """Frame by frame the same rows in the same order: ids and classes
+    equal, boxes within BOX_TOL, conf within SCORE_TOL."""
+    import numpy as np
+
+    worst = {"box": 0.0, "conf": 0.0, "rows": 0}
+    for i, (a, b) in enumerate(zip(ref, got)):
+        da, db = np.asarray(a.boxes.data, np.float64), np.asarray(b.boxes.data, np.float64)
+        if da.shape != db.shape or not np.array_equal(da[:, 5:7], db[:, 5:7]):
+            raise AssertionError(f"track {what}: frame {i} rows {da.shape} vs {db.shape}, ids and "
+                                 f"classes {da[:, 5:7].tolist()} vs {db[:, 5:7].tolist()}")
+        if len(da):
+            worst["box"] = max(worst["box"], float(np.abs(da[:, :4] - db[:, :4]).max()))
+            worst["conf"] = max(worst["conf"], float(np.abs(da[:, 4] - db[:, 4]).max()))
+        worst["rows"] += len(da)
+    if worst["box"] > BOX_TOL or worst["conf"] > SCORE_TOL:
+        raise AssertionError(f"track {what}: box {worst['box']:.3g} px, conf {worst['conf']:.3g}")
+    return worst
+
+
+def phase_track(card: str) -> dict:
+    """[track]: video files and tracking on the card (the docstring's 4h).
+    Returns the launch counts of its forwards."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLOv10
+    from yolov10_3d_torch.data import image_io
+    from yolov10_3d_torch.data.cv2_rules import rgb_to_gray
+    from yolov10_3d_torch.data.preprocess import resize_linear
+    from yolov10_3d_torch.data.video import VideoReader
+    from yolov10_3d_torch.engine.predictor import Predictor, load_source
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.native import optical_flow as native_flow
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.trackers import BYTETracker, byte_tracker, gmc
+    from yolov10_3d_torch.trackers.gmc import GMC
+    from yolov10_3d_torch.utils.parity import calibrate, compare_results
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    kw = dict(imgsz=IMGSZ, conf=TRACK_CONF, max_det=TRACK_MAX_DET)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        frames = track_clip(TRACK_FRAMES)
+        h, w = frames[0].shape[:2]
+        with ThreadPoolExecutor(8) as pool:  # the codec's calls release the interpreter lock
+            jpegs = list(pool.map(lambda f: image_io.encode_jpeg(f, "cv2"), frames))
+        clip, short = Path(tmp) / "clip.avi", Path(tmp) / "short.avi"
+        mjpeg_avi(clip, jpegs, w, h)
+        mjpeg_avi(short, jpegs[:TRACK_HELD], w, h)
+        write_s, clip_bytes = time.perf_counter() - t0, clip.stat().st_size
+        # the reader: frames, count and paths, each frame's read and decode timed
+        read, decode_ms = [], []
+        t0 = time.perf_counter()
+        for item in load_source(str(clip)):
+            decode_ms.append((time.perf_counter() - t0) * 1e3)
+            read.append(item)
+            t0 = time.perf_counter()
+        if [p for p, _ in read] != [f"{clip}#{i}" for i in range(TRACK_FRAMES)]:
+            raise AssertionError(f"track: the reader's paths {[p for p, _ in read][:3]}...")
+        with ThreadPoolExecutor(8) as pool:
+            if not all(pool.map(lambda a: np.array_equal(a[0][1], image_io.decode_bytes(a[1])),
+                                zip(read, jpegs))):
+                raise AssertionError("track: a frame differs from decode_bytes of its payload")
+        with VideoReader(clip) as video:
+            header = (video.frames, video.fps, video.width, video.height)
+        if header != (TRACK_FRAMES, 30.0, w, h):
+            raise AssertionError(f"track: reader header {header}")
+        mse = np.mean([np.mean((a.astype(np.float64) - b) ** 2) for a, (_, b) in zip(frames, read)])
+        # BoT-SORT's flow on the host: the g++ library against its numpy rule
+        g0, g1 = (resize_linear(rgb_to_gray(im)[..., None], (w // 2, h // 2))[..., 0]
+                  for _, im in read[:2])
+        pts = gmc.good_features(g0)
+        native_flow.get_lib()  # built with g++ at first use
+        t0 = time.perf_counter()
+        lib = native_flow.optical_flow(g0, g1, pts, gmc.LK_WIN, gmc.LK_LEVELS, gmc.LK_ITERS,
+                                       gmc.LK_EPS, gmc.LK_MIN_EIG)
+        lib_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rule = gmc.optical_flow(g0, g1, pts)
+        rule_ms = (time.perf_counter() - t0) * 1e3
+        if not (np.array_equal(lib[0], rule[0]) and np.array_equal(lib[1], rule[1])):
+            raise AssertionError("track: the optical flow library differs from its numpy rule")
+        held_frames = [im for _, im in read[:TRACK_HELD]]
+        del read
+        gpu = YOLOv10("yolov10s.yaml", device="cuda", seed=0, nc=TRACK_NC)
+        calibrate(gpu.model, serve_preprocess(torch.from_numpy(np.stack(frames[:TRACK_HELD])).cuda(),
+                                              (IMGSZ, IMGSZ)),
+                  cls_mean=TRACK_CLS_MEAN, cls_max=TRACK_CLS_MAX)
+        cpu = YOLOv10("yolov10s.yaml", device="cpu", seed=0, nc=TRACK_NC)
+        cpu.model.load_state_dict(gpu.model.state_dict())
+        gpu.predict(frames[0], **kw)  # the first call captures the graph
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        forwards = 0
+        # held: predict(stream=True), then each tracker, on the first 16 frames
+        streamed = list(gpu.predict(str(short), stream=True, **kw))
+        forwards += TRACK_HELD
+        t0 = time.perf_counter()
+        want = cpu.predict(str(short), **kw)
+        cpu_s = time.perf_counter() - t0
+        cmp = compare_results(want, streamed, conf=TRACK_CONF, score_tol=SCORE_TOL,
+                              box_tol=BOX_TOL)
+        scores = np.concatenate([r.boxes.conf for r in want])
+        score_near = [min((float(np.abs(r.boxes.conf[:, None] - np.array(TRACK_THRESHOLDS)).min())
+                           if len(r.boxes) else float("inf")) for r in want[:i + 1])
+                      for i in range(TRACK_HELD)]
+        exact, exact_results, held = None, {}, {}
+        for name in ("bytetrack", "botsort"):
+            costs = []
+            ref = tracked_on(want, name, costs)
+            byte_tracker.STrack._count = 0
+            got = gpu.track(str(short), tracker=name, **kw)
+            forwards += TRACK_HELD
+            near = [min(min(score_near[i], min(costs[:i + 1])), 1.0) for i in range(TRACK_HELD)]
+            first = next((i for i, d in enumerate(near) if d < SCORE_TOL), None)
+            if first is not None:  # from that frame on the float32 CPU decides nothing:
+                if exact is None:  # the tracker is fed a float64 CPU run's detections
+                    exact = YOLOv10("yolov10s.yaml", device="cpu", seed=0, nc=TRACK_NC)
+                    exact.model.load_state_dict(gpu.model.state_dict())
+                    exact.model.double()
+                    fwd = exact.model.forward
+                    exact.model.forward = lambda x, **k: fwd(x.double(), **k)
+                todo = [i for i in range(first, TRACK_HELD) if i not in exact_results]
+                exact_results.update(zip(todo, exact.predict([held_frames[i] for i in todo],
+                                                             **kw)))
+                ref = tracked_on(want[:first] + [exact_results[i]
+                                                 for i in range(first, TRACK_HELD)], name)
+            held[name] = dict(hold_tracks(ref, got, name), first64=first,
+                              near=min(near), ids=len({int(i) for r in got for i in r.boxes.data[:, 6]}))
+        # rates over the whole clip
+        rate, split = {}, {}
+        with _Timed(Predictor, "_process_chunk") as pc:
+            t0 = time.perf_counter()
+            n = sum(1 for _ in gpu.predict(str(clip), stream=True, **kw))
+            rate["predict"] = n / (time.perf_counter() - t0)
+        forwards += n
+        split["predict"] = statistics.median(pc.ms)
+        for name in ("bytetrack", "botsort"):
+            with _Timed(Predictor, "_process_chunk") as pc, _Timed(BYTETracker, "update") as up, \
+                    _Timed(GMC, "apply") as gm:
+                t0 = time.perf_counter()
+                out = gpu.track(str(clip), tracker=name, **kw)
+                rate[name] = len(out) / (time.perf_counter() - t0)
+            forwards += len(out)
+            split[name] = (statistics.median(pc.ms), statistics.median(up.ms),
+                           statistics.median(gm.ms) if gm.ms else 0.0)
+        counts = dict(launch_counts)
+    if any(counts[k] != forwards for k in TRACK_KERNELS):
+        raise AssertionError(f"track: launches {counts} for {forwards} forwards")
+    dec = statistics.median(decode_ms)
+    print(f"[track] clip: {TRACK_FRAMES} frames {h}x{w} at 30 fps, Motion-JPEG AVI "
+          f"({clip_bytes} B) written in "
+          f"{write_s:.1f} s; the reader's frames = decode_bytes of each payload, paths clip.avi#i; "
+          f"PSNR against the painted frames {10 * np.log10(255 ** 2 / mse):.2f} dB; BoT-SORT's "
+          f"flow library = its numpy rule on {len(pts)} corners ({lib_ms:.1f} ms, the rule "
+          f"{rule_ms:.1f} ms)")
+    print(f"[track] predict(stream=True), {TRACK_HELD} frames, card vs CPU: {cmp['n_compared']} "
+          f"rows compared, max score err {cmp['max_score_err']:.2e}, box "
+          f"{cmp['max_box_err']:.2e} px (CPU {cpu_s:.1f} s); scores' nearest distance to the "
+          f"trackers' thresholds {min(score_near):.3g} over {len(scores)} scores")
+    for name, v in held.items():
+        print(f"[track] track(tracker={name!r}), {TRACK_HELD} frames: {v['rows']} rows, {v['ids']} "
+              f"ids, all equal; max box err {v['box']:.2e} px, conf {v['conf']:.2e}; nearest "
+              f"decision (a score or cost from its threshold, two costs tied) {v['near']:.3g}; "
+              f"held to the float64 CPU run from frame {v['first64']}")
+    print(f"[track] YOLOv10-S (nc {TRACK_NC}) at {IMGSZ}, conf {TRACK_CONF}, max_det "
+          f"{TRACK_MAX_DET}, over "
+          f"{TRACK_FRAMES} frames {h}x{w}: predict(stream=True) {rate['predict']:.1f} frames/s, "
+          f"track bytetrack {rate['bytetrack']:.1f}, botsort {rate['botsort']:.1f} frames/s; ms a "
+          f"frame (medians): AVI read + JPEG decode {dec:.2f}, the Predictor call "
+          f"{split['predict']:.2f} (stream), {split['bytetrack'][0]:.2f} / {split['botsort'][0]:.2f} "
+          f"(track), the tracker's update {split['bytetrack'][1]:.3f} (bytetrack) / "
+          f"{split['botsort'][1]:.3f} + GMC.apply {split['botsort'][2]:.2f} (botsort); the "
+          f"decode's share of a streamed frame {dec * rate['predict'] / 1e3:.3f} ({card})")
+    print(f"[track] launches {{{', '.join(f'{k!r}: {counts[k]}' for k in TRACK_KERNELS)}}} for "
+          f"{forwards} frames forwarded; phase {time.perf_counter() - t_phase:.1f} s")
     return counts
 
 
@@ -5642,7 +5987,7 @@ SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "group": "int8_group_conv
           "dwtiles": "int8_group_conv",
           "stem": "stem_conv",
           "k1": "decode_detect", "val2d-std05": "decode_detect", "learn2d-epoch": "decode_detect",
-          "serve3d-std05": "stem_conv"}
+          "serve3d-std05": "stem_conv", "track": "decode_detect"}
 
 
 def parent_root(argv):
@@ -5663,7 +6008,8 @@ def sweep_only(argv) -> int:
     candidate tile of int8_dw_conv_f32 at phase 3c's shapes), stem (the stem at
     640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
     32), val2d-std05 (``val2d_std05_witness``), learn2d-epoch
-    (``learn2d_epoch_sweep``) and serve3d-std05 (``serve3d_std05_witness``),
+    (``learn2d_epoch_sweep``), serve3d-std05 (``serve3d_std05_witness``) and
+    track (phase 4h alone),
     so that two checkouts' kernels are timed in one call on one card;
     "serve" adds the device kernels of one float32 request (which builds
     every source)."""
@@ -5700,6 +6046,9 @@ def sweep_only(argv) -> int:
         learn2d_epoch_sweep(card)
     if "serve3d-std05" in names:
         serve3d_std05_witness()
+    if "track" in names:
+        phase_build(["stem_conv"])
+        phase_track(card)
     if "serve" in names:
         request_kernels()
     print(card_line())
@@ -5723,6 +6072,9 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent))
     if "--ckpt-pair" in sys.argv:  # the child process of [ckpt]
         print(json.dumps(ckpt_pair(Path(sys.argv[sys.argv.index("--ckpt-pair") + 1]))))
+        return 0
+    if "--learn2d" in sys.argv:  # the child process of [learn2d], beside [learn3d]
+        print(json.dumps(phase_learn2d(card_line())))
         return 0
     card = phase_card()
     import torch
@@ -5753,6 +6105,8 @@ def main() -> int:
     done("server")
     sources = phase_sources(card)
     done("sources")
+    track = phase_track(card)
+    done("track")
     phase_val3d(card)
     done("val3d")
     failed = []
@@ -5799,9 +6153,24 @@ def main() -> int:
         done("ckpt")
         val2d = phase_val2d(card, data)
         done("val2d")
-    phase_learn3d(card)
-    done("learn3d")
-    learn2d = phase_learn2d(card)
+    with tempfile.TemporaryDirectory() as tmp:  # the two learn-proofs side by side
+        log = Path(tmp) / "learn2d.log"
+        with open(log, "w") as f:
+            child = subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--learn2d"],
+                                     stdout=f, stderr=subprocess.STDOUT, text=True)
+        try:
+            phase_learn3d(card)
+            done("learn3d")
+            rc = child.wait(timeout=1200)
+        finally:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
+        lines = log.read_text().splitlines()
+        print("\n".join(lines[:-1]))
+        if rc != 0 or not lines:
+            raise AssertionError(f"learn2d: the child process exited {rc}:\n" + "\n".join(lines[-40:]))
+        learn2d = {k: int(v) for k, v in json.loads(lines[-1]).items()}
     done("learn2d")
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS},
                 "int8_group_conv_f32": 0, "int8_dw_conv_f32": 0, "int8_act_absmax": 0}
@@ -5815,6 +6184,8 @@ def main() -> int:
         launches[k] += server[k]
     for k in SOURCES_KERNELS:  # and prediction over files
         launches[k] += sources[k]
+    for k in TRACK_KERNELS:  # and video and tracking
+        launches[k] += track[k]
     for counts in (int8_all, int8_3d):  # scope all in 2D and 3D, and 3D at k3 and k3deep
         for k in (*INT8_KERNELS, "stem_conv"):
             launches[k] += counts[k]

@@ -133,6 +133,26 @@ req = urllib.request.Request(f"http://127.0.0.1:{{http.server_address[1]}}/predi
 reply = json.loads(urllib.request.urlopen(req, timeout=60).read())
 srv.stop()
 assert reply["shape"] == [60, 200] and reply["detections"], reply
+# a Motion-JPEG AVI (the port's encoder, a RIFF written here) tracked by both
+# trackers (BoT-SORT's flow is the g++ library), then counted and drawn
+from yolov10_3d_torch.data.image_io import encode_jpeg
+from yolov10_3d_torch.solutions import ObjectCounter
+frames = [np.roll(np.random.default_rng(0).integers(0, 256, (48, 64, 3), dtype=np.uint8), 3 * t, 1)
+          for t in range(3)]
+def riff(cid, body):
+    return cid + struct.pack("<I", len(body)) + body + b"\\0" * (len(body) & 1)
+strl = riff(b"strh", struct.pack("<4s4s12xII16x", b"vids", b"MJPG", 1, 30)) + riff(
+    b"strf", struct.pack("<IiiHH4s20x", 40, 64, 48, 1, 24, b"MJPG"))
+body = b"AVI " + riff(b"LIST", b"hdrl" + riff(b"LIST", b"strl" + strl)) + riff(
+    b"LIST", b"movi" + b"".join(riff(b"00dc", encode_jpeg(f, "cv2")) for f in frames))
+(root / "clip.avi").write_bytes(b"RIFF" + struct.pack("<I", len(body)) + body)
+m2t = yolov10_3d_torch.YOLOv10("yolov10n.yaml", device="cpu")
+for tracker in ("bytetrack", "botsort"):
+    res = m2t.track(str(root / "clip.avi"), tracker=tracker, imgsz=64, conf=0.0)
+    assert [r.path for r in res] == [f"{{root / 'clip.avi'}}#{{i}}" for i in range(3)], res
+    assert all(r.boxes.data.shape[1] == 7 for r in res)
+out = ObjectCounter([(0, 24), (64, 24)], draw_tracks=True).start_counting(frames[0], np.zeros((0, 7)))
+assert out.shape == (48, 64, 3)
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 import shutil
@@ -149,8 +169,9 @@ def test_port_imports_and_serves_without_jax():
     its checkpoint reloaded (the port's own msgpack codec: msgpack is
     blocked too) and validated, one epoch of 2D training with validation
     and its reloaded best.ckpt's 2D validation, two epochs of 2D training
-    on the host augmentation (cv2 is blocked), and one request to the
-    inference server (``engine/server.py``; every
+    on the host augmentation (cv2 is blocked), one request to the
+    inference server (``engine/server.py``), and a Motion-JPEG AVI
+    tracked by ByteTrack and BoT-SORT with a solution drawing (every
     module, ``cfg/cli.py`` too, is imported first)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
@@ -214,8 +235,9 @@ def test_checkpoints_and_unknown_sources_raise():
     model = YOLOv10("yolov10n.yaml", device="cpu")
     with pytest.raises(FileNotFoundError):  # cv2.imread's None in the JAX load_source
         model.predict("no_such_bus.jpg")
-    with pytest.raises(NotImplementedError, match="item 22"):  # video and live sources
-        model.predict("clip.mp4")
+    assert model.predict("clip.mp4") == []  # cv2 opens no missing video in JAX: no frames
+    with pytest.raises(NotImplementedError, match="item 22c"):  # live sources
+        model.predict("rtsp://host/stream")
     with pytest.raises(FileNotFoundError, match="unsupported source"):
         model.predict("notes.txt")
     with pytest.raises(KeyError, match="unknown config keys"):

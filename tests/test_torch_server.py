@@ -339,11 +339,13 @@ def test_server_leaves_no_thread():
 
 
 def test_cli_serves_only():
-    """predict, val and train run now (tests/test_torch_sources.py); export
-    and benchmark name item 15, track item 19."""
+    """predict, val and train run now (tests/test_torch_sources.py), and
+    track (tests/test_torch_track.py); export and benchmark name item 15."""
     with pytest.raises(NotImplementedError, match="item 15"):
         entrypoint(["export", "model=yolov10n.yaml"])
-    with pytest.raises(NotImplementedError, match="item 19"):
-        entrypoint(["track", "model=yolov10n.yaml"])
+    with pytest.raises(NotImplementedError, match="item 15"):
+        entrypoint(["benchmark", "model=yolov10n.yaml"])
+    with pytest.raises(SystemExit, match="track requires source"):
+        entrypoint(["track", "model=yolov10n.yaml", "device=cpu"])
     with pytest.raises(SystemExit, match="unknown serve keys"):
         make_server({"device": "cpu", "imgsz": 64, "bogus": 1})

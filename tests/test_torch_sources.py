@@ -122,12 +122,17 @@ def test_load_source_matches_jax(frames, kind):
 
 
 def test_unported_sources_raise(pair, frames):
+    """Live sources raise naming item 22c; a missing video file gives no
+    frames, as cv2 opens nothing in JAX (tests/test_torch_video.py reads
+    video files)."""
     _, port = pair
-    for src in ("rtsp://host/stream", 0, "screen", "clip.mp4"):
-        with pytest.raises(NotImplementedError, match="item 22"):
+    for src in ("rtsp://host/stream", 0, "screen"):
+        with pytest.raises(NotImplementedError, match="item 22c"):
             port.predict(src, imgsz=IMGSZ)
-    with pytest.raises(NotImplementedError, match="item 22"):
+    with pytest.raises(NotImplementedError, match="item 22c"):
         port.predict("rtsp://host/stream", stream=True, imgsz=IMGSZ)
+    missing = str(frames / "clip.mp4")
+    assert port.predict(missing, imgsz=IMGSZ) == [] == list(jax_predictor.load_source(missing))
 
 
 def _compare(want, got):

@@ -23,7 +23,8 @@ CFG_DIR = Path(__file__).resolve().parent
 # key's behaviour the port lacks refuses on its own: the port builds the
 # detection heads only, so the classify and pose keys (crop_fraction, kobj,
 # pose) have no path to reach (ROADMAP item 13, other heads and tasks); live
-# streams (stream_buffer) raise naming item 22; the 2D trainer raises on the
+# sources raise naming item 22c (stream_buffer and vid_stride act on video
+# files' streams, data/loaders.py); the 2D trainer raises on the
 # training options it has not ported (engine/trainer.py). Keys no JAX engine
 # path reads (half, save_conf, plots, project, ...) are accepted and do
 # nothing, as in JAX. spd_serving (on, as in the JAX package)

@@ -1,9 +1,10 @@
-"""Command line of the port (``yolov10_3d_tpu/cfg/cli.py``'s predict, val,
-train and serve modes).
+"""Command line of the port (``yolov10_3d_tpu/cfg/cli.py``'s predict, track,
+val, train and serve modes).
 
     python -m yolov10_3d_torch.cfg.cli [TASK] MODE key=value ...
 
     predict model=yolov10s.pt source=images/ imgsz=640 save=True [device=cpu]
+    track model=yolov10s.yaml source=clip.avi tracker=botsort imgsz=640
     val model=runs/train/weights/best.ckpt data=coco128.yaml imgsz=640
     train model=yolov10s.yaml data=coco128.yaml epochs=100 imgsz=640
     detect3d train model=yolov10s_3D.yaml data=kitti.yaml
@@ -13,11 +14,14 @@ train and serve modes).
 ``model`` is a YAML (seeded random weights), a ``.ckpt`` or a ``.pt``; the
 model runs on the card unless ``device=cpu``. TASK is optional, as in the
 JAX command line (the model's head decides). ``predict`` prints each
-frame's detections; ``val`` prints the metrics; ``train`` resumes from
+frame's detections; ``track`` prints each frame's track count, with
+``tracker`` (``bytetrack`` or ``botsort``) defaulting to bytetrack as JAX's
+command line does, though ``get_cfg``'s ``tracker`` is ``botsort.yaml``;
+``val`` prints the metrics; ``train`` resumes from
 ``save_dir/weights/last.ckpt`` when it exists and ``resume`` is not given.
 ``serve`` starts the dynamic-batching inference server
 (``engine/server.py``). ``export`` and ``benchmark`` are ROADMAP queue 1,
-item 15; ``track`` is item 19.
+item 15.
 """
 
 from __future__ import annotations
@@ -29,12 +33,13 @@ from typing import Any, Dict, List
 
 TASKS = {"detect", "detect3d", "segment", "classify", "pose", "obb"}
 MODES = {"train", "val", "predict", "export", "track", "benchmark"}
-UNPORTED_MODES = {"export": "15", "benchmark": "15", "track": "19"}
+UNPORTED_MODES = {"export": "15", "benchmark": "15"}
 
 HELP = """python -m yolov10_3d_torch.cfg.cli [TASK] MODE key=value ...
 
-  MODE: predict | val | train | serve
+  MODE: predict | track | val | train | serve
   predict model=yolov10s.pt source=images/ imgsz=640 save=True
+  track model=yolov10s.yaml source=clip.avi tracker=bytetrack|botsort
   val model=best.ckpt data=coco128.yaml imgsz=640
   train model=yolov10s.yaml data=coco128.yaml epochs=100 imgsz=640
   serve model=yolov10s.yaml imgsz=640 conf=0.25 batch=32 max_delay_ms=10
@@ -101,7 +106,7 @@ def entrypoint(argv=None) -> int:
     if mode in UNPORTED_MODES:
         raise NotImplementedError(f"mode {mode!r} is not ported: ROADMAP queue 1, item "
                                   f"{UNPORTED_MODES[mode]}")
-    if mode not in ("predict", "val", "train"):
+    if mode not in ("predict", "track", "val", "train"):
         raise SystemExit(f"unknown mode {mode!r}\n\n{HELP}")
     from ..engine.model import YOLOv10
 
@@ -114,6 +119,15 @@ def entrypoint(argv=None) -> int:
             print(f"{r.path}: {len(r)} detections")
             for d in r.summary():
                 print(f"  {d['name']} {d['confidence']:.3f} {d['box']}")
+        return 0
+    if mode == "track":
+        source = kv.pop("source", None)
+        if source is None:
+            raise SystemExit("track requires source=...")
+        tracker = kv.pop("tracker", "bytetrack")
+        for r in model.track(source, tracker=tracker, persist=True, **kv):
+            n = len(r.boxes) if r.boxes is not None else 0
+            print(f"{r.path}: {n} tracks")
         return 0
     if mode == "val":
         res = model.val(**kv)

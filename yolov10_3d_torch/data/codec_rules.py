@@ -15,7 +15,8 @@ Encoding: ``rgb_to_ycc`` (jccolor.c), ``downsample`` (jcprepct.c's and
 jcsample.c's edge replication, h2v2's alternating 1, 2 bias),
 ``fdct_islow`` (jfdctint.c) and ``quantize`` (jcdctmgr.c's reciprocals for
 16-bit DCT elements), with jccoefct.c's dummy blocks in
-``encode_coefficients``.
+``encode_coefficients``. Tables: ``with_standard_tables`` (jstdhuff.c's
+Annex K.3 tables for the slots a file's DHTs leave undefined).
 """
 
 from __future__ import annotations
@@ -249,6 +250,62 @@ def encode_coefficients(plane: np.ndarray, q: np.ndarray, blocks: Sequence[int],
             elif bx >= rw:
                 out[by, bx, 0, 0] = out[by, bx - 1, 0, 0]
     return out
+
+
+# ------------------------------------------------------------------ Huffman
+
+# JPEG Annex K.3's tables as (BITS[1..16], HUFFVAL), keyed by (class, slot):
+# class 0 DC, 1 AC; slot 0 luminance, 1 chrominance
+STD_HUFFMAN = {
+    (0, 0): (bytes.fromhex("00 01 05 01 01 01 01 01 01 00 00 00 00 00 00 00"),
+             bytes.fromhex("00 01 02 03 04 05 06 07 08 09 0a 0b")),
+    (0, 1): (bytes.fromhex("00 03 01 01 01 01 01 01 01 01 01 00 00 00 00 00"),
+             bytes.fromhex("00 01 02 03 04 05 06 07 08 09 0a 0b")),
+    (1, 0): (bytes.fromhex("00 02 01 03 03 02 04 03 05 05 04 04 00 00 01 7d"),
+             bytes.fromhex(
+                 "01 02 03 00 04 11 05 12 21 31 41 06 13 51 61 07 22 71 14 32 81 91 a1 08 "
+                 "23 42 b1 c1 15 52 d1 f0 24 33 62 72 82 09 0a 16 17 18 19 1a 25 26 27 28 "
+                 "29 2a 34 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53 54 55 56 57 58 59 "
+                 "5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79 7a 83 84 85 86 87 88 89 "
+                 "8a 92 93 94 95 96 97 98 99 9a a2 a3 a4 a5 a6 a7 a8 a9 aa b2 b3 b4 b5 b6 "
+                 "b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da e1 e2 "
+                 "e3 e4 e5 e6 e7 e8 e9 ea f1 f2 f3 f4 f5 f6 f7 f8 f9 fa"
+             )),
+    (1, 1): (bytes.fromhex("00 02 01 02 04 04 03 04 07 05 04 04 00 01 02 77"),
+             bytes.fromhex(
+                 "00 01 02 03 11 04 05 21 31 06 12 41 51 07 61 71 13 22 32 81 08 14 42 91 "
+                 "a1 b1 c1 09 23 33 52 f0 15 62 72 d1 0a 16 24 34 e1 25 f1 17 18 19 1a 26 "
+                 "27 28 29 2a 35 36 37 38 39 3a 43 44 45 46 47 48 49 4a 53 54 55 56 57 58 "
+                 "59 5a 63 64 65 66 67 68 69 6a 73 74 75 76 77 78 79 7a 82 83 84 85 86 87 "
+                 "88 89 8a 92 93 94 95 96 97 98 99 9a a2 a3 a4 a5 a6 a7 a8 a9 aa b2 b3 b4 "
+                 "b5 b6 b7 b8 b9 ba c2 c3 c4 c5 c6 c7 c8 c9 ca d2 d3 d4 d5 d6 d7 d8 d9 da "
+                 "e2 e3 e4 e5 e6 e7 e8 e9 ea f2 f3 f4 f5 f6 f7 f8 f9 fa"
+             )),
+}
+
+
+def with_standard_tables(data: bytes) -> bytes:
+    """A JPEG file with the tables libjpeg-turbo decodes it with: a DHT of
+    Annex K.3's tables inserted before the first SOS for each DC or AC slot
+    0 and 1 that no DHT before it defines (jstdhuff.c; Motion-JPEG frames,
+    such as a webcam's AVI1 frames, leave their DHT out). A file that
+    defines all four slots comes back unchanged."""
+    defined, p = set(), 2
+    while p + 4 <= len(data) and data[p] == 0xFF:
+        marker, length = data[p + 1], int.from_bytes(data[p + 2:p + 4], "big")
+        if marker == 0xDA:
+            break
+        if marker == 0xC4:
+            q = p + 4
+            while q < p + 2 + length:
+                defined.add((data[q] >> 4, data[q] & 15))
+                q += 17 + sum(data[q + 1:q + 17])
+        p += 2 + length
+    body = b"".join(bytes([tc << 4 | th]) + bits + vals
+                    for (tc, th), (bits, vals) in STD_HUFFMAN.items() if (tc, th) not in defined)
+    if not body:
+        return data
+    return data[:p] + b"\xff\xc4" + (len(body) + 2).to_bytes(2, "big") + body + data[p:]
 
 
 # ------------------------------------------------------------------ PNG

@@ -27,9 +27,13 @@ and equals cv2's output bit for bit on the inputs the tests draw
   HSV->RGB, as the HSV jitter applies them.
 - The resize (``cv2.resize`` INTER_LINEAR) is ``data/preprocess.py``
   ``resize_linear``.
+- ``rgb_to_gray``: ``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)``, 15-bit
+  fixed-point weights (the BoT-SORT camera-motion estimate,
+  ``trackers/gmc.py``, converts its frames with it).
 
-These are the plain versions of the host library ``native/host_aug.cc``,
-which the loader runs; the library equals them bit for bit.
+The augmentation's rules are the plain versions of the host library
+``native/host_aug.cc``, which the loader runs; the library equals them bit
+for bit.
 """
 
 from __future__ import annotations
@@ -217,3 +221,15 @@ def hsv_lut(img: np.ndarray, lut: np.ndarray) -> np.ndarray:
     hsv = rgb_to_hsv(img)
     lut = np.asarray(lut, np.uint8).reshape(256, 3)
     return hsv_to_rgb(np.stack([lut[hsv[..., c], c] for c in range(3)], -1))
+
+
+GRAY_SHIFT = 15
+GRAY_WEIGHTS = (9798, 19235, 3735)  # R, G, B: cv2's 0.299, 0.587, 0.114 in 15 bits
+
+
+def rgb_to_gray(img: np.ndarray) -> np.ndarray:
+    """``cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)`` of HWC uint8 RGB."""
+    x = img.astype(np.int32)  # the sums stay under 2**23
+    wr, wg, wb = GRAY_WEIGHTS
+    y = (x[..., 0] * wr + x[..., 1] * wg + x[..., 2] * wb + (1 << (GRAY_SHIFT - 1))) >> GRAY_SHIFT
+    return y.astype(np.uint8)

@@ -26,6 +26,9 @@ module (its EMA first) with a ``yaml`` dict, whose classes must be
 importable. ``predict`` takes every source of ``engine/predictor.py``
 ``load_source``, ``stream=True`` for a generator, and writes annotated
 images, labels and crops with ``save``, ``save_txt`` and ``save_crop``.
+``track(source, tracker="bytetrack" | "botsort")`` runs ``predict`` and a
+tracker (``trackers/``) over the frames, each Result's boxes becoming the
+tracks with their ids.
 
 The facade keeps one Predictor per setting that shapes the forward (int8,
 spd_serving) from one ``predict`` call to the next, and with it the
@@ -38,6 +41,7 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
+import numpy as np
 import torch
 
 from ..cfg import get_cfg, load_dataset_yaml, resolve_model_cfg
@@ -45,10 +49,12 @@ from ..data.dataset import DataLoader, DictLoader, YOLODataset
 from ..data.loaders import is_endless
 from ..device import resolve_device
 from ..nn.build import build_model
+from ..trackers import BOTSORT, BYTETracker
 from ..train.state import TrainState
 from ..utils.checkpoint import load_checkpoint
 from ..utils.weights import load_flax_variables
 from .predictor import Predictor
+from .results import Boxes
 from .trainer import DetectionTrainer
 from .trainer3d import Detection3DTrainer
 from .validator import DetectionValidator
@@ -64,6 +70,23 @@ def _saving_stream(gen, save_kw):
                                 save_kw.get("save_crop", False),
                                 save_kw.get("save_dir", "runs/predict"))
         yield r
+
+
+def track_result(tracker, r):
+    """Feed one Result's boxes to ``tracker`` (the frame too when it is a
+    BoT-SORT, for its camera-motion estimate) and make its boxes the
+    tracker's rows as x1, y1, x2, y2, conf, cls, id (the JAX
+    ``Model.track``'s order); returns ``r``."""
+    kw = {"img": r.orig_img} if hasattr(tracker, "gmc") else {}
+    b = r.boxes
+    if b is None or len(b) == 0:
+        tracks = tracker.update(np.zeros((0, 4)), np.zeros(0), np.zeros(0), **kw)
+    else:
+        tracks = tracker.update(b.xyxy, b.conf, b.cls, **kw)
+    data = (np.concatenate([tracks[:, :4], tracks[:, 5:6], tracks[:, 6:7], tracks[:, 4:5]], -1)
+            if len(tracks) else np.zeros((0, 7)))
+    r.boxes = Boxes(data, r.orig_shape)
+    return r
 
 
 VAL_KEYS = {"detect": ("batch", "conf", "max_det", "imgsz", "save_json_path"),
@@ -83,6 +106,7 @@ class YOLOv10:
         self.trainer = None
         self.validator = None
         self.predictors: Dict[tuple, Predictor] = {}
+        self.tracker = None  # track's tracker, kept across calls with persist=True
         if model.endswith(".ckpt"):
             self._load_native(model, seed)
         elif model.endswith(".pt"):
@@ -174,8 +198,10 @@ class YOLOv10:
         ``load_source``'s) -> [Results], ``batch`` frames a forward; with
         ``stream=True`` a generator of Results, one frame at a time. ``save``,
         ``save_txt`` and ``save_crop`` write under ``save_dir`` (the JAX
-        ``Model.predict``; a streamed frame's path takes ``#<index>``). Live
-        and screen sources raise naming ROADMAP item 22."""
+        ``Model.predict``; a streamed frame's path takes ``#<index>``). A
+        ``.streams`` list of video files is streamed whatever ``stream``
+        says, as in JAX; live and screen sources raise naming ROADMAP item
+        22c."""
         args = get_cfg({**self.overrides, **kwargs})
         pred = self.predictor(args)
         common = dict(
@@ -186,7 +212,7 @@ class YOLOv10:
         )
         save_kw = {k: kwargs[k] for k in ("save", "save_txt", "save_crop", "save_dir")
                    if k in kwargs}
-        if stream or is_endless(source):  # an endless source raises here (item 22)
+        if stream or is_endless(source):  # a live source raises here (item 22c)
             gen = pred.stream(source, vid_stride=kwargs.get("vid_stride", 1), **common)
             if any(save_kw.get(k) for k in ("save", "save_txt", "save_crop")):
                 gen = _saving_stream(gen, save_kw)
@@ -194,6 +220,25 @@ class YOLOv10:
         return pred(source, batch_size=kwargs.get("batch", 1), **common, **save_kw)
 
     __call__ = predict
+
+    def track(self, source, tracker: str = "bytetrack", persist: bool = False, **kwargs):
+        """``predict(source, **kwargs)`` with a tracker over its frames (the
+        JAX ``Model.track``): ``BOTSORT()`` when ``tracker`` names botsort
+        (given each frame for its camera-motion estimate), else
+        ``BYTETracker()``; a new one unless ``persist`` and one exists.
+        Each Result's boxes become the activated tracks, rows x1, y1, x2,
+        y2, conf, cls, id. Returns the list, or with
+        ``stream=True`` (or an endless source) a generator that tracks each
+        frame as it is read. (JAX tracks a streamed source to its end and
+        returns the spent generator.) Track ids come from the process-wide
+        counter ``trackers.byte_tracker.STrack._count``, as in JAX."""
+        if not persist or self.tracker is None:
+            self.tracker = BOTSORT() if "botsort" in str(tracker) else BYTETracker()
+        trk = self.tracker
+        results = self.predict(source, **kwargs)
+        if isinstance(results, list):
+            return [track_result(trk, r) for r in results]
+        return (track_result(trk, r) for r in results)
 
     def train(self, teacher=None, **kwargs) -> TrainState:
         """Train a fresh model of this YAML with the dataset's nc on this

@@ -60,10 +60,10 @@ import numpy as np
 import torch
 
 from ..data.image_io import IMG_FORMATS, encode_jpeg, imread
-from ..data.loaders import UNPORTED as LOADERS_UNPORTED
 from ..data.loaders import (LoadScreenshots, LoadStreams, LoadTensor, is_endless,
-                            is_stream_source)
+                            is_stream_source, stream_sources)
 from ..data.preprocess import preprocess_batch
+from ..data.video import VideoReader
 from ..kernels import add_launches, captured_launches
 from ..nn.heads3d import SPARSE_K
 from ..nn.quant import Int8Config
@@ -82,8 +82,11 @@ def load_source(source) -> Iterator:
     an object with ``convert`` (a PIL image, called as JAX calls it), a
     numpy or torch tensor (``data/loaders.py`` ``LoadTensor``) or a list of
     any of them (the JAX ``load_source``). Files are decoded by cv2's rule
-    (``data/image_io.py``); video files and screen sources raise naming
-    ROADMAP item 22."""
+    (``data/image_io.py``). A video file yields its frames as
+    ``f"{path}#{i}"`` (Motion-JPEG AVI, ``data/video.py``; another codec
+    raises naming ROADMAP item 22b); a video path with no file behind it
+    yields nothing, as ``cv2.VideoCapture`` opens nothing in JAX. Screen
+    sources raise naming item 22c."""
     if isinstance(source, (list, tuple)):
         for s in source:
             yield from load_source(s)
@@ -95,7 +98,7 @@ def load_source(source) -> Iterator:
         yield from LoadTensor(source)
         return
     if isinstance(source, str) and re.fullmatch(r"screen\d*", source):
-        LoadScreenshots(source)  # raises: item 22
+        LoadScreenshots(source)  # raises: item 22c
     if hasattr(source, "convert"):  # PIL
         yield "pil", np.asarray(source.convert("RGB"))
         return
@@ -112,7 +115,12 @@ def load_source(source) -> Iterator:
         return
     suffix = path.suffix[1:].lower()
     if suffix in VID_FORMATS:
-        raise NotImplementedError(f"video file {p}: {LOADERS_UNPORTED}")
+        if not path.is_file():
+            return
+        with VideoReader(p) as video:
+            for i, frame in enumerate(video):
+                yield f"{p}#{i}", frame
+        return
     if suffix in IMG_FORMATS:
         yield p, imread(p, "cv2")
         return
@@ -397,16 +405,30 @@ class Predictor:
         vid_stride: int = 1,
     ) -> Iterator[Results]:
         """Results one frame at a time, as frames are read (the JAX
-        ``stream``). Live sources raise naming ROADMAP item 22 here, not at
-        the first ``next``."""
+        ``stream``). Stream sources (a video file's ``.streams`` list) are
+        read by ``LoadStreams`` on threads, ``stream_buffer`` frames kept,
+        every ``vid_stride``-th frame, each round's frames one chunk; the
+        threads are closed when the generator ends or is closed. Live and
+        screen sources raise naming ROADMAP item 22c here, not at the first
+        ``next``."""
         if is_stream_source(source):
-            LoadStreams(source, vid_stride=vid_stride)  # raises: item 22
-        if is_endless(source):
-            LoadScreenshots(source)  # raises: item 22
+            stream_sources(source)  # raises for a live source: item 22c
+        elif is_endless(source):
+            LoadScreenshots(source)  # raises: item 22c
         conf, max_det, imgsz = self._resolve(conf, max_det, imgsz)
 
         def frames():
-            for frame in load_source(source):
-                yield from self._process_chunk([frame], int(max_det), conf, classes, imgsz)
+            if not is_stream_source(source):
+                for frame in load_source(source):
+                    yield from self._process_chunk([frame], int(max_det), conf, classes, imgsz)
+                return
+            streams = LoadStreams(source, vid_stride=vid_stride,
+                                  buffer=bool(self.args.get("stream_buffer", False)))
+            try:
+                for paths, imgs in streams:
+                    yield from self._process_chunk(list(zip(paths, imgs)), int(max_det), conf,
+                                                   classes, imgsz)
+            finally:
+                streams.close()
 
         return frames()

@@ -14,7 +14,7 @@ class Boxes:
     """Detections for one image: xyxy in ORIGINAL image coords + conf + cls."""
 
     def __init__(self, data: np.ndarray, orig_shape):
-        # data: (n, 6) = x1, y1, x2, y2, conf, cls
+        # data: (n, 6) = x1, y1, x2, y2, conf, cls; tracked: (n, 7), the id last
         self.data = np.asarray(data)
         self.orig_shape = orig_shape
 
