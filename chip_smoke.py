@@ -165,6 +165,31 @@ Phases, each fatal on failure:
                 decode's share; K1 and the stem once per frame forwarded.
                 On the host: BoT-SORT's optical flow library
                 (native/optical_flow.cc) bit for bit its numpy rule.
+  4i. tasks  - YOLOv8's tasks as users call them: the NMS sweep kernel at
+                predict's shapes (K 512 rotated at B=1 and 8, ties at the
+                threshold, every candidate under conf; K 1024 at B=1 and 8
+                in phase 3) bit for bit its twin; then YOLOv8-S detect, seg,
+                pose and OBB (``YOLO("yolov8s-<task>.yaml")``, a copy of the
+                YAML under its scaled name, nc 80 or 1 for pose, calibrated
+                to BatchNorm std 0.25)
+                at 640 on 16 painted 720x1280 frames: captured predicts at
+                B=1 and B=8 (K1 and the sweep once a forward) against a CPU
+                run of the same weights (rows paired by class and box: score
+                1e-4, box 0.1 px, OBB centre and size 0.1 px as the box;
+                keypoints, visibility and OBB angle by index against 0.1
+                px, 1e-4 and 1e-4 rad: a frame over a bar is held, with the
+                first 4, to a float64 CPU run on its raw head maps, the
+                card's distance at most twice the CPU float32 run's; masks
+                equal but at
+                pixels whose CPU probability lies within the card-vs-CPU
+                gap of 0.5 or on a crop edge within the box bar, that gap
+                (an eager forward's probabilities) within 1e-2, both runs'
+                distances from a float64 run on 4 frames printed; a frame whose CPU
+                run decides an IoU within 1e-5 of 0.7 held to a float64 CPU
+                run); device ms per captured forward at B=1 and 8 split into
+                the model, K1, the NMS and the masks; then ``val`` of each
+                task on a 32-image 240x320 set of its label format at 320,
+                card vs CPU metrics within 1e-4, img/s.
   4c. val3d  - KITTI AP40 validation, YOLOv10("yolov10s_3D.yaml").val(...), on a
                 synthetic KITTI tree the script writes to a temporary directory:
                 16 frames of 375x1242 PNGs (smooth background, painted
@@ -316,7 +341,7 @@ Phases, each fatal on failure:
                 keep the script inside its time limit; its counts come back
                 as the child's last line.
 
-Each path (serving, int8-all, serve3d, int8-3d, server, sources, track, val3d,
+Each path (serving, int8-all, serve3d, int8-3d, server, sources, track, tasks, val3d,
 train, train-host, train-options, head3d-options, distill3d, dino-val, json3d, ckpt,
 val2d, learn3d, learn2d) is
 driven with the launch counts set to 0 just before it and read just after. The last three lines are
@@ -356,6 +381,7 @@ import struct
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -402,6 +428,9 @@ KERNELS = {
                    "replaces": "yolov10_3d_tpu/ops/pallas_preprocess.py:113"},
     "stem_conv": {"route": "cuda", "source": "yolov10_3d_torch/csrc/stem_conv.cu",
                   "replaces": "tools/exp_pallas_stem.py:94; tools/exp_pallas_stem2.py:130"},
+    "nms_sweep": {"route": "cuda", "source": "yolov10_3d_torch/csrc/nms_sweep.cu",
+                  "replaces": "yolov10_3d_tpu/ops/nms.py:20 (XLA fori_loop nms_fixed, and the "
+                              "rotated sweep of engine/validator_tasks.py:189-199; no TPU kernel)"},
 }
 SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
                    "stem_conv")
@@ -489,7 +518,9 @@ def time_device(fns, replays: int = 20) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # thread_local: a CPU thread of the script ([tasks]' reference) may free or copy
+    # tensors while this thread captures
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         for fn in fns:
             fn()
     graph.replay()
@@ -895,6 +926,7 @@ def phase_kernels():
         "int8_act_absmax": (check_absmax(1), check_absmax(32)),
         "hsv_jitter": (check_k4(1), check_k4(16)),
         "stem_conv": stem,
+        "nms_sweep": (check_nms_sweep(1), check_nms_sweep(8)),
     }
 
 
@@ -1066,8 +1098,11 @@ def eager_forward():
     if not hasattr(Predictor, "forward_eager"):
         yield
         return
+    from yolov10_3d_torch.engine import predictor as PR
+
+    host = getattr(PR, "to_host", lambda out: out.cpu().numpy())
     saved = Predictor._forward
-    Predictor._forward = lambda self, x, max_det: self.forward_eager(x, max_det).cpu().numpy()
+    Predictor._forward = lambda self, x, max_det: host(self.forward_eager(x, max_det))
     try:
         yield
     finally:
@@ -3150,6 +3185,614 @@ def phase_track(card: str) -> dict:
     print(f"[track] launches {{{', '.join(f'{k!r}: {counts[k]}' for k in TRACK_KERNELS)}}} for "
           f"{forwards} frames forwarded; phase {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+TASKS_MODELS = {"detect": "yolov8.yaml", "segment": "yolov8-seg.yaml",
+                "pose": "yolov8-pose.yaml", "obb": "yolov8-obb.yaml"}
+TASKS_KERNELS = ("decode_detect", "nms_sweep")
+TASKS_FRAMES, TASKS_HW = 16, (720, 1280)  # predict's frames, each task card vs CPU
+TASKS_VAL, TASKS_VAL_HW, TASKS_VAL_IMGSZ = 32, (240, 320), 320  # val's set per task
+TASKS_IOU_MARGIN = 1e-5  # a frame whose CPU run decides an IoU this near 0.7 goes to float64
+KPT_TOL, VIS_TOL, ANGLE_TOL, METRIC_TOL = 0.1, 1e-4, 1e-4, 1e-4
+# YOLOv8-S is calibrated to BatchNorm outputs of std 0.25, as the 3D net (BN_STD_3D): at 0.5
+# a random net amplifies the card's float32 rounding in the keypoint and mask branches to
+# the size of their bars (keypoint visibility 1.1e-4 against 1e-4 on an H100)
+BN_STD_TASKS = 0.25
+FRAMES64 = 4  # frames whose task columns' raw maps are held to float64
+MASKS64 = 2  # frames whose mask probabilities are measured against a float64 CPU run
+# the card's mask probabilities against the CPU's, off the crop edges: a wrong coefficient,
+# prototype or crop moves them by O(0.1); float32 rounding of a random YOLOv8-S-seg by
+# 2.1e-3 (an H100). While they are within MASK_BAND, a mask pixel whose CPU probability lies
+# further than MASK_BAND from 0.5 cannot flip: the served masks are equal there, a fixed band
+MASK_BAND = 5e-3
+NMS_K = {"iou": 1024, "rotated": 512}  # predict's candidates: 1024 axis-aligned, 512 rotated
+
+
+def sweep_case(B: int, K: int, kind: str, seed: int = 0):
+    """The matrix and conf mask of a sweep at predict's shapes: "iou" the
+    pairwise IoU of K conf-sorted class-offset boxes (as ``non_max_suppression``
+    builds it), "rotated" a probiou matrix masked by label and conf (as
+    ``rotated_nms``), "ties" IoUs on a 1/8 grid (swept at 0.5, a grid
+    value: ties at the threshold), "under" every candidate under conf."""
+    import torch
+
+    from yolov10_3d_torch.ops.boxes import box_iou_pairwise, probiou
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    r = lambda *s: torch.rand(s, generator=g, device="cuda")  # noqa: E731
+    ok = r(B, K) < (0.0 if kind == "under" else 0.9)
+    if kind == "rotated":
+        rb = torch.cat([r(B, K, 2) * 640, 8 + r(B, K, 2) * 120, (r(B, K, 1) - 0.25) * math.pi], -1)
+        lab = (r(B, K) * 15).long()
+        m = probiou(rb[:, :, None], rb[:, None])
+        m = torch.where(lab[:, :, None] == lab[:, None], m, 0.0)
+        m = torch.where(ok[:, None] & ok[:, :, None], m, 0.0)
+    elif kind == "ties":
+        m = (r(B, K, K) * 9).floor() / 8
+    else:
+        xy, wh = r(B, K, 2) * 600, 8 + r(B, K, 2) * 150
+        boxes = torch.cat([xy, xy + wh], -1) + (r(B, K, 1) * 80).floor() * 7680
+        m = box_iou_pairwise(boxes, boxes)
+    return m.contiguous(), ok
+
+
+def check_nms_sweep(B: int, kind: str = "iou", timed: bool = True) -> dict:
+    """The sweep at predict's K (1024 axis-aligned, 512 rotated): bit for bit
+    its twin (JAX's loop in PyTorch, here on the card), device ms of the
+    kernel and of the twin (CUDA graph replay over buffers larger than L2
+    in all), the bound: the function needs the entries above the diagonal
+    (only j > i is compared), K (K - 1) / 2 floats an image read once, and
+    conf_ok and keep, a byte each a candidate; one compare a pair. With
+    ``timed`` False, the comparison alone."""
+    import torch
+
+    from yolov10_3d_torch.kernels import nms as KN
+
+    K = NMS_K.get(kind, 1024)
+    thr = 0.5 if kind == "ties" else 0.7
+    n_buf = -(-L2_COLD_BYTES // (B * K * K * 4)) if timed else 1
+    cases = [sweep_case(B, K, kind, seed) for seed in range(n_buf)]
+    got = KN.nms_sweep_cuda(cases[0][0], thr, cases[0][1])
+    want = KN.nms_sweep_torch(cases[0][0], thr, cases[0][1])
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"nms_sweep B={B} {kind}: {int((got != want).sum())} of "
+                             f"{got.numel()} keep flags differ from the twin")
+    if kind == "ties" and not bool((cases[0][0] == thr).any()):
+        raise AssertionError("nms_sweep ties: no entry equals the threshold")
+    if not timed:
+        print(f"[nms] B={B} K={K} {kind} at {thr}: bit for bit the twin ({int(got.sum())} kept)")
+        return {}
+    ms = time_device([lambda c=c: KN.nms_sweep_cuda(c[0], thr, c[1]) for c in cases])
+    plain_ms = time_device([lambda: KN.nms_sweep_torch(cases[0][0], thr, cases[0][1])], 3)
+    call_ms = time_cuda(lambda: KN.nms_sweep_cuda(cases[0][0], thr, cases[0][1]), 50)
+    pairs = B * K * (K - 1) // 2
+    nbytes = pairs * 4 + 2 * B * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = pairs / F32_FLOPS_PER_S * 1e3  # one compare a pair
+    r = {"shape": [B, K, K], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+         "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+         "library_ms": None, "eager_call_ms": call_ms, "kept": int(got.sum())}
+    print(f"[nms] B={B} K={K} {kind} at {thr}: bit for bit the twin ({r['kept']} kept) | kernel "
+          f"{ms:.4f} ms (device, graph replay, {n_buf} buffers) | bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']}, {nbytes / 1e6:.2f} MB above the diagonal), share {r['bound_ms'] / ms:.3f} | twin "
+          f"{plain_ms:.3f} ms ({K} steps) | eager call {call_ms:.4f} ms | library_ms: null (no "
+          f"single PyTorch call computes a greedy sweep)")
+    return r
+
+
+def task_rows(task: str, r):
+    """(rows, cols) of a Result for ``utils/parity.match_detections``:
+    x1 y1 x2 y2 (obb: cx cy w h) score cls, then the task's columns."""
+    import numpy as np
+
+    if task == "obb":
+        d = np.asarray(r.obb.data, np.float64)
+        return np.concatenate([d[:, :4], d[:, 5:7], d[:, 4:5]], -1), {
+            "angle": (slice(6, 7), ANGLE_TOL)}
+    b = np.asarray(r.boxes.data, np.float64)
+    if task != "pose":
+        return b, None
+    k = np.asarray(r.keypoints.data, np.float64)
+    nk = k.shape[1]
+    return (np.concatenate([b, k[..., :2].reshape(len(b), -1), k[..., 2]], -1),
+            {"kpt_xy": (slice(6, 6 + 2 * nk), KPT_TOL), "kpt_vis": (slice(6 + 2 * nk, 6 + 3 * nk),
+                                                                      VIS_TOL)})
+
+
+MASK_RECORDS: dict = {}  # thread -> the list ``mask_probs`` fills for it
+MASK_LOCK = threading.Lock()
+
+
+@contextlib.contextmanager
+def mask_probs():
+    """Inside: each frame's mask probabilities from the Predictor's
+    ``process_masks`` calls made by the entering thread, in call order,
+    with its crop edges: (probs (max_det, Hm, Wm), edge rows (max_det, Hm),
+    edge columns (max_det, Wm)); a pixel is on a crop edge where a box
+    coordinate lies within BOX_TOL (in the prototypes' pixels) of its
+    boundary, so that a box within the bar may crop it either way. Threads
+    may record at once: one wrapper serves them all while any records."""
+    import numpy as np
+
+    from yolov10_3d_torch.engine import predictor as PR
+
+    def rec(protos, coefs, boxes, input_hw):
+        out = rec.orig(protos, coefs, boxes, input_hw)
+        record = MASK_RECORDS.get(threading.get_ident())
+        if record is None:
+            return out
+        Hm, Wm = out.shape[-2:]
+        b = boxes.cpu().numpy() * np.array([Wm / input_hw[1], Hm / input_hw[0]] * 2)
+        tol = BOX_TOL * Wm / input_hw[1]
+        edge_c = (np.abs(np.arange(Wm) - b[..., 0, None]) <= tol) | (
+            np.abs(np.arange(Wm) - b[..., 2, None]) <= tol)
+        edge_r = (np.abs(np.arange(Hm) - b[..., 1, None]) <= tol) | (
+            np.abs(np.arange(Hm) - b[..., 3, None]) <= tol)
+        record.extend(zip(out.cpu().numpy(), edge_r, edge_c))
+        return out
+
+    record, me = [], threading.get_ident()
+    with MASK_LOCK:
+        if not MASK_RECORDS:
+            rec.orig, PR.process_masks = PR.process_masks, rec
+        MASK_RECORDS[me] = record
+    try:
+        yield record
+    finally:
+        with MASK_LOCK:
+            del MASK_RECORDS[me]
+            if not MASK_RECORDS:
+                PR.process_masks = PR.process_masks.orig
+
+
+def _paired(*results) -> "np.ndarray":
+    """Indices of the rows at which every Result has the same class and a
+    box within BOX_TOL of the first's."""
+    import numpy as np
+
+    n = min(len(r) for r in results)
+    ok = np.ones(n, bool)
+    for r in results[1:]:
+        ok &= (r.boxes.cls[:n] == results[0].boxes.cls[:n]) & (
+            np.abs(r.boxes.xyxy[:n] - results[0].boxes.xyxy[:n]).max(1) <= BOX_TOL)
+    return np.flatnonzero(ok)
+
+
+def hold_masks(want, got, cpu, card, model_hw) -> dict:
+    """Masks of the rows paired at the same index (same class, box within
+    the bar), on every frame. ``cpu``, ``card``: each frame's mask
+    probabilities (``mask_probs``) from the CPU run (float64 on its near
+    frames) and the card's eager forward. Holds: off the crop edges the
+    card's probabilities within MASK_BAND of the CPU's; the served masks,
+    frames 0-3 from the B=1 graph and 4-15 from the B=8 one, equal to the
+    CPU's at every pixel whose prototype pixel (``mask_gather``) is off the
+    crop edges and has a CPU probability further than MASK_BAND from 0.5.
+    Counts the served pixels that differ, and those of them whose CPU mask
+    logit lies further than 1e-4 from 0."""
+    import numpy as np
+
+    from yolov10_3d_torch.engine.predictor import mask_gather
+
+    stats = {"rows": 0, "gap": 0.0, "band": 0, "pixels": 0, "served": 0, "logit": 0,
+             "served_pixels": 0}
+    for f, (w, g) in enumerate(zip(want, got)):
+        same = _paired(w, g)
+        (p, er, ec), (pg, _, _) = cpu[f], card[f]
+        p, pg = p[same], pg[same]
+        edge = er[same][:, :, None] | ec[same][:, None, :]
+        gap = float(np.abs(p - pg)[~edge].max(initial=0.0))
+        if gap > MASK_BAND:
+            raise AssertionError(f"tasks: frame {f}: mask probabilities card vs CPU {gap:.3g} "
+                                 f"apart off the crop edges (bar {MASK_BAND})")
+        excused = edge | (np.abs(p - 0.5) <= MASK_BAND)
+        ys, xs = mask_gather(p.shape[-2:], model_hw, w.orig_shape)
+        for k, j in enumerate(same):  # row by row: views, no copy of the served masks
+            d = w.masks.data[j] != g.masks.data[j]
+            stats["served_pixels"] += d.size
+            if not d.any():
+                continue
+            y, x = np.nonzero(d)
+            bad = ~excused[k, ys[y], xs[x]]
+            if bad.any():
+                raise AssertionError(
+                    f"tasks: frame {f}: {int(bad.sum())} served mask pixels of row {j} differ "
+                    f"away from 0.5 +- {MASK_BAND} and the crop edges; CPU "
+                    f"{w.boxes.data[j].tolist()} card {g.boxes.data[j].tolist()}")
+            q = p[k, ys[y], xs[x]].astype(np.float64)
+            with np.errstate(divide="ignore"):
+                stats["logit"] += int((np.abs(np.log(q / (1 - q))) > 1e-4).sum())
+            stats["served"] += len(y)
+        stats["gap"] = max(stats["gap"], gap)
+        stats["rows"] += len(same)
+        stats["band"] += int(excused.sum())
+        stats["pixels"] += p.size
+    return stats
+
+
+def probs_vs64(probs, exact, pairs) -> float:
+    """The largest distance of ``probs``' mask probabilities from float64
+    ``exact``'s, off either's crop edges, over ``pairs`` of (frame, Results
+    of the run, Results of float64): the rows paired in both."""
+    import numpy as np
+
+    d = 0.0
+    for f, r, r64 in pairs:
+        both = _paired(r, r64)
+        (p, er, ec), (q, qr, qc) = probs[f], exact[f]
+        off = ~((er[both] | qr[both])[:, :, None] | (ec[both] | qc[both])[:, None, :])
+        d = max(d, float(np.abs(p[both] - q[both])[off].max(initial=0.0)))
+    return d
+
+
+def column_errors(task: str, a, b) -> dict:
+    """The largest error of each task column (keypoints, visibility, angle)
+    between two Results of one frame, over the rows paired at the same index
+    (same class, box within BOX_TOL and score within SCORE_TOL: rows of one
+    clipped box are told apart by their rank, not by the nearest box)."""
+    import numpy as np
+
+    ra, cols = task_rows(task, a)
+    rb = task_rows(task, b)[0]
+    n = min(len(ra), len(rb))
+    same = ((ra[:n, 5] == rb[:n, 5]) & (np.abs(ra[:n, :4] - rb[:n, :4]).max(1) <= BOX_TOL)
+            & (np.abs(ra[:n, 4] - rb[:n, 4]) <= SCORE_TOL))
+    if same.mean() < 0.9:
+        raise AssertionError(f"tasks {task}: {int(same.sum())} of {n} rows pair at their index")
+    return {c: float(np.abs(ra[:n][same, sl] - rb[:n][same, sl]).max(initial=0.0))
+            for c, (sl, _) in (cols or {}).items()}
+
+
+def head_maps(out) -> dict:
+    """A model's raw output as {output: [maps]}: ``det``, then the task's maps."""
+    if isinstance(out, list):
+        return {"det": out}
+    return {k: v if isinstance(v, list) else [v] for k, v in out.items()}
+
+
+def frame_maps(model, x) -> dict:
+    """``model``'s raw head maps (``head_maps``) of ``x``, float64 on the CPU."""
+    import torch
+
+    with torch.inference_mode():
+        return {k: [m.cpu().double() for m in maps] for k, maps in head_maps(model(x)).items()}
+
+
+def hold_maps64(card, cpu, exact) -> dict:
+    """The raw head maps (``det`` and the task's maps) of a few frames, one
+    at a time as the served B=1 forward takes them, each a list over the
+    frames of ``frame_maps``: on the card and the CPU in float32 and in
+    float64 (``exact``), all from the card's letterbox. Each output's
+    largest distance from float64 on the card no more than twice the CPU
+    float32 run's (``std05_vs_float64``'s rule: the card as exact as the
+    CPU). Returns {output: (card, cpu)}."""
+    gaps = {}
+    for ref, *runs in zip(exact, card, cpu):
+        for k, run in enumerate(runs):
+            for key, maps in run.items():
+                d = max(float((m - r).abs().max()) for m, r in zip(maps, ref[key]))
+                cur = list(gaps.get(key, (0.0, 0.0)))
+                cur[k] = max(cur[k], d)
+                gaps[key] = tuple(cur)
+    for key, (card_d, cpu_d) in gaps.items():
+        if card_d > 2 * cpu_d:
+            raise AssertionError(f"tasks: {key} maps {card_d:.3g} from float64 on the card, "
+                                 f"over twice the CPU's {cpu_d:.3g}")
+    return gaps
+
+
+def float64_facade(yaml: Path, nc: int, state):
+    """A CPU facade of ``yaml`` holding ``state`` in float64 (its input cast too)."""
+    from yolov10_3d_torch import YOLO
+
+    exact = YOLO(yaml, device="cpu", seed=0, nc=nc)
+    exact.model.load_state_dict(state)
+    exact.model.double()
+    fwd = exact.model.forward
+    exact.model.forward = lambda x, **k: fwd(x.double(), **k)
+    return exact
+
+
+def run64(exact, frames, idx, kw, segment: bool) -> dict:
+    """The float64 run of ``frames[i]`` for ``i`` in ``idx``: {i: (Results,
+    mask probabilities or None)}."""
+    if not idx:
+        return {}
+    with mask_probs() as probs:
+        res = exact.predict([frames[i] for i in idx], batch=len(idx), **kw)
+    return {i: (r, probs[k] if segment else None) for k, (i, r) in enumerate(zip(idx, res))}
+
+
+def scaled_yaml(tmp: Path, name: str) -> Path:
+    """The port's YAML ``name`` saved as its S scale (``yolov8s-seg.yaml``), a
+    path: the scale comes from the stem, as in JAX."""
+    from yolov10_3d_torch.cfg import resolve_model_cfg
+
+    src = resolve_model_cfg(name)
+    dst = tmp / name.replace("yolov8", "yolov8s")
+    dst.write_text(src.read_text())
+    return dst
+
+
+def task_split(pred, x, max_det: int) -> dict:
+    """Device ms of one forward's stages on ``x``, the Predictor's own: the
+    model, ``decode`` (K1), ``nms`` (matrix and sweep; OBB: the rotated one)
+    and ``rows`` (segment: the masks), each a graph replay on the previous
+    stage's outputs."""
+    import torch
+
+    hw = tuple(x.shape[-2:])
+    with torch.inference_mode():
+        out = pred.model(x)
+        preds = pred.decode(out)
+        res = pred.nms(out, preds, max_det)
+        return {"model": time_device([lambda: pred.model(x)], 10),
+                "k1": time_device([lambda: pred.decode(out)], 10),
+                "nms": time_device([lambda: pred.nms(out, preds, max_det)], 10),
+                "rows": time_device([lambda: pred.rows(out, res, hw)], 10)}
+
+
+def tasks_reference(cpu, yaml: Path, nc: int, state, frames, kw: dict, seg: bool,
+                    xs: dict) -> dict:
+    """The CPU side of one [tasks] model, run in a thread beside the card's
+    work: the CPU predict of ``frames`` (its NMS margins and mask
+    probabilities); the float64 CPU run of the frames whose margin is
+    within TASKS_IOU_MARGIN (they replace the CPU's) and, for segment, of
+    the first MASKS64; the CPU's float32 raw maps of the inputs ``xs``
+    ({frame: the card's letterbox})."""
+    from yolov10_3d_torch.utils.parity import nms_margins
+
+    t0 = time.perf_counter()
+    with nms_margins() as margins, mask_probs() as probs:
+        want = cpu.predict(frames, batch=8, **kw)
+    cpu_s = time.perf_counter() - t0
+    near = [i for i, m in enumerate(margins) if m <= TASKS_IOU_MARGIN]
+    idx = sorted(set(near) | set(range(MASKS64) if seg else ()))
+    f64 = run64(float64_facade(yaml, nc, state), frames, idx, kw, seg) if idx else {}
+    f64_s = time.perf_counter() - t0 - cpu_s
+    return {"want": want, "probs": probs, "margins": margins, "near": near, "f64": f64,
+            "maps": {i: frame_maps(cpu.model, x) for i, x in xs.items()}, "cpu_s": cpu_s,
+            "f64_s": f64_s}
+
+
+def timed_val(facade, vkw: dict) -> tuple:
+    """``facade.val(**vkw)`` and its seconds."""
+    t0 = time.perf_counter()
+    return facade.val(**vkw), time.perf_counter() - t0
+
+
+def tasks_card(task: str, name: str, tmp: Path, frames, kw: dict, pool, counts: dict) -> dict:
+    """The card's side of one [tasks] model (YOLOv8-S of ``name``): build and
+    calibrate, submit the CPU reference to ``pool``; the captures, the val
+    set (its CPU val submitted too); the served predicts (B=1 and B=8
+    graphs, their launches counted into ``counts``) and the device ms of the
+    forward's stages. Returns what ``tasks_hold`` and ``tasks_val`` need."""
+    import numpy as np
+    import torch
+
+    from yolov10_3d_torch import YOLO
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+    from yolov10_3d_torch.utils.parity import calibrate, task_labels, task_tree
+
+    t_task = time.perf_counter()
+    yaml = scaled_yaml(tmp, name)
+    nc = 1 if task == "pose" else 80
+    seg = task == "segment"
+    gpu = YOLO(yaml, device="cuda", seed=0, nc=nc)
+    calibrate(gpu.model, serve_preprocess(torch.from_numpy(np.stack(frames)).cuda(),
+                                          (IMGSZ, IMGSZ)), bn_std=BN_STD_TASKS)
+    cpu = YOLO(yaml, device="cpu", seed=0, nc=nc)
+    state = {k: v.cpu() for k, v in gpu.model.state_dict().items()}  # the thread copies nothing
+    cpu.model.load_state_dict(state)
+    # the first frames' raw maps are held to float64 (``hold_maps64``)
+    xs = {i: serve_preprocess_card(frames[i]) for i in range(FRAMES64 if task != "detect" else 0)}
+    job = pool.submit(tasks_reference, cpu, yaml, nc, state, frames, kw, seg,
+                      {i: x.cpu() for i, x in xs.items()})
+    for b in (1, 8):  # the first call of each batch size captures its graph
+        gpu.predict(frames[:b], batch=b, **kw)
+    card_probs = []
+    if seg:  # the card's mask probabilities, from its eager forward, as the served calls batch
+        with eager_forward(), mask_probs() as card_probs:
+            gpu.predict(frames[:4], batch=1, **kw)
+            gpu.predict(frames[4:], batch=8, **kw)
+    # val: a 32-image set in the task's label format; ground truth from the card's own
+    # top rows: a random net scores true positives
+    data = task_tree(tmp / f"val-{task}", task, n=TASKS_VAL, hw=TASKS_VAL_HW, seed=19, nc=nc)
+    task_labels(task, gpu.predict(str(data.parent / "images"), imgsz=TASKS_VAL_IMGSZ,
+                                  conf=0.05, batch=16), data.parent / "labels")
+    vkw = dict(data=str(data), imgsz=TASKS_VAL_IMGSZ, batch=16)
+    val_job = pool.submit(timed_val, cpu, vkw)
+    t_setup = time.perf_counter() - t_task
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    got = gpu.predict(frames[:4], batch=1, **kw) + gpu.predict(frames[4:], batch=8, **kw)
+    again = gpu.predict(frames[4:12], batch=8, **kw)
+    n_fwd = 4 + 2 + 1
+    for k in TASKS_KERNELS:
+        if launch_counts[k] != n_fwd:
+            raise AssertionError(f"tasks {task}: {k} launched {launch_counts[k]} times for "
+                                 f"{n_fwd} forwards")
+        counts[k] += launch_counts[k]
+    if any(not np.array_equal(task_rows(task, a)[0], task_rows(task, b)[0])
+           for a, b in zip(got[4:12], again)):
+        raise AssertionError(f"tasks {task}: a replay of the B=8 graph gave other rows")
+    pred = next(iter(gpu.predictors.values()))
+    max_det = pred._resolve(None, None, None)[1]
+    split = {}
+    for b in (1, 8):
+        x = serve_preprocess(torch.from_numpy(np.stack(frames[:b])).cuda(), (IMGSZ, IMGSZ))
+        split[b] = {"captured": replay_device_ms(pred.graphs[pred.graph_key(x, max_det)]),
+                    **task_split(pred, x, max_det)}
+    return {"task": task, "yaml": yaml, "nc": nc, "seg": seg, "gpu": gpu, "cpu": cpu,
+            "cols": task_rows(task, got[0])[1], "xs": xs, "card_probs": card_probs, "got": got,
+            "split": split, "vkw": vkw, "job": job, "val_job": val_job, "t_setup": t_setup,
+            "t_card": time.perf_counter() - t_task - t_setup}
+
+
+def tasks_hold(ctx: dict, frames, card: str) -> list:
+    """The holds of one [tasks] model once its CPU reference is done: rows,
+    task columns, raw maps and masks card vs CPU. Returns its printed
+    lines, the second without its val (``tasks_val``)."""
+    import numpy as np
+
+    from yolov10_3d_torch.utils.parity import match_detections
+
+    task, seg, gpu, cols, xs = ctx["task"], ctx["seg"], ctx["gpu"], ctx["cols"], ctx["xs"]
+    got, split = ctx["got"], ctx["split"]
+    ref = ctx["job"].result()
+    t0 = time.perf_counter()
+    want, probs, near, f64 = ref["want"], ref["probs"], ref["near"], ref["f64"]
+    cpu32, want32 = list(probs), list(want)
+    for i in near:
+        want[i] = f64[i][0]
+        if seg:
+            probs[i] = f64[i][1]
+    # rows: score and box at their bars; the task's columns measured here, a frame over a
+    # column's bar held on its raw maps to float64 below
+    stats, miss = {"rows": 0, "score": 0.0, "box": 0.0}, []
+    for f, (w, g) in enumerate(zip(want, got)):
+        m = match_detections(task_rows(task, w)[0], task_rows(task, g)[0], CONF, SCORE_TOL,
+                             BOX_TOL)
+        stats["rows"] += m["n_ref"]
+        stats["score"] = max(stats["score"], m["max_score_err"])
+        stats["box"] = max(stats["box"], m["max_box_err"])
+        for c, err in column_errors(task, w, g).items():
+            stats[c] = max(stats.get(c, 0.0), err)
+            if err > cols[c][1] and f not in miss:
+                miss.append(f)
+    cpu_maps = ref["maps"]
+    for f in miss:
+        if f not in xs:
+            xs[f] = serve_preprocess_card(frames[f])
+            cpu_maps[f] = frame_maps(ctx["cpu"].model, xs[f].cpu())
+    vs64 = {}
+    if xs:  # float64 on the card: its rounding is 1e-16, the bars' 1e-4
+        model64 = copy.deepcopy(gpu.model).double()
+        held = sorted(xs)
+        vs64 = hold_maps64([frame_maps(gpu.model, xs[i]) for i in held],
+                           [cpu_maps[i] for i in held],
+                           [frame_maps(model64, xs[i].double()) for i in held])
+        del model64
+    masks = None
+    if seg:
+        card_probs = ctx["card_probs"]
+        masks = hold_masks(want, got, probs, card_probs, (IMGSZ, IMGSZ))
+        first = range(MASKS64)
+        probs64 = {f: f64[f][1] for f in first}
+        masks["card64"] = probs_vs64(card_probs, probs64, [(f, got[f], f64[f][0]) for f in first])
+        masks["cpu64"] = probs_vs64(cpu32, probs64, [(f, want32[f], f64[f][0]) for f in first])
+    t_hold = time.perf_counter() - t0
+    ctx["t_hold"], ctx["ref_s"] = t_hold, (ref["cpu_s"], ref["f64_s"])
+    extra = "".join(f", {c} {stats[c]:.2e}" for c in (cols or {}))
+    if vs64:
+        extra += (f"; {len(miss)} frames with a task column over its bar; raw maps of {len(xs)} "
+                  f"frames from float64, card / CPU float32: " + ", ".join(
+                      f"{k} {c:.2e} / {u:.2e}" for k, (c, u) in vs64.items()))
+    return [
+        f"[tasks] {task} (YOLOv8-S, {ctx['yaml'].name}, nc {ctx['nc']}) at {IMGSZ}, "
+        f"{TASKS_FRAMES} frames {TASKS_HW[0]}x{TASKS_HW[1]}, card vs CPU: {stats['rows']} rows, "
+        f"max score err {stats['score']:.2e}, box {stats['box']:.2e} px{extra}; smallest IoU "
+        f"decision margin {min(ref['margins']):.3g}, {len(near)} frames held to float64"
+        + (f"; masks of all {TASKS_FRAMES} frames: {masks['rows']} rows, probabilities card vs "
+           f"CPU within {masks['gap']:.2e} off the crop edges (bar {MASK_BAND}; from a float64 "
+           f"CPU run on {MASKS64} frames: card {masks['card64']:.2e}, CPU "
+           f"{masks['cpu64']:.2e}); served (B=1 and B=8 graphs) {masks['served']} of "
+           f"{masks['served_pixels']} pixels differ, all at a prototype pixel on a crop edge or "
+           f"with a CPU probability within {MASK_BAND} of 0.5 ({masks['band']} of "
+           f"{masks['pixels']} such); {masks['logit']} of them with a CPU logit further than "
+           f"1e-4 from 0" if masks else ""),
+        "[tasks] " + task + " device ms per forward (" + card + "): " + "; ".join(
+            f"B={b} captured {s['captured']:.3f} = model {s['model']:.3f} + K1 {s['k1']:.4f} + "
+            f"NMS {s['nms']:.4f} + rows {s['rows']:.4f}" + (" (the masks)" if seg else "")
+            for b, s in split.items())]
+
+
+def tasks_val(ctx: dict, counts: dict) -> str:
+    """The card's val of one [tasks] model, timed with nothing else running,
+    its launches counted into ``counts``, held to the CPU's val metrics."""
+    import numpy as np
+
+    from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
+
+    task, gpu = ctx["task"], ctx["gpu"]
+    reset_launch_counts()
+    vg = gpu.val(**ctx["vkw"])
+    n_val = TASKS_VAL // 16
+    for k in TASKS_KERNELS:
+        if launch_counts[k] != n_val:
+            raise AssertionError(f"tasks {task} val: {k} launched {launch_counts[k]} times for "
+                                 f"{n_val} batches")
+        counts[k] += launch_counts[k]
+    t = dict(gpu.validator.timings)
+    dev_s = t.get("device", sum(t.get(k, 0.0) for k in ("forward", "decode", "topk")))
+    vc, val_s = ctx["val_job"].result()
+    gap = max(abs(float(vg[k]) - float(vc[k])) for k in vg if np.isscalar(vg[k]))
+    if gap > METRIC_TOL or {k for k in vg if np.isscalar(vg[k])} != {
+            k for k in vc if np.isscalar(vc[k])}:
+        raise AssertionError(f"tasks {task} val: card vs CPU metrics differ by {gap:.3g}")
+    if float(vg["mAP50"]) <= 0.0:
+        raise AssertionError(f"tasks {task} val: mAP50 0 on both sides proves nothing")
+    return (f" | val {TASKS_VAL} images {TASKS_VAL_HW[0]}x{TASKS_VAL_HW[1]} at "
+            f"{TASKS_VAL_IMGSZ}: {t['images'] / t['total']:.1f} img/s on the card (loader "
+            f"{t['loader']:.2f} s, device {dev_s:.2f} s, host {t['host']:.2f} s), metrics card "
+            f"vs CPU within {gap:.2e}, mAP50 {float(vg['mAP50']):.4f} | s: set-up "
+            f"{ctx['t_setup']:.1f}, the card's calls {ctx['t_card']:.1f}; in the CPU thread the "
+            f"reference {ctx['ref_s'][0]:.1f}, float64 {ctx['ref_s'][1]:.1f}, val {val_s:.1f}; "
+            f"the holds {ctx['t_hold']:.1f}")
+
+
+def serve_preprocess_card(frame):
+    """``frame``'s served B=1 input: the card's letterbox to IMGSZ."""
+    import torch
+
+    from yolov10_3d_torch.ops.preprocess import serve_preprocess
+
+    return serve_preprocess(torch.from_numpy(frame[None]).cuda(), (IMGSZ, IMGSZ))
+
+
+def phase_tasks(card: str) -> dict:
+    """[tasks]: YOLOv8's detect, segment, pose and OBB tasks on the card (the
+    docstring's 4i). The card's side of every model runs first
+    (``tasks_card``), each model's CPU reference in a thread beside it
+    (``tasks_reference``); the holds follow (``tasks_hold``). Returns the
+    launch counts of its forwards."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(19)
+    frames = [painted_image(rng, *TASKS_HW)[0] for _ in range(TASKS_FRAMES)]
+    kw = dict(imgsz=IMGSZ, conf=CONF)
+    counts = dict.fromkeys(TASKS_KERNELS, 0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(max(1, threads - 1))  # a core for the card's host work
+    lines = []
+    try:
+        with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+            ctxs = [tasks_card(task, name, Path(tmp), frames, kw, pool, counts)
+                    for task, name in TASKS_MODELS.items()]
+            for B, kind in ((1, "rotated"), (8, "rotated"), (2, "ties"), (2, "under")):
+                check_nms_sweep(B, kind, timed=kind == "rotated")  # K 1024 iou: [kernels]
+            t_card = time.perf_counter() - t_phase
+            held = [tasks_hold(ctx, frames, card) for ctx in ctxs]
+            for ctx, (rows, ms) in zip(ctxs, held):  # the CPU is idle from here on
+                lines += [rows, ms + tasks_val(ctx, counts)]
+                ctx.clear()
+                torch.cuda.empty_cache()
+    finally:
+        torch.set_num_threads(threads)
+    for ln in lines:
+        print(ln)
+    forwards = len(TASKS_MODELS) * (7 + TASKS_VAL // 16)
+    print(f"[tasks] launches {counts} for {forwards} forwards; the card's side of every model "
+          f"and the sweep's cases done at {t_card:.1f} s; phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    return {k: counts.get(k, 0) for k in KERNELS}
 
 
 def check_saved(results, out: Path) -> int:
@@ -5987,7 +6630,7 @@ SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "group": "int8_group_conv
           "dwtiles": "int8_group_conv",
           "stem": "stem_conv",
           "k1": "decode_detect", "val2d-std05": "decode_detect", "learn2d-epoch": "decode_detect",
-          "serve3d-std05": "stem_conv", "track": "decode_detect"}
+          "serve3d-std05": "stem_conv", "track": "decode_detect", "tasks": "nms_sweep"}
 
 
 def parent_root(argv):
@@ -6008,8 +6651,8 @@ def sweep_only(argv) -> int:
     candidate tile of int8_dw_conv_f32 at phase 3c's shapes), stem (the stem at
     640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
     32), val2d-std05 (``val2d_std05_witness``), learn2d-epoch
-    (``learn2d_epoch_sweep``), serve3d-std05 (``serve3d_std05_witness``) and
-    track (phase 4h alone),
+    (``learn2d_epoch_sweep``), serve3d-std05 (``serve3d_std05_witness``),
+    track (phase 4h alone) and tasks (phase 4i alone),
     so that two checkouts' kernels are timed in one call on one card;
     "serve" adds the device kernels of one float32 request (which builds
     every source)."""
@@ -6049,6 +6692,9 @@ def sweep_only(argv) -> int:
     if "track" in names:
         phase_build(["stem_conv"])
         phase_track(card)
+    if "tasks" in names:
+        phase_build(["decode_detect"])
+        phase_tasks(card)
     if "serve" in names:
         request_kernels()
     print(card_line())
@@ -6107,6 +6753,8 @@ def main() -> int:
     done("sources")
     track = phase_track(card)
     done("track")
+    tasks = phase_tasks(card)
+    done("tasks")
     phase_val3d(card)
     done("val3d")
     failed = []
@@ -6173,7 +6821,8 @@ def main() -> int:
         learn2d = {k: int(v) for k, v in json.loads(lines[-1]).items()}
     done("learn2d")
     launches = {**{k: serving[k] for k in SERVING_KERNELS}, **{k: train[k] for k in TRAIN_KERNELS},
-                "int8_group_conv_f32": 0, "int8_dw_conv_f32": 0, "int8_act_absmax": 0}
+                "int8_group_conv_f32": 0, "int8_dw_conv_f32": 0, "int8_act_absmax": 0,
+                "nms_sweep": 0}
     # K4 and K1; K1 and the stem; K1; K4; K1, the stem, K2, K3 and int8_conv_f32
     for counts in (ckpt["train"], ckpt["reload"], val2d, train_host, options, learn2d):
         for k in KERNELS:
@@ -6186,6 +6835,8 @@ def main() -> int:
         launches[k] += sources[k]
     for k in TRACK_KERNELS:  # and video and tracking
         launches[k] += track[k]
+    for k in TASKS_KERNELS:  # and YOLOv8's tasks: K1 and the NMS sweep
+        launches[k] += tasks[k]
     for counts in (int8_all, int8_3d):  # scope all in 2D and 3D, and 3D at k3 and k3deep
         for k in (*INT8_KERNELS, "stem_conv"):
             launches[k] += counts[k]

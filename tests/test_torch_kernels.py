@@ -13,6 +13,7 @@ import torch
 from yolov10_3d_torch.kernels import launch_counts, reset_launch_counts
 from yolov10_3d_torch.kernels import hsv as K4
 from yolov10_3d_torch.kernels import int8 as K8
+from yolov10_3d_torch.kernels import nms as KN
 from yolov10_3d_torch.kernels import stem as KS
 from yolov10_3d_torch.kernels.decode import (
     decode_detect_cuda, decode_detect_flat, decode_detect_maps, decode_detect_maps_cuda,
@@ -684,3 +685,70 @@ def test_stem_conv_checks_inputs(cuda_device):
         KS.stem_conv_cuda(x, w[:24].contiguous(), b[:24].contiguous())
     with pytest.raises(ValueError, match="CUDA"):
         KS.stem_conv_cuda(x, w.cpu(), b)
+
+
+def _sweep_case(seed: int, B: int, K: int, device, kind: str):
+    """A pairwise matrix of K sorted candidates and its conf mask: "iou" a
+    real IoU matrix of random boxes (ties: duplicated boxes), "rotated" a
+    masked probiou-like matrix with exact zeros, "grid" values on a 1/8 grid
+    (ties at the threshold), "under" every candidate under conf."""
+    g = torch.Generator().manual_seed(seed)
+    if kind == "iou":
+        from yolov10_3d_torch.ops.boxes import box_iou_pairwise
+        xy = torch.rand((B, K, 2), generator=g) * 200
+        wh = 5 + torch.rand((B, K, 2), generator=g) * 60
+        boxes = torch.cat([xy, xy + wh], -1)
+        boxes[:, 1::7] = boxes[:, 0::7][:, : boxes[:, 1::7].shape[1]]  # exact duplicates
+        m = box_iou_pairwise(boxes, boxes)
+    elif kind == "grid":
+        m = torch.randint(0, 9, (B, K, K), generator=g).float() / 8
+    else:
+        m = torch.rand((B, K, K), generator=g)
+        m = m * (torch.rand((B, K, K), generator=g) < 0.3)
+    ok = torch.rand((B, K), generator=g) < (0.0 if kind == "under" else 0.9)
+    return m.contiguous().to(device), ok.to(device)
+
+
+def test_nms_sweep_refuses_cpu_tensors():
+    """The sweep's wrapper takes CUDA tensors only; the dispatcher runs the
+    twin for CPU tensors, launching nothing."""
+    m, ok = _sweep_case(0, 2, 40, "cpu", "iou")
+    with pytest.raises(ValueError, match="CUDA"):
+        KN.nms_sweep_cuda(m, 0.7, ok)
+    before = launch_counts["nms_sweep"]
+    keep = KN.nms_sweep(m, 0.7, ok)
+    assert keep.dtype == torch.bool and keep.shape == (2, 40)
+    assert launch_counts["nms_sweep"] == before
+    assert not (keep & ~ok).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,kind,thr", [
+    (1, 1024, "iou", 0.7), (8, 1024, "iou", 0.7), (1, 512, "rotated", 0.7),
+    (8, 512, "rotated", 0.7), (3, 77, "grid", 0.5), (2, 1024, "grid", 0.375),
+    (2, 1000, "under", 0.7), (1, 1, "iou", 0.7), (4, 33, "rotated", -1.0)])
+def test_nms_sweep_matches_twin(cuda_device, B, K, kind, thr):
+    """Bit for bit the twin (the JAX loop): the predict shapes (1024
+    axis-aligned, 512 rotated) at B=1 and 8, ties at the threshold, every
+    candidate under conf, a single candidate, and odd K."""
+    m, ok = _sweep_case(K + B, B, K, cuda_device, kind)
+    before = launch_counts["nms_sweep"]
+    got = KN.nms_sweep_cuda(m, thr, ok)
+    torch.cuda.synchronize()
+    assert launch_counts["nms_sweep"] == before + 1
+    want = KN.nms_sweep_torch(m.cpu(), thr, ok.cpu())
+    assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
+
+
+@pytest.mark.cuda
+def test_nms_sweep_checks_inputs(cuda_device):
+    m, ok = _sweep_case(1, 2, 16, cuda_device, "iou")
+    with pytest.raises(TypeError):
+        KN.nms_sweep_cuda(m.double(), 0.7, ok)
+    with pytest.raises(ValueError, match="contiguous"):
+        KN.nms_sweep_cuda(m.transpose(1, 2), 0.7, ok)
+    with pytest.raises(ValueError, match="K="):
+        big = torch.zeros((1, 1025, 1025), device=cuda_device)
+        KN.nms_sweep_cuda(big, 0.7, torch.ones((1, 1025), dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError, match="conf_ok"):
+        KN.nms_sweep_cuda(m, 0.7, ok[:, :8].contiguous())

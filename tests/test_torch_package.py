@@ -153,6 +153,16 @@ for tracker in ("bytetrack", "botsort"):
     assert all(r.boxes.data.shape[1] == 7 for r in res)
 out = ObjectCounter([(0, 24), (64, 24)], draw_tracks=True).start_counting(frames[0], np.zeros((0, 7)))
 assert out.shape == (48, 64, 3)
+# YOLOv8's tasks: predict (the NMS sweep's twin) and val of each on a tree
+# of its label format (segment masks by PIL's fill rule, without PIL)
+from yolov10_3d_torch.utils.parity import task_tree
+for task, cfg in (("detect", "yolov8.yaml"), ("segment", "yolov8-seg.yaml"),
+                  ("pose", "yolov8-pose.yaml"), ("obb", "yolov8-obb.yaml")):
+    m8 = yolov10_3d_torch.YOLO(cfg, device="cpu", nc=1)
+    r8 = m8.predict(frames[0], imgsz=64, conf=0.0)[0]
+    assert m8.task == task and (len(r8.obb) if task == "obb" else len(r8)) > 0
+    out = m8.val(data=str(task_tree(root / task, task, n=2, hw=(48, 64), nc=1)), imgsz=64, batch=2)
+    assert "fitness" in out, out
 leaked = [n for n in {FORBIDDEN!r} if sys.modules.get(n) is not None]
 assert not leaked, leaked
 import shutil
@@ -171,8 +181,10 @@ def test_port_imports_and_serves_without_jax():
     and its reloaded best.ckpt's 2D validation, two epochs of 2D training
     on the host augmentation (cv2 is blocked), one request to the
     inference server (``engine/server.py``), and a Motion-JPEG AVI
-    tracked by ByteTrack and BoT-SORT with a solution drawing (every
-    module, ``cfg/cli.py`` too, is imported first)."""
+    tracked by ByteTrack and BoT-SORT with a solution drawing, and
+    YOLOv8's detect, segment, pose and OBB models predicting and validating
+    (every module, ``cfg/cli.py`` and ``data/dataset_tasks.py`` too, is
+    imported first)."""
     out = subprocess.run([sys.executable, "-c", _ISOLATED], cwd=REPO, capture_output=True,
                          text=True, timeout=300, env={**os.environ, "OMP_NUM_THREADS": "1"})
     assert out.returncode == 0 and "isolated ok" in out.stdout, out.stderr[-3000:]

@@ -9,7 +9,7 @@ Everything here imports torch and numpy only; nothing imports jax, flax or
 the JAX package.
 """
 
-from .engine.model import YOLOv10
+from .engine.model import YOLO, Model, YOLOv10
 from .nn.build import build_model
 
-__all__ = ["YOLOv10", "build_model"]
+__all__ = ["YOLO", "Model", "YOLOv10", "build_model"]

@@ -286,11 +286,14 @@ def load_dataset_yaml(path) -> Dict[str, Any]:
 
 
 def resolve_model_cfg(name: str) -> Path:
-    """'yolov10s.yaml' / 'yolov10s' / a path -> the YAML file."""
+    """'yolov10s.yaml' / 'yolov10s' / a path -> the YAML file. A name is
+    looked up by its literal stem, as JAX's ``_resolve_model_cfg`` does: the
+    scale comes from a path's stem (``nn/build.py``), so ``yolov8-seg.yaml``
+    is the first scale, n, and ``yolov8s-seg.yaml`` exists only as a path."""
     p = Path(name)
     if p.exists():
         return p
-    for family in ("v10", "v10-3D"):
+    for family in ("v10", "v10-3D", "v8"):
         cand = CFG_DIR / "models" / family / f"{p.stem}.yaml"
         if cand.exists():
             return cand

@@ -8,13 +8,16 @@ val, train and serve modes).
     val model=runs/train/weights/best.ckpt data=coco128.yaml imgsz=640
     train model=yolov10s.yaml data=coco128.yaml epochs=100 imgsz=640
     detect3d train model=yolov10s_3D.yaml data=kitti.yaml
+    segment predict model=yolov8-seg.yaml source=images/
+    pose val model=yolov8-pose.yaml data=coco8-pose.yaml
     serve model=yolov10s.yaml imgsz=640 conf=0.25 batch=32 max_delay_ms=10 \\
         host=127.0.0.1 port=8000
 
 ``model`` is a YAML (seeded random weights), a ``.ckpt`` or a ``.pt``; the
 model runs on the card unless ``device=cpu``. TASK is optional, as in the
-JAX command line (the model's head decides). ``predict`` prints each
-frame's detections; ``track`` prints each frame's track count, with
+JAX command line (the model's head decides: ``segment``, ``pose`` and
+``obb`` take YOLOv8's YAMLs). ``predict`` prints each frame's detections
+(rotated boxes for obb); ``track`` prints each frame's track count, with
 ``tracker`` (``bytetrack`` or ``botsort``) defaulting to bytetrack as JAX's
 command line does, though ``get_cfg``'s ``tracker`` is ``botsort.yaml``;
 ``val`` prints the metrics; ``train`` resumes from
@@ -116,7 +119,7 @@ def entrypoint(argv=None) -> int:
         if source is None:
             raise SystemExit("predict requires source=...")
         for r in model.predict(source, **kv):
-            print(f"{r.path}: {len(r)} detections")
+            print(f"{r.path}: {len(r.obb) if r.obb is not None else len(r)} detections")
             for d in r.summary():
                 print(f"  {d['name']} {d['confidence']:.3f} {d['box']}")
         return 0

@@ -34,6 +34,17 @@ The facade keeps one Predictor per setting that shapes the forward (int8,
 spd_serving) from one ``predict`` call to the next, and with it the
 Predictor's captured CUDA graphs; ``train`` drops them, since the graphs
 read the weight tensors they were captured on.
+
+``Model`` is the facade of every head the port builds; its task comes from
+the head (the JAX ``Model``): YOLOv8's YAMLs make ``detect`` (``Detect``,
+served and validated through NMS), ``segment``, ``pose`` and ``obb``
+models, whose Results carry ``masks``, ``keypoints`` or ``obb`` and whose
+``val`` returns the task's metrics (``engine/validator_tasks.py``; pose
+takes ``kpt_shape`` from the data YAML). ``YOLOv10`` and ``YOLO`` are its
+names in the JAX package. A YAML is found by its literal stem
+(``cfg.resolve_model_cfg``), so a scale other than the YAML's first is a
+copy saved under the scaled name (``yolov8s-seg.yaml``) and passed by path.
+Training a v8-family task is ROADMAP item 13c.
 """
 
 from __future__ import annotations
@@ -46,19 +57,21 @@ import torch
 
 from ..cfg import get_cfg, load_dataset_yaml, resolve_model_cfg
 from ..data.dataset import DataLoader, DictLoader, YOLODataset
+from ..data.dataset_tasks import OBBEvalDataset, PoseEvalDataset, SegmentationEvalDataset
 from ..data.loaders import is_endless
 from ..device import resolve_device
-from ..nn.build import build_model
+from ..nn.build import V8_HEADS, build_model
 from ..trackers import BOTSORT, BYTETracker
 from ..train.state import TrainState
 from ..utils.checkpoint import load_checkpoint
 from ..utils.weights import load_flax_variables
-from .predictor import Predictor
+from .predictor import TASKS, Predictor
 from .results import Boxes
 from .trainer import DetectionTrainer
 from .trainer3d import Detection3DTrainer
 from .validator import DetectionValidator
 from .validator3d import Detection3DValidator, build_3d_dataset
+from .validator_tasks import OBBValidator, PoseValidator, SegmentationValidator
 
 
 def _saving_stream(gen, save_kw):
@@ -91,11 +104,15 @@ def track_result(tracker, r):
 
 VAL_KEYS = {"detect": ("batch", "conf", "max_det", "imgsz", "save_json_path"),
             "detect3d": ("batch", "save_dir", "conf", "max_det", "use_o2m_depth",
-                         "kitti_resolution", "use_dino_depth", "dino_path")}
+                         "kitti_resolution", "use_dino_depth", "dino_path"),
+            "segment": ("batch", "conf", "imgsz"), "pose": ("batch", "conf", "imgsz"),
+            "obb": ("batch", "conf", "imgsz")}
+TASK_VAL = {"segment": (SegmentationEvalDataset, SegmentationValidator),
+            "pose": (PoseEvalDataset, PoseValidator), "obb": (OBBEvalDataset, OBBValidator)}
 
 
-class YOLOv10:
-    """YOLOv10 detection facade. ``device`` defaults to the card."""
+class Model:
+    """The facade of every head the port builds. ``device`` defaults to the card."""
 
     def __init__(self, model: Union[str, Path] = "yolov10n.yaml",
                  device: Union[str, torch.device] = "cuda", seed: int = 0,
@@ -118,7 +135,7 @@ class YOLOv10:
         self.model_cfg = cfg
         self.model, self.spec = build_model(resolve_model_cfg(cfg), nc=nc, fast_eval=True,
                                             device=self.device, seed=seed)
-        self.task = "detect3d" if self.spec.head_module == "v10Detect3d" else "detect"
+        self.task = TASKS[self.spec.head_module]
         self.names = {i: f"class{i}" for i in range(self.spec.nc)}
 
     def _load_native(self, path: str, seed: int) -> None:
@@ -248,6 +265,9 @@ class YOLOv10:
         (``Detection3DTrainer``); afterwards the facade serves and validates
         the EMA weights. ``teacher``: the frozen depth teacher of the 3D
         distillation terms (``Detection3DTrainer.teacher``)."""
+        if self.spec.head_module in V8_HEADS:
+            raise NotImplementedError(f"training the {self.spec.head_module} head: ROADMAP "
+                                      "item 13c")
         args = get_cfg({**self.overrides, "model": self.model_cfg, "device": str(self.device),
                         **kwargs})
         trainer_cls = Detection3DTrainer if self.task == "detect3d" else DetectionTrainer
@@ -275,7 +295,12 @@ class YOLOv10:
         the one2many depth fusion with ``use_o2m_depth``, the DINOv2
         teacher's depths with ``use_dino_depth`` and ``dino_path``;
         ``metrics/3D`` is the fitness (``engine/validator3d.py``; a Waymo or
-        Omni3D YAML: that dataset's)."""
+        Omni3D YAML: that dataset's).
+
+        segment, pose and obb (the JAX task branches): ``conf`` (0.001) with
+        JAX's NMS at IoU 0.7 and 300 rows, the task's metrics dict
+        (``engine/validator_tasks.py``); pose reads ``kpt_shape`` from the
+        data YAML ([17, 3] without it)."""
         unknown = sorted(set(kwargs) - set(VAL_KEYS[self.task]))
         if unknown:
             raise KeyError(f"unknown val keys {unknown}; valid keys: "
@@ -283,6 +308,16 @@ class YOLOv10:
         d = load_dataset_yaml(data)
         root = Path(d.get("path", ".")) / d["val"]
         batch = kwargs.get("batch", 16)
+        if self.task in TASK_VAL:
+            dataset_cls, validator_cls = TASK_VAL[self.task]
+            extra = {}
+            if self.task == "pose":
+                extra["kpt_shape"] = tuple(d.get("kpt_shape", (17, 3)))
+            ds = dataset_cls(root, imgsz=kwargs.get("imgsz", 640), augment=False, **extra)
+            loader = DataLoader(ds, batch, shuffle=False, drop_last=False, workers=4,
+                                pin_memory=self.device.type == "cuda")
+            self.validator = validator_cls(self.model, self.spec, {}, d["names"], **extra)
+            return self.validator(loader, conf=kwargs.get("conf", 0.001))
         if self.task == "detect":
             ds = YOLODataset(root, imgsz=kwargs.get("imgsz", 640), augment=False)
             loader = DataLoader(ds, batch, shuffle=False, drop_last=False, workers=4,
@@ -303,3 +338,12 @@ class YOLOv10:
             max_det=kwargs.get("max_det", 50),
             use_o2m_depth=bool(kwargs.get("use_o2m_depth", False)),
         )
+
+
+class YOLOv10(Model):
+    """The facade under its YOLOv10 name (the JAX ``YOLOv10``)."""
+
+
+class YOLO(Model):
+    """The facade under its generic name (the JAX ``YOLO``): the task comes
+    from the head."""

@@ -1,5 +1,6 @@
-"""NMS-free detection predictor (port of ``yolov10_3d_tpu/engine/predictor.py``,
-the v10 ``detect`` and ``detect3d`` tasks).
+"""Streaming predictor (port of ``yolov10_3d_tpu/engine/predictor.py``: the
+v10 ``detect`` and ``detect3d`` tasks, and the v8 family's ``detect``,
+``segment``, ``pose`` and ``obb``).
 
 Pipeline: source -> letterbox batch -> forward (one2one branch only) ->
 decode + top-k -> host unpad + scale to original coords -> Results. Same-shape
@@ -23,6 +24,17 @@ sparse top-K patch path while ``max_det <= SPARSE_K`` and its options allow
 it (``V10Detect3d.sparse_ok``), densely otherwise.
 The Predictor holds these settings and passes them with each forward; the
 model is not switched.
+
+The v8-family heads (``Detect``, ``Segment``, ``Pose``, ``OBB``) decode their
+``det`` maps through K1 and then run JAX's fixed-shape NMS (``ops/nms.py``,
+its sweep the hand kernel of ``kernels/nms.py``) inside the same captured
+forward: at ``conf_thres=0.001`` and IoU 0.7 whatever the call's ``conf``,
+which filters the rows on the host afterwards, as in JAX. ``segment`` adds
+the masks (``process_masks`` > 0.5, at the prototypes' resolution, scaled
+to the image on the host), ``pose`` the keypoints, and ``obb`` runs the
+OBB validator's rotated NMS (probiou, 512 candidates) and returns rotated
+boxes. As in JAX, these heads serve without the fused stem (JAX packs the
+stem for v10 heads only), and ``int8=True`` raises (ROADMAP item 25).
 
 On the card the forward, decode and top-k run as a replayed CUDA graph, the
 counterpart of the JAX Predictor's jitted ``_forward_fn`` (compiled once per
@@ -65,13 +77,18 @@ from ..data.loaders import (LoadScreenshots, LoadStreams, LoadTensor, is_endless
 from ..data.preprocess import preprocess_batch
 from ..data.video import VideoReader
 from ..kernels import add_launches, captured_launches
+from ..nn.build import V8_HEADS
 from ..nn.heads3d import SPARSE_K
 from ..nn.quant import Int8Config
-from ..ops.postprocess import decode_detect3d, v10_3d_postprocess, v10_detections
+from ..ops.postprocess import (decode_detect, decode_detect3d, decode_kpts, flatten_feats,
+                               obb_postprocess, process_masks, v8_postprocess,
+                               v10_3d_postprocess, v10_detections)
 from ..ops.preprocess import serve_preprocess
 from .results import Results
 
-TASKS = {"v10Detect": "detect", "v10Detect3d": "detect3d"}
+TASKS = {"v10Detect": "detect", "v10Detect3d": "detect3d", "Detect": "detect",
+         "Segment": "segment", "Pose": "pose", "OBB": "obb"}
+NMS_CONF, NMS_IOU = 0.001, 0.7  # the NMS inside the v8 heads' forward (JAX's Predictor)
 VID_FORMATS = {"avi", "mkv", "mov", "mp4", "mpeg", "mpg", "webm"}
 GRAPH_CACHE = 8  # captured forwards kept per Predictor (JAX: lru_cache(maxsize=8))
 
@@ -139,15 +156,58 @@ def check_imgsz(imgsz, stride: int = 32):
     return out[0] if scalar else out
 
 
-def _scale_boxes_np(boxes, from_shape, to_shape):
+def _letterbox_geom(from_shape, to_shape):
     gain = min(from_shape[0] / to_shape[0], from_shape[1] / to_shape[1])
     pad_w = round((from_shape[1] - to_shape[1] * gain) / 2 - 0.1)
     pad_h = round((from_shape[0] - to_shape[0] * gain) / 2 - 0.1)
+    return gain, pad_w, pad_h
+
+
+def _scale_boxes_np(boxes, from_shape, to_shape):
+    gain, pad_w, pad_h = _letterbox_geom(from_shape, to_shape)
     boxes = boxes - np.array([pad_w, pad_h, pad_w, pad_h])
     boxes = boxes / gain
     boxes[:, [0, 2]] = boxes[:, [0, 2]].clip(0, to_shape[1])
     boxes[:, [1, 3]] = boxes[:, [1, 3]].clip(0, to_shape[0])
     return boxes
+
+
+def _scale_kpts_np(kpts, from_shape, to_shape):
+    """(N, nk, 2 | 3) keypoints in letterboxed pixels -> original coords."""
+    gain, pad_w, pad_h = _letterbox_geom(from_shape, to_shape)
+    kpts = kpts.copy()
+    kpts[..., 0] = ((kpts[..., 0] - pad_w) / gain).clip(0, to_shape[1])
+    kpts[..., 1] = ((kpts[..., 1] - pad_h) / gain).clip(0, to_shape[0])
+    return kpts
+
+
+def mask_gather(mask_hw, from_shape, to_shape):
+    """The (rows, cols) of the prototypes' grid ``mask_hw`` of the
+    letterboxed ``from_shape`` that each pixel of ``to_shape`` takes: the
+    padding cropped, then a nearest resize."""
+    hm, wm = mask_hw
+    gain, pad_w, pad_h = _letterbox_geom(from_shape, to_shape)
+    y1, x1 = int(round(pad_h * hm / from_shape[0])), int(round(pad_w * wm / from_shape[1]))
+    ch, cw = max(hm - 2 * y1, 1), max(wm - 2 * x1, 1)
+    oh, ow = to_shape
+    return (y1 + (np.arange(oh) * ch / oh).astype(int),
+            x1 + (np.arange(ow) * cw / ow).astype(int))
+
+
+def _scale_masks_np(masks, from_shape, to_shape):
+    """(N, hm, wm) masks at the prototypes' resolution of the letterboxed
+    ``from_shape`` -> (N, oh, ow) at the original resolution (``mask_gather``)."""
+    if len(masks) == 0:
+        return np.zeros((0, *to_shape), masks.dtype)
+    ys, xs = mask_gather(masks.shape[-2:], from_shape, to_shape)
+    return masks.take(ys, axis=1).take(xs, axis=2)
+
+
+def to_host(out):
+    """A forward's output (a tensor, or a tuple of them) as numpy arrays."""
+    if isinstance(out, tuple):
+        return tuple(t.cpu().numpy() for t in out)
+    return out.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -156,27 +216,27 @@ class CapturedForward:
 
     graph: "torch.cuda.CUDAGraph"
     x: torch.Tensor  # static input, allocated outside the graph's pool
-    out: torch.Tensor  # static output (B, max_det, 6 or 37)
+    out: Any  # static output: forward_eager's tensor or tuple of tensors
     launches: Dict[str, int]  # hand-kernel launches one replay makes
     capture_s: float  # host seconds of the capture
     reserved: int  # bytes the capture added to the allocator's reserve
 
     @torch.inference_mode()
-    def replay(self, x: torch.Tensor) -> np.ndarray:
+    def replay(self, x: torch.Tensor):
         """Copy ``x`` into the static input, replay, read the output back."""
         self.x.copy_(x)
         self.graph.replay()
         add_launches(self.launches)
-        return self.out.cpu().numpy()
+        return to_host(self.out)
 
 
 class Predictor:
-    """NMS-free YOLOv10 detection predictor on the model's device."""
+    """Detection, segmentation, pose and OBB predictor on the model's device."""
 
     def __init__(self, model, spec, args: Dict[str, Any], names=None):
         if spec.head_module not in TASKS:
-            raise NotImplementedError(f"head {spec.head_module!r}: only v10Detect and "
-                                      "v10Detect3d are ported")
+            raise NotImplementedError(f"head {spec.head_module!r}: the Predictor serves "
+                                      f"{sorted(TASKS)}")
         spd = args.get("spd_serving")
         if spd not in (True, False, None):
             raise ValueError(
@@ -188,7 +248,10 @@ class Predictor:
         self.task = TASKS[spec.head_module]
         self.names = names or {i: str(i) for i in range(spec.nc)}
         self.device = next(model.parameters()).device
-        self.stem = bool(spd)
+        self.v8 = spec.head_module in V8_HEADS  # the NMS heads
+        self.stem = bool(spd) and not self.v8  # JAX packs the stem for v10 heads only
+        if self.v8 and args.get("int8"):
+            raise NotImplementedError(f"int8 serving of {spec.head_module}: ROADMAP item 25")
         self.int8 = Int8Config(scope="k3deep") if args.get("int8") else None
         if self.int8 is not None and self.task == "detect3d":
             warnings.warn("int8=True is ignored for the 3D serving path, as in the JAX "
@@ -227,11 +290,16 @@ class Predictor:
         return conf, max_det, imgsz
 
     @torch.inference_mode()
-    def forward_eager(self, x: torch.Tensor, max_det: int) -> torch.Tensor:
-        """Forward + decode + top-k on ``x``'s device: (B, max_det, 6) boxes,
-        score, label (2D), or (B, max_det, 37): the 35 regression values,
-        score, label (3D). The function each graph captures."""
+    def forward_eager(self, x: torch.Tensor, max_det: int):
+        """Forward + decode + top-k (NMS for the v8 heads) on ``x``'s device,
+        rows of (B, max_det, R + 2): R values, then score and label. R is 4
+        (boxes xyxy in model-input pixels), 35 (the 3D regression), 4 + nk *
+        nd (boxes, then keypoints: ``pose``) or 5 (xywhr: ``obb``);
+        ``segment`` returns the rows and its masks (B, max_det, Hm, Wm) bool.
+        The function each graph captures."""
         nc = self.spec.nc
+        if self.v8:
+            return self._forward_nms(x, max_det)
         if self.task == "detect3d":
             feats = self.model(x, fast_eval=True, stem=self.stem,
                                sparse=self.sparse(max_det))["one2one"]
@@ -244,8 +312,46 @@ class Predictor:
             [det["boxes"], det["scores"][..., None], det["labels"][..., None].float()], -1
         )
 
+    def _forward_nms(self, x: torch.Tensor, max_det: int):
+        """The v8 heads' branches of JAX's ``_forward_fn``: the model, then
+        ``decode`` (K1), ``nms`` and ``rows``."""
+        out = self.model(x)
+        return self.rows(out, self.nms(out, self.decode(out), max_det), tuple(x.shape[-2:]))
+
+    def decode(self, out) -> torch.Tensor:
+        """A v8 head's raw output -> (B, A, 4 + nc) xyxy boxes and scores (K1)."""
+        feats = out if self.task == "detect" else out["det"]
+        return decode_detect(feats, self.spec.strides[: len(feats)], self.spec.nc)
+
+    def nms(self, out, preds: torch.Tensor, max_det: int):
+        """JAX's NMS at ``NMS_CONF`` / ``NMS_IOU`` (OBB: the rotated one),
+        the task's payload carried as its ``extra``."""
+        if self.task == "obb":
+            return obb_postprocess(preds, out["angle"], NMS_CONF, NMS_IOU, max_det)
+        extra = None
+        if self.task == "segment":
+            extra = flatten_feats(out["mask_coefs"])[0]
+        elif self.task == "pose":
+            extra = decode_kpts(out["kpts"], self.spec.strides[: len(out["det"])],
+                                self.kpt_shape)
+        return v8_postprocess(preds, NMS_CONF, NMS_IOU, max_det, extra)
+
+    def rows(self, out, res, input_hw):
+        """The NMS output as ``forward_eager``'s rows; ``segment`` adds its
+        masks (``process_masks`` > 0.5)."""
+        boxes, scores, labels = res[:3]
+        cols = [boxes] + ([res[4]] if self.task == "pose" else [])
+        rows = torch.cat([*cols, scores[..., None], labels[..., None].float()], -1)
+        if self.task != "segment":
+            return rows
+        return rows, process_masks(out["protos"], res[4], boxes, input_hw) > 0.5
+
+    @property
+    def kpt_shape(self):
+        return self.model.model[self.spec.head_index].kpt_shape
+
     @torch.inference_mode()
-    def _forward(self, x: torch.Tensor, max_det: int) -> np.ndarray:
+    def _forward(self, x: torch.Tensor, max_det: int):
         """``forward_eager`` as one host array: on the card a replay of the
         key's graph (the key's first call runs eagerly and then captures)."""
         with self._lock:
@@ -254,11 +360,11 @@ class Predictor:
                 self.graphs.clear()
                 self._state_key = state
             if not x.is_cuda:
-                return self.forward_eager(x, max_det).cpu().numpy()
+                return to_host(self.forward_eager(x, max_det))
             key = self.graph_key(x, max_det)
             cap = self.graphs.get(key)
             if cap is None:
-                out = self.forward_eager(x, max_det).cpu().numpy()
+                out = to_host(self.forward_eager(x, max_det))
                 self.remember(key, self._capture(x, max_det))
                 return out
             self.graphs.move_to_end(key)
@@ -310,6 +416,9 @@ class Predictor:
         x, model_hw = self.preprocess([f[1] for f in chunk], imgsz)
         t1 = time.perf_counter()
         out = self._forward(x, max_det)
+        masks = None
+        if isinstance(out, tuple):
+            out, masks = out
         t2 = time.perf_counter()
         results = []
         for j, (path, img) in enumerate(chunk):
@@ -318,13 +427,29 @@ class Predictor:
             if classes is not None:
                 keep &= np.isin(labels, np.asarray(classes))
             reg = reg[keep]
-            b = _scale_boxes_np(reg[:, :4], model_hw, img.shape[:2])
-            det = np.concatenate([b, scores[keep, None], labels[keep, None]], -1)
-            boxes3d = None
-            if self.task == "detect3d":  # the JAX Predictor's columns (engine/results.py)
-                boxes3d = np.concatenate([det, reg[:, 4:6], reg[:, 6:9],
-                                          np.zeros((len(b), 4), np.float32), reg[:, -1:]], -1)
-            res = Results(img, path=path, names=self.names, boxes=det, boxes3d=boxes3d)
+            tail = [scores[keep, None], labels[keep, None]]
+            if self.task == "obb":  # xywhr un-letterboxed, as JAX's float32 rows
+                gain, pad_w, pad_h = _letterbox_geom(model_hw, img.shape[:2])
+                rbox = reg.copy()
+                rbox[:, 0] = (rbox[:, 0] - pad_w) / gain
+                rbox[:, 1] = (rbox[:, 1] - pad_h) / gain
+                rbox[:, 2:4] = rbox[:, 2:4] / gain
+                res = Results(img, path=path, names=self.names,
+                              obb=np.concatenate([rbox, *tail], -1))
+            else:
+                b = _scale_boxes_np(reg[:, :4], model_hw, img.shape[:2])
+                det = np.concatenate([b, *tail], -1)
+                extra = {}
+                if self.task == "detect3d":  # the JAX Predictor's columns (engine/results.py)
+                    extra["boxes3d"] = np.concatenate(
+                        [det, reg[:, 4:6], reg[:, 6:9], np.zeros((len(b), 4), np.float32),
+                         reg[:, -1:]], -1)
+                elif self.task == "pose":
+                    extra["keypoints"] = _scale_kpts_np(
+                        reg[:, 4:].reshape(len(reg), *self.kpt_shape), model_hw, img.shape[:2])
+                elif self.task == "segment":
+                    extra["masks"] = _scale_masks_np(masks[j][keep], model_hw, img.shape[:2])
+                res = Results(img, path=path, names=self.names, boxes=det, **extra)
             res.speed = {
                 "preprocess": (t1 - t0) / len(chunk) * 1e3,
                 "inference": (t2 - t1) / len(chunk) * 1e3,

@@ -1,8 +1,9 @@
 """2D detection validator (port of ``yolov10_3d_tpu/engine/validator.py``
-``DetectionValidator``): the eval forward, the v10 NMS-free decode (kernel
-K1 on the card, ``ops/postprocess.py``) and top-k, the ``conf`` filter, and
-greedy IoU matching over 10 thresholds into ``utils/metrics.py``
-``DetMetrics``.
+``DetectionValidator``): the eval forward, the decode (kernel K1 on the card,
+``ops/postprocess.py``), then the v10 NMS-free top-k or, for YOLOv8's
+``Detect`` head, JAX's NMS at conf 0.001 and IoU 0.7 (``ops/nms.py``, its
+sweep the kernel of ``kernels/nms.py``); the ``conf`` filter, and greedy
+IoU matching over 10 thresholds into ``utils/metrics.py`` ``DetMetrics``.
 
 The forward runs eagerly, batch by batch: a validation pass is one call per
 batch on weights that change between calls (the trainer validates a new
@@ -18,23 +19,24 @@ from typing import Any, Dict, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.postprocess import decode_detect, v10_postprocess
+from ..ops.postprocess import decode_detect, v8_postprocess, v10_postprocess
 from ..utils.coco import pred_to_json, save_json
 from ..utils.metrics import DetMetrics
 
 
 class DetectionValidator:
-    """mAP of ``model`` (a v10Detect YOLOModel) on its device.
+    """mAP of ``model`` (a v10Detect or Detect YOLOModel) on its device.
 
     After a call, ``timings`` holds the seconds spent waiting on the loader,
-    on the device (``forward``, ``decode`` (K1) and ``topk``; CUDA events on
-    the card), on the host rows (conf filter, ground truth, matching) and in
-    ``metrics``, with the total and the image count; ``rows`` holds each
-    image's kept (boxes, scores, labels)."""
+    on the device (``forward``, ``decode`` (K1) and ``topk``, the NMS for a
+    Detect head; CUDA events on the card), on the host rows (conf filter,
+    ground truth, matching) and in ``metrics``, with the total and the image
+    count; ``rows`` holds each image's kept (boxes, scores, labels)."""
 
     def __init__(self, model, spec, args: Optional[Mapping[str, Any]] = None, names=None):
-        if spec.head_module != "v10Detect":
-            raise ValueError(f"the 2D validator needs a v10Detect head, not {spec.head_module}")
+        if spec.head_module not in ("v10Detect", "Detect"):
+            raise ValueError(f"the 2D validator needs a v10Detect or Detect head, not "
+                             f"{spec.head_module}")
         self.model = model.eval()
         self.spec = spec
         self.args = dict(args or {})
@@ -63,11 +65,16 @@ class DetectionValidator:
 
         mark()
         x = x.permute(0, 3, 1, 2).to(self.dtype).div(255.0).contiguous()
-        feats = self.model(x, fast_eval=True)["one2one"]
+        v10 = self.spec.head_module == "v10Detect"
+        feats = self.model(x, fast_eval=True)
+        feats = feats["one2one"] if v10 else feats
         mark()
         preds = decode_detect(feats, self.spec.strides, self.spec.nc)
         mark()
-        boxes, scores, labels = v10_postprocess(preds, max_det, self.spec.nc)
+        if v10:
+            boxes, scores, labels = v10_postprocess(preds, max_det, self.spec.nc)
+        else:
+            boxes, scores, labels, _ = v8_postprocess(preds, 0.001, 0.7, max_det)
         mark()
         out = torch.cat([boxes, scores[..., None], labels[..., None].float()], -1).cpu().numpy()
         if cuda:

@@ -1,6 +1,6 @@
-"""YAML -> model compiler for the YOLOv10 family (port of
-``yolov10_3d_tpu/nn/build.py``, cut to the modules the v10 and v10-3D YAMLs
-use).
+"""YAML -> model compiler (port of ``yolov10_3d_tpu/nn/build.py``, cut to
+the modules the v10, v10-3D and v8 YAMLs use: YOLOv8's detect, P6, segment,
+pose and OBB models).
 
 ``parse_model_yaml`` produces the same static ``ModelSpec`` as the JAX
 package; ``YOLOModel`` instantiates the layers as ``model.{i}`` (so the JAX
@@ -33,15 +33,16 @@ from . import heads3d as H3
 from . import modules as M
 from .quant import Int8Config, plan_int8
 
-HEAD_MODULES = {"v10Detect", "v10Detect3d"}
+HEAD_MODULES = {"v10Detect", "v10Detect3d", "Detect", "Segment", "Pose", "OBB"}
+V8_HEADS = ("Detect", "Segment", "Pose", "OBB")  # the heads served through NMS
 # top-level YAML keys of the 3D head's options (the JAX parser's extras)
 HEAD3D_KEYS = ("dsconv", "channels", "use_predecessors", "detach_predecessors", "deform",
                "common_head", "num_scales", "half_channels", "fgdm_predictor",
                "kernel_size_1", "kernel_size_2")
 # Modules following the (c1, c2, ...) channel convention
-CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C2f", "PSA", "SCDown", "C2fCIB"}
+CH_MODULES = {"Conv", "Bottleneck", "SPPF", "C2f", "C2", "PSA", "SCDown", "C2fCIB"}
 # Modules whose repeat count n is absorbed as an inner arg
-REPEAT_MODULES = {"C2f", "C2fCIB"}
+REPEAT_MODULES = {"C2f", "C2", "C2fCIB"}
 
 
 def make_divisible(x: float, divisor: int = 8) -> int:
@@ -123,6 +124,8 @@ def parse_model_yaml(
         for j, a in enumerate(args):
             if isinstance(a, str) and a == "nc":
                 args[j] = d_nc
+            elif isinstance(a, str) and a == "kpt_shape":
+                args[j] = list(d.get("kpt_shape", [17, 3]))
             elif isinstance(a, str):
                 # 'None'/'True'/'False' arrive as strings
                 with contextlib.suppress(ValueError, SyntaxError):
@@ -156,7 +159,16 @@ def parse_model_yaml(
         elif mname in HEAD_MODULES:
             in_ch = tuple(ch_list[x] for x in f)
             head_strides = tuple(stride_list[x] for x in f)
-            args = [d_nc, in_ch]
+            if mname == "Segment":  # [nc, nm, npr], npr width-scaled
+                npr = args[2] if len(args) > 2 else 256
+                args = [d_nc, in_ch, args[1] if len(args) > 1 else 32,
+                        make_divisible(min(npr, max_channels) * width, 8)]
+            elif mname == "Pose":
+                args = [d_nc, in_ch, tuple(args[1]) if len(args) > 1 else (17, 3)]
+            elif mname == "OBB":
+                args = [d_nc, in_ch, args[1] if len(args) > 1 else 1]
+            else:
+                args = [d_nc, in_ch]
             c2 = 0
             out_stride = in_stride
             head_index = i
@@ -212,6 +224,8 @@ def _build_module(spec: LayerSpec, c1: int, extras: Dict[str, Any],
         return M.Bottleneck(c1, a[0], a[1] if len(a) > 1 else True)
     if spec.module == "C2f":
         return M.C2f(c1, a[0], a[1], a[2] if len(a) > 2 else False)
+    if spec.module == "C2":
+        return M.C2(c1, a[0], a[1], a[2] if len(a) > 2 else True)
     if spec.module == "C2fCIB":
         shortcut = a[2] if len(a) > 2 else False
         lk = a[3] if len(a) > 3 else False
@@ -228,6 +242,14 @@ def _build_module(spec: LayerSpec, c1: int, extras: Dict[str, Any],
         return M.Concat(1)
     if spec.module == "v10Detect":
         return H.V10Detect(nc=a[0], ch=a[1])
+    if spec.module == "Detect":
+        return H.Detect(nc=a[0], ch=a[1])
+    if spec.module == "Segment":
+        return H.Segment(nc=a[0], ch=a[1], nm=a[2], npr=a[3])
+    if spec.module == "Pose":
+        return H.Pose(nc=a[0], ch=a[1], kpt_shape=a[2])
+    if spec.module == "OBB":
+        return H.OBB(nc=a[0], ch=a[1], ne=a[2])
     if spec.module == "v10Detect3d":
         return H3.V10Detect3d(nc=a[0], ch=a[1], cfg=extras)
     raise ValueError(spec.module)
@@ -314,7 +336,7 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     conv's offset and modulator convs zero, as flax initialises them."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, nn.Conv2d):
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
                 fan_in = m.weight[0].numel()
                 m.weight.copy_(
                     torch.randn(m.weight.shape, generator=generator) / math.sqrt(fan_in)

@@ -1,7 +1,10 @@
-"""YOLOv10 NMS-free detection head (port of ``yolov10_3d_tpu/nn/heads.py``).
+"""Detection heads (port of ``yolov10_3d_tpu/nn/heads.py``): YOLOv10's
+NMS-free ``V10Detect`` and the v8 family's ``Detect``, ``Segment``, ``Pose``
+and ``OBB``.
 
-The head returns raw per-scale NCHW maps (B, 4*reg_max + nc, H, W); the
-decode and top-k live in ``ops/postprocess.py``.
+Each head returns raw per-scale NCHW maps (B, 4*reg_max + nc, H, W), in the
+JAX head's list or dict; the decode, top-k and NMS live in
+``ops/postprocess.py`` and ``ops/nms.py``. The DFL has no parameters.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from typing import Dict, List, Sequence
 import torch
 from torch import nn
 
-from .modules import Conv, run
+from .modules import Conv, Proto, run
 
 REG_MAX = 16
 
@@ -29,6 +32,81 @@ def _v10_cls_branch(c_in: int, c3: int, nc: int) -> nn.Sequential:
         nn.Sequential(Conv(c3, c3, 3, g=c3), Conv(c3, c3, 1)),
         nn.Conv2d(c3, nc, 1),
     )
+
+
+def _branch(c_in: int, c_mid: int, c_out: int) -> nn.Sequential:
+    """Conv3x3, Conv3x3, 1x1 conv -> ``c_out`` (the v8 heads' cls and extra branches)."""
+    return nn.Sequential(Conv(c_in, c_mid, 3), Conv(c_mid, c_mid, 3), nn.Conv2d(c_mid, c_out, 1))
+
+
+class Detect(nn.Module):
+    """YOLOv8's anchor-free DFL head: a list of per-scale (B, 4*reg_max + nc,
+    H, W) maps. ``one2many`` is accepted and ignored (one branch)."""
+
+    def __init__(self, nc: int, ch: Sequence[int]):
+        super().__init__()
+        self.nc = nc
+        self.nl = len(ch)
+        c2 = max(16, ch[0] // 4, REG_MAX * 4)
+        c3 = max(ch[0], min(nc, 100))
+        self.cv2 = nn.ModuleList(_box_branch(x, c2, REG_MAX) for x in ch)
+        self.cv3 = nn.ModuleList(_branch(x, c3, nc) for x in ch)
+
+    def det(self, xs, plan) -> List[torch.Tensor]:
+        return [torch.cat([run(self.cv2[i], x, plan), run(self.cv3[i], x, plan)], 1)
+                for i, x in enumerate(xs)]
+
+    def extra(self, xs, plan) -> List[torch.Tensor]:
+        """The per-scale maps of the head's third branch (``cv4``)."""
+        return [run(self.cv4[i], x, plan) for i, x in enumerate(xs)]
+
+    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True, plan=None):
+        return self.det(xs, plan)
+
+
+class Segment(Detect):
+    """Detect + mask coefficients (``cv4``, ``nm`` a scale) + prototype masks
+    (``proto``, at twice the first scale's resolution): {"det", "mask_coefs",
+    "protos"}."""
+
+    def __init__(self, nc: int, ch: Sequence[int], nm: int = 32, npr: int = 256):
+        super().__init__(nc, ch)
+        self.nm, self.npr = nm, npr
+        c4 = max(ch[0] // 4, nm)
+        self.cv4 = nn.ModuleList(_branch(x, c4, nm) for x in ch)
+        self.proto = Proto(ch[0], npr, nm)
+
+    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True, plan=None):
+        p = self.proto(xs[0], plan)
+        return {"det": self.det(xs, plan), "mask_coefs": self.extra(xs, plan), "protos": p}
+
+
+class Pose(Detect):
+    """Detect + raw keypoint maps (``cv4``, nk * nd a scale): {"det", "kpts"}."""
+
+    def __init__(self, nc: int, ch: Sequence[int], kpt_shape: Sequence[int] = (17, 3)):
+        super().__init__(nc, ch)
+        self.kpt_shape = tuple(kpt_shape)
+        self.nk = self.kpt_shape[0] * self.kpt_shape[1]
+        c4 = max(ch[0] // 4, self.nk)
+        self.cv4 = nn.ModuleList(_branch(x, c4, self.nk) for x in ch)
+
+    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True, plan=None):
+        return {"det": self.det(xs, plan), "kpts": self.extra(xs, plan)}
+
+
+class OBB(Detect):
+    """Detect + raw angle maps (``cv4``, ``ne`` a scale; decoded by
+    ``ops/postprocess.py`` ``decode_obb_angle``): {"det", "angle"}."""
+
+    def __init__(self, nc: int, ch: Sequence[int], ne: int = 1):
+        super().__init__(nc, ch)
+        self.ne = ne
+        c4 = max(ch[0] // 4, ne)
+        self.cv4 = nn.ModuleList(_branch(x, c4, ne) for x in ch)
+
+    def forward(self, xs: Sequence[torch.Tensor], one2many: bool = True, plan=None):
+        return {"det": self.det(xs, plan), "angle": self.extra(xs, plan)}
 
 
 class V10Detect(nn.Module):

@@ -213,6 +213,43 @@ class C2f(nn.Module):
         return self.cv2(torch.cat(y, 1), plan)
 
 
+class C2(nn.Module):
+    """CSP bottleneck with 2 convs (the JAX ``C2``; yolov8-p6's neck)."""
+
+    def __init__(self, c1: int, c2: int, n: int = 1, shortcut: bool = True,
+                 g: int = 1, e: float = 0.5):
+        super().__init__()
+        self.c = int(c2 * e)
+        self.cv1 = Conv(c1, 2 * self.c, 1, 1)
+        self.cv2 = Conv(2 * self.c, c2, 1)
+        self.m = nn.ModuleList(
+            Bottleneck(self.c, self.c, shortcut, g, k=(3, 3), e=1.0) for _ in range(n)
+        )
+
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        a, b = self.cv1(x, plan).chunk(2, 1)
+        for m in self.m:
+            a = m(a, plan)
+        return self.cv2(torch.cat([a, b], 1), plan)
+
+
+class Proto(nn.Module):
+    """Mask prototypes of the segmentation head (the JAX ``Proto``): Conv 3x3,
+    a 2x2 stride-2 transposed conv with bias, Conv 3x3, Conv 1x1 -> ``c2``
+    prototype planes at twice the input's resolution."""
+
+    def __init__(self, c1: int, c_: int = 256, c2: int = 32):
+        super().__init__()
+        self.cv1 = Conv(c1, c_, 3)
+        self.upsample = nn.ConvTranspose2d(c_, c_, 2, 2, 0, bias=True)
+        self.cv2 = Conv(c_, c_, 3)
+        self.cv3 = Conv(c_, c2)
+
+    def forward(self, x: torch.Tensor, plan=None) -> torch.Tensor:
+        x = promoted(self.upsample, self.cv1(x, plan))
+        return self.cv3(self.cv2(x, plan), plan)
+
+
 class SPPF(nn.Module):
     """Spatial pyramid pooling - fast; max-pool pads with -inf, as flax's."""
 

@@ -304,7 +304,7 @@ def plan_int8(model: nn.Module, hw: Tuple[int, int], cfg: Int8Config,
     route of ``spd_serving``) leaves layer 0 out of the int8 convs, as the
     JAX package's space-to-depth stem takes it out of its int8 gate."""
     if model.spec.head_module not in ("v10Detect", "v10Detect3d"):
-        raise NotImplementedError(f"int8 serving of {model.spec.head_module}")
+        raise NotImplementedError(f"int8 serving of {model.spec.head_module}: ROADMAP item 25")
     H, W = hw
     stride = max(model.spec.strides) if model.spec.strides else 32
     if H % stride or W % stride:

@@ -1,22 +1,26 @@
-"""NMS-free decode + top-k postprocess (port of
-``yolov10_3d_tpu/ops/postprocess.py``, the v10 2D and 3D subset).
+"""Decode and postprocess (port of ``yolov10_3d_tpu/ops/postprocess.py``):
+the v10 NMS-free top-k (2D and 3D) and the v8-family epilogues (decode +
+NMS, keypoints, OBB angles, masks).
 
 Feature maps are NCHW; the public layouts are the JAX package's: the decode
 returns (B, A, 4 + nc) (2D) or (B, A, nc + 35) (3D) with anchors per scale
 H x W row-major, which is what NCHW ``flatten(2)`` gives. The 2D decode runs
 in kernel K1 on the card; the 3D decode is plain PyTorch, as it is plain XLA
-in the JAX package.
+in the JAX package. Every v8-family head decodes its ``det`` maps through
+K1 too; the NMS sweep that follows is the kernel of ``kernels/nms.py``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import math
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels.decode import REG_MAX, decode_detect_maps
-from .boxes import make_anchors
+from .boxes import make_anchors, xyxy2xywh
+from .nms import non_max_suppression, rotated_nms
 from .topk import topk_lowest_index
 
 
@@ -118,3 +122,88 @@ def v10_detections(
     preds = decode_detect(feats, strides, nc)
     boxes, scores, labels = v10_postprocess(preds, max_det, nc)
     return {"boxes": boxes, "scores": scores, "labels": labels, "valid": scores > conf}
+
+
+def v8_postprocess(
+    preds: torch.Tensor,
+    conf: float = 0.25,
+    iou: float = 0.7,
+    max_det: int = 300,
+    extra: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, ...]:
+    """The v8-family NMS of decoded ``preds`` (B, A, 4 + nc), xyxy + scores:
+    the boxes back to xywh, then ``non_max_suppression``. Returns its
+    (boxes xyxy, scores, labels, valid[, extra]), fixed shapes (B, max_det, ...)."""
+    preds = torch.cat([xyxy2xywh(preds[..., :4]), preds[..., 4:]], -1)
+    return non_max_suppression(preds, conf_thres=conf, iou_thres=iou, max_det=max_det,
+                               extra=extra)
+
+
+def obb_postprocess(
+    preds: torch.Tensor,
+    angle_feats: Sequence[torch.Tensor],
+    conf: float = 0.001,
+    iou: float = 0.7,
+    max_det: int = 300,
+) -> Tuple[torch.Tensor, ...]:
+    """The OBB NMS of decoded ``preds`` and the raw angle maps: xywhr boxes,
+    then ``rotated_nms`` by probiou. Returns (rbox (B, max_det, 5), scores,
+    labels, valid)."""
+    rbox = torch.cat([xyxy2xywh(preds[..., :4]), decode_obb_angle(angle_feats)], -1)
+    return rotated_nms(rbox, preds[..., 4:], conf, iou, max_det)
+
+
+def v8_detections(
+    feats: Sequence[torch.Tensor],
+    strides: Sequence[int],
+    nc: int,
+    conf: float = 0.25,
+    iou: float = 0.7,
+    max_det: int = 300,
+) -> Dict[str, torch.Tensor]:
+    """The v8-family eval epilogue: decode (K1) + NMS. Returns dict(boxes
+    xyxy, scores, labels, valid), fixed shapes (B, max_det, ...)."""
+    boxes, scores, labels, valid = v8_postprocess(
+        decode_detect(feats, strides, nc), conf, iou, max_det)
+    return {"boxes": boxes, "scores": scores, "labels": labels, "valid": valid}
+
+
+def decode_kpts(kpt_feats: Sequence[torch.Tensor], strides: Sequence[int],
+                kpt_shape=(17, 3)) -> torch.Tensor:
+    """Raw keypoint maps -> (B, A, nk * nd) keypoints in input pixels: xy =
+    (raw * 2 + anchor - 0.5) * stride, the visibility through a sigmoid."""
+    x, shapes = flatten_feats(kpt_feats)
+    x = x.float()
+    anchors, stride = make_anchors(shapes, strides, 0.5, device=x.device)
+    nk, nd = kpt_shape
+    y = x.reshape(x.shape[0], x.shape[1], nk, nd)
+    xy = (y[..., :2] * 2.0 + (anchors[None, :, None, :] - 0.5)) * stride[None, :, None, :]
+    out = torch.cat([xy, torch.sigmoid(y[..., 2:3])], -1) if nd == 3 else xy
+    return out.reshape(x.shape[0], x.shape[1], nk * nd)
+
+
+def decode_obb_angle(angle_feats: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Raw angle maps -> (B, A, ne) angles in [-pi/4, 3pi/4)."""
+    x, _ = flatten_feats(angle_feats)
+    return (torch.sigmoid(x.float()) - 0.25) * math.pi
+
+
+def process_masks(protos: torch.Tensor, mask_coefs: torch.Tensor, boxes: torch.Tensor,
+                  input_hw) -> torch.Tensor:
+    """Detection masks sigmoid(coefs @ protos) cropped to the boxes:
+    ``protos`` (B, nm, Hm, Wm) NCHW, ``mask_coefs`` (B, K, nm), ``boxes``
+    (B, K, 4) xyxy in model-input pixels -> (B, K, Hm, Wm) probabilities at
+    the protos' resolution. The product is one batched matmul, as JAX
+    leaves its einsum to XLA."""
+    B, nm, Hm, Wm = protos.shape
+    masks = torch.matmul(mask_coefs.float(), protos.float().reshape(B, nm, Hm * Wm))
+    masks = torch.sigmoid(masks.reshape(B, -1, Hm, Wm))
+    sy, sx = Hm / input_hw[0], Wm / input_hw[1]
+    x1 = boxes[..., 0, None, None] * sx
+    y1 = boxes[..., 1, None, None] * sy
+    x2 = boxes[..., 2, None, None] * sx
+    y2 = boxes[..., 3, None, None] * sy
+    cols = torch.arange(Wm, device=masks.device)[None, None, None, :]
+    rows = torch.arange(Hm, device=masks.device)[None, None, :, None]
+    crop = ((cols >= x1) & (cols < x2) & (rows >= y1) & (rows < y2)).to(masks.dtype)
+    return masks * crop

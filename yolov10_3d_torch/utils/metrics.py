@@ -1,7 +1,8 @@
 """Detection metrics (the port's copy of the 2D part of
-``yolov10_3d_tpu/utils/metrics.py``: AP per class, prediction matching and
-``DetMetrics``). Numpy, on the host: the device produces fixed-shape boxes,
-scores and labels per image.
+``yolov10_3d_tpu/utils/metrics.py``: AP per class, prediction matching,
+``DetMetrics`` and the task metrics: mask IoU, keypoint OKS and rotated
+probiou, ``SegmentMetrics``, ``PoseMetrics`` and ``OBBMetrics``). Numpy, on
+the host: the device produces fixed-shape rows per image.
 """
 
 from __future__ import annotations
@@ -199,3 +200,129 @@ class DetMetrics:
         out["ap50_per_class"] = res["ap"][:, 0]
         out["ap_per_class"] = res["ap"].mean(1)
         return out
+
+
+def mask_iou(gt_masks: np.ndarray, pred_masks: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """All-pairs mask IoU: gt (M, H*W), pred (N, H*W) binary -> (M, N)."""
+    gt = gt_masks.reshape(gt_masks.shape[0], -1).astype(np.float32)
+    pr = pred_masks.reshape(pred_masks.shape[0], -1).astype(np.float32)
+    inter = gt @ pr.T
+    union = gt.sum(1)[:, None] + pr.sum(1)[None] - inter
+    return inter / (union + eps)
+
+
+# COCO's 17-keypoint OKS sigmas
+OKS_SIGMA = np.array([0.26, 0.25, 0.25, 0.35, 0.35, 0.79, 0.79, 0.72, 0.72, 0.62, 0.62,
+                      1.07, 1.07, 0.87, 0.87, 0.89, 0.89]) / 10.0
+
+
+def kpt_iou(gt_kpts: np.ndarray, pred_kpts: np.ndarray, area: np.ndarray,
+            sigma: Optional[np.ndarray] = None, eps: float = 1e-7) -> np.ndarray:
+    """Object keypoint similarity of gt (M, K, 2 | 3) and pred (N, K, 2 | 3)
+    keypoints -> (M, N); ``area`` (M,) the gt boxes' areas (times 0.53 in
+    the caller); COCO's sigmas for 17 keypoints, 1 / K each otherwise."""
+    K = gt_kpts.shape[1]
+    sigma = sigma if sigma is not None else (OKS_SIGMA if K == 17 else np.ones(K) / K)
+    d2 = ((gt_kpts[:, None, :, 0] - pred_kpts[None, :, :, 0]) ** 2
+          + (gt_kpts[:, None, :, 1] - pred_kpts[None, :, :, 1]) ** 2)
+    kpt_mask = ((gt_kpts[..., 2] != 0) if gt_kpts.shape[-1] == 3
+                else np.ones(gt_kpts.shape[:2], bool))
+    e = d2 / ((2 * sigma) ** 2)[None, None] / (area[:, None, None] + eps) / 2
+    return (np.exp(-e) * kpt_mask[:, None]).sum(-1) / (kpt_mask.sum(-1)[:, None] + eps)
+
+
+def probiou_np(obb1: np.ndarray, obb2: np.ndarray, eps: float = 1e-7) -> np.ndarray:
+    """All-pairs rotated probabilistic IoU: (M, 5), (N, 5) xywhr -> (M, N)."""
+    x1, y1 = obb1[:, 0:1], obb1[:, 1:2]
+    x2, y2 = obb2[:, 0], obb2[:, 1]
+
+    def cov(b):
+        w, h, r = b[:, 2], b[:, 3], b[:, 4]
+        a, bb = (w ** 2) / 12, (h ** 2) / 12
+        cos, sin = np.cos(r), np.sin(r)
+        return a * cos ** 2 + bb * sin ** 2, a * sin ** 2 + bb * cos ** 2, (a - bb) * cos * sin
+
+    a1, b1, c1 = (v[:, None] for v in cov(obb1))
+    a2, b2, c2 = cov(obb2)
+    t1 = ((a1 + a2) * (y1 - y2) ** 2 + (b1 + b2) * (x1 - x2) ** 2) / (
+        (a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps) * 0.25
+    t2 = ((c1 + c2) * (x2 - x1) * (y1 - y2)) / ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2 + eps) * 0.5
+    t3 = np.log(
+        ((a1 + a2) * (b1 + b2) - (c1 + c2) ** 2)
+        / (4 * np.sqrt(np.clip(a1 * b1 - c1 ** 2, 0, None) * np.clip(a2 * b2 - c2 ** 2, 0, None))
+           + eps) + eps) * 0.5
+    bd = np.clip(t1 + t2 + t3, eps, 100.0)
+    return 1.0 - np.sqrt(1.0 - np.exp(-bd) + eps)
+
+
+def _task_results(box: Dict, task: Dict, tag: str, name: str) -> Dict:
+    """Box metrics as ``metrics/<k>(B)``, the task's as ``metrics/<k>(<tag>)``,
+    ``fitness_box`` and ``fitness_<name>``, the box keys bare, and fitness
+    the sum of the two fitnesses."""
+    out = {f"metrics/{k}(B)" if k != "fitness" else "fitness_box": v
+           for k, v in box.items() if np.isscalar(v)}
+    out.update({f"metrics/{k}({tag})" if k != "fitness" else f"fitness_{name}": v
+                for k, v in task.items() if np.isscalar(v)})
+    out.update({k: v for k, v in box.items() if np.isscalar(v)})
+    out["fitness"] = box["fitness"] + task["fitness"]
+    return out
+
+
+class SegmentMetrics(DetMetrics):
+    """Box and mask mAP; the mask matches by mask IoU."""
+
+    def __init__(self, nc: int = 80, names: Optional[Dict[int, str]] = None):
+        super().__init__(nc, names)
+        self.mask = DetMetrics(nc, names)
+
+    def process_batch_seg(self, pred_boxes, pred_scores, pred_cls, pred_masks, gt_boxes,
+                          gt_cls, gt_masks):
+        self.process_batch(pred_boxes, pred_scores, pred_cls, gt_boxes, gt_cls)
+        if len(pred_scores) == 0 or len(gt_cls) == 0:
+            self.mask.process_batch(pred_boxes, pred_scores, pred_cls, gt_boxes, gt_cls)
+            return
+        iou = mask_iou(np.asarray(gt_masks), np.asarray(pred_masks))
+        tp = match_predictions(np.asarray(pred_cls), np.asarray(gt_cls), iou, self.iouv)
+        self.mask.update(tp, pred_scores, pred_cls, gt_cls)
+
+    def results(self) -> Dict[str, float]:
+        return _task_results(super().results(), self.mask.results(), "M", "mask")
+
+
+class PoseMetrics(DetMetrics):
+    """Box and pose mAP; the pose matches by OKS."""
+
+    def __init__(self, nc: int = 1, names: Optional[Dict[int, str]] = None):
+        super().__init__(nc, names)
+        self.pose = DetMetrics(nc, names)
+
+    def process_batch_pose(self, pred_boxes, pred_scores, pred_cls, pred_kpts, gt_boxes,
+                           gt_cls, gt_kpts):
+        self.process_batch(pred_boxes, pred_scores, pred_cls, gt_boxes, gt_cls)
+        if len(pred_scores) == 0 or len(gt_cls) == 0:
+            self.pose.process_batch(pred_boxes, pred_scores, pred_cls, gt_boxes, gt_cls)
+            return
+        g = np.asarray(gt_boxes)
+        area = (g[:, 2] - g[:, 0]) * (g[:, 3] - g[:, 1]) * 0.53
+        iou = kpt_iou(np.asarray(gt_kpts), np.asarray(pred_kpts), area)
+        tp = match_predictions(np.asarray(pred_cls), np.asarray(gt_cls), iou, self.iouv)
+        self.pose.update(tp, pred_scores, pred_cls, gt_cls)
+
+    def results(self) -> Dict[str, float]:
+        return _task_results(super().results(), self.pose.results(), "P", "pose")
+
+
+class OBBMetrics(DetMetrics):
+    """Rotated-box mAP, matched by probiou; ``process_batch`` takes xywhr."""
+
+    def process_batch(self, pred_rboxes, pred_scores, pred_cls, gt_rboxes, gt_cls):
+        if len(pred_rboxes) == 0:
+            self.update(np.zeros((0, len(self.iouv)), bool), np.zeros(0), np.zeros(0), gt_cls)
+            return
+        if len(gt_rboxes) == 0:
+            self.update(np.zeros((len(pred_rboxes), len(self.iouv)), bool), pred_scores,
+                        pred_cls, np.zeros(0))
+            return
+        iou = probiou_np(np.asarray(gt_rboxes), np.asarray(pred_rboxes))
+        tp = match_predictions(np.asarray(pred_cls), np.asarray(gt_cls), iou, self.iouv)
+        self.update(tp, pred_scores, pred_cls, gt_cls)

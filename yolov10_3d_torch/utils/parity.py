@@ -20,7 +20,12 @@ clear of the selection boundaries, where the selection cannot flip;
 
 from __future__ import annotations
 
+import contextlib
 import math
+import struct
+import threading
+import zlib
+from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -51,7 +56,11 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
     ``cls_mean`` and, with one scale for all classes, batch maximum
     ``cls_max``. The class logits of a random net are heavy-tailed, so unit
     variance lets the top scores saturate at 1.0 and tie; pinning the maximum
-    keeps every served score below sigmoid(cls_max), on the slope.
+    keeps every served score below sigmoid(cls_max), on the slope. A v8
+    task head's extra maps (``cv4``: mask coefficients, keypoints, angles)
+    go to mean 0 per channel and, with one scale for all channels, a pooled
+    std of 1 (a channel of a random net with a tiny spread, scaled alone,
+    would amplify rounding past the parity bars).
 
     ``int8`` (an ``nn.quant.Int8Config``) rescales the head on the outputs of
     that int8 forward instead, for serving in int8: the static activation
@@ -81,7 +90,8 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
             h.remove()
 
     head = model.model[model.spec.head_index]
-    outs = []  # (output conv, target mean per channel, target std; None: class logits)
+    outs = []  # (output conv, target mean per channel, target std; None: class logits;
+    # "pooled": one std over all channels)
     if isinstance(head, V10Detect3d):
         for j, name in enumerate(BRANCHES):
             mean, std = HEAD3D_TARGETS.get(name, (cls_mean, None))
@@ -90,10 +100,13 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
                 outs.append((conv, torch.full((conv.out_channels,), mean,
                                               device=conv.weight.device), std))
     else:
-        for name in ("cv2", "cv3", "one2one_cv2", "one2one_cv3"):
-            for seq in getattr(head, name):
+        for name in ("cv2", "cv3", "one2one_cv2", "one2one_cv3", "cv4"):
+            for seq in getattr(head, name, ()):
                 conv = seq[-1]
-                if name.endswith("cv3"):
+                if name == "cv4":  # a v8 task's extra maps: mean 0, one std 1 for all
+                    target, std = (torch.zeros(conv.out_channels, device=conv.weight.device),
+                                   "pooled")
+                elif name.endswith("cv3"):
                     target, std = torch.full((conv.out_channels,), cls_mean,
                                              device=conv.weight.device), None
                 else:  # 4 sides x reg_max bins
@@ -114,6 +127,8 @@ def calibrate(model: nn.Module, x: torch.Tensor, bn_std: float = 0.5,
         if std is None:  # class logits, one scale for all classes: the batch max -> cls_max
             sd = ((y - mu[:, None, None]).amax() / (cls_max - cls_mean)).clamp_min(1e-6)
             sd = sd.expand_as(mu)
+        elif std == "pooled":  # one scale for all channels: their pooled std -> 1
+            sd = (y - mu[:, None, None]).std().clamp_min(1e-6).expand_as(mu)
         else:
             sd = y.std((0, 2, 3)).clamp_min(1e-6) / std
         conv.weight.div_(sd[:, None, None, None])
@@ -159,6 +174,141 @@ def smooth_images(rng: np.random.Generator, shapes, cell: int = 8):
     return out
 
 
+def _png(img: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of an HWC uint8 image (filter 0)."""
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].tobytes() for y in range(h))
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))
+
+
+def task_tree(root: Path, task: str, n: int = 8, hw: Tuple[int, int] = (96, 128),
+              seed: int = 0, nc: int = 3, kpt_shape: Tuple[int, int] = (17, 3)) -> Path:
+    """A seeded YOLO tree of ``n`` PNGs (h, w) = ``hw`` under ``root``
+    (``images/``, ``labels/``) with a ``data.yaml``, in ``task``'s label
+    format: "detect" boxes, "segment" polygons (ellipses of 8 to 24
+    vertices), "pose" boxes with ``kpt_shape`` keypoints (visibility 0, 1
+    or 2), "obb" DOTA corner quads (rotated rectangles; every third one
+    axis-aligned). Each object is painted into the image. Returns the
+    YAML's path."""
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    (root / "images").mkdir(parents=True, exist_ok=True)
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w]
+    for i in range(n):
+        base = rng.integers(0, 120, 3)
+        img = np.stack([(base[c] + (yy * (c + 1) + xx * (3 - c)) // 8) % 140 for c in range(3)],
+                       -1).astype(np.uint8)
+        lines = []
+        for _ in range(int(rng.integers(1, 5))):
+            cls = int(rng.integers(0, nc))
+            cx, cy = rng.uniform(0.2, 0.8) * w, rng.uniform(0.2, 0.8) * h
+            a, b = rng.uniform(0.06, 0.2) * w, rng.uniform(0.06, 0.2) * h
+            color = rng.integers(140, 256, 3)
+            if task == "obb":
+                r = 0.0 if len(lines) % 3 == 0 else rng.uniform(-np.pi / 2, np.pi / 2)
+                dx = np.array([-a, a, a, -a])
+                dy = np.array([-b, -b, b, b])
+                px = cx + dx * np.cos(r) - dy * np.sin(r)
+                py = cy + dx * np.sin(r) + dy * np.cos(r)
+                inside = np.ones((h, w), bool)
+                for k in range(4):  # left of every edge of the clockwise quad
+                    ex, ey = px[(k + 1) % 4] - px[k], py[(k + 1) % 4] - py[k]
+                    inside &= (ex * (yy - py[k]) - ey * (xx - px[k])) >= 0
+                img[inside] = color
+                pts = np.stack([px / w, py / h], -1).clip(0, 1)
+                lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in pts.reshape(-1)))
+                continue
+            img[((xx - cx) / a) ** 2 + ((yy - cy) / b) ** 2 <= 1] = color
+            box = f"{cx / w:.6f} {cy / h:.6f} {2 * a / w:.6f} {2 * b / h:.6f}"
+            if task == "segment":
+                t = np.sort(rng.uniform(0, 2 * np.pi, int(rng.integers(8, 25))))
+                pts = np.stack([(cx + a * np.cos(t)) / w, (cy + b * np.sin(t)) / h], -1)
+                lines.append(f"{cls} " + " ".join(f"{v:.6f}" for v in pts.clip(0, 1).reshape(-1)))
+            elif task == "pose":
+                nk, nd = kpt_shape
+                kx = (cx + rng.uniform(-a, a, nk)) / w
+                ky = (cy + rng.uniform(-b, b, nk)) / h
+                cols = [kx, ky] + ([rng.integers(0, 3, nk).astype(float)] if nd == 3 else [])
+                kp = " ".join(f"{v:.6f}" for v in np.stack(cols, -1).reshape(-1))
+                lines.append(f"{cls} {box} {kp}")
+            else:
+                lines.append(f"{cls} {box}")
+        (root / "images" / f"{i:04d}.png").write_bytes(_png(img))
+        (root / "labels" / f"{i:04d}.txt").write_text("\n".join(lines) + "\n")
+    names = "\n".join(f"  {i}: class{i}" for i in range(nc))
+    extra = f"kpt_shape: [{kpt_shape[0]}, {kpt_shape[1]}]\n" if task == "pose" else ""
+    (root / "data.yaml").write_text(
+        f"path: {root}\ntrain: images\nval: images\n{extra}names:\n{names}\n")
+    return root / "data.yaml"
+
+
+@contextlib.contextmanager
+def nms_margins():
+    """Inside: every NMS sweep (``ops/nms.py``) that the entering thread
+    runs also records, per image, its IoU decision margin: the least
+    |m[i, j] - thr| over the pairs whose comparison decides, a kept
+    candidate i before a candidate j that passes conf. Yields the list the
+    margins are appended to, in call order. A margin under a comparison's
+    bar means float rounding may flip a keep decision there."""
+    from ..ops import nms as N
+
+    record: List[float] = []
+    sweep, owner = N.nms_sweep, threading.get_ident()
+
+    def recording(m, thr, conf_ok):
+        keep = sweep(m, thr, conf_ok)
+        if threading.get_ident() != owner:
+            return keep
+        K = m.shape[1]
+        later = torch.ones((K, K), dtype=torch.bool, device=m.device).triu(1)
+        decides = keep[:, :, None] & conf_ok[:, None, :] & later
+        gap = (m.double() - thr).abs().masked_fill(~decides, float("inf"))
+        record.extend(gap.flatten(1).amin(1).tolist())
+        return keep
+
+    N.nms_sweep = recording
+    try:
+        yield record
+    finally:
+        N.nms_sweep = sweep
+
+
+def task_labels(task: str, results, labels: Path, top: int = 3) -> None:
+    """Rewrite the label file of each Result's image under ``labels`` from
+    its ``top`` rows by score, in ``task``'s label format (``task_tree``'s):
+    boxes; for "segment" each box as a rectangle polygon; for "pose" the
+    box and its keypoints (visibility 2); for "obb" the rotated box's
+    corners. Ground truth that a random net's own detections match."""
+    for r in results:
+        h, w = r.orig_shape
+        lines = []
+        if task == "obb":
+            for j in np.argsort(-r.obb.conf)[:top]:
+                q = (r.obb.xyxyxyxy[j] / np.array([w, h])).clip(0, 1)
+                lines.append(f"{int(r.obb.cls[j])} " + " ".join(f"{v:.6f}" for v in q.reshape(-1)))
+        else:
+            b = r.boxes
+            for j in np.argsort(-b.conf)[:top]:
+                cx, cy, bw, bh = b.xywhn[j]
+                tail = f"{cx:.6f} {cy:.6f} {bw:.6f} {bh:.6f}"
+                if task == "segment":
+                    x1, y1, x2, y2 = cx - bw / 2, cy - bh / 2, cx + bw / 2, cy + bh / 2
+                    tail = " ".join(f"{v:.6f}" for v in (x1, y1, x2, y1, x2, y2, x1, y2))
+                elif task == "pose":
+                    tail += "".join(f" {x / w:.6f} {y / h:.6f} 2"
+                                    for x, y in r.keypoints.data[j][:, :2])
+                lines.append(f"{int(b.cls[j])} {tail}")
+        (Path(labels) / (Path(str(r.path)).stem + ".txt")).write_text("\n".join(lines) + "\n")
+
+
 def _clear_of_cutoffs(scores: np.ndarray, conf: float, tol: float) -> np.ndarray:
     """Entries more than ``tol`` above both selection boundaries: the
     confidence threshold and the lowest score (the top-k cutoff). Only an
@@ -181,7 +331,8 @@ def match_detections(
     ``score_tol``; and, for each ``cols`` entry name -> (columns, bar), those
     columns within their bar (the 3D columns of ``Boxes3D``). Pairing is by
     (class, box), the stand-in for (class, anchor), never by rank, so ties in
-    score do not matter. Raises AssertionError otherwise. Returns the counts
+    score do not matter; among equally near boxes (rows clipped to the same
+    image edges) the nearest score pairs. Raises AssertionError otherwise. Returns the counts
     and the largest errors."""
     cols = cols or {}
     stats = {"n_ref": len(ref), "n_got": len(got), "n_compared": 0,
@@ -193,7 +344,9 @@ def match_detections(
             if len(same) == 0:
                 raise AssertionError(f"{name}[{i}] class {a[i, 5]:.0f} has no partner")
             box_err = np.abs(same[:, :4] - a[i, :4]).max(1)
-            j = int(box_err.argmin())
+            # among equally near boxes (clipped to the same image edges), the nearest score
+            tied = np.flatnonzero(box_err == box_err.min())
+            j = int(tied[np.abs(same[tied, 4] - a[i, 4]).argmin()])
             score_err = abs(float(same[j, 4] - a[i, 4]))
             if box_err[j] > box_tol or score_err > score_tol:
                 raise AssertionError(

@@ -108,7 +108,12 @@ class Annotator:
         """Pillow's ``polygon_generic`` fill of a closed polygon of integer
         ``vertices``: horizontal edges drawn whole; on each row the other
         edges' float32 crossings, an edge's last row counted twice below the
-        polygon's last, sorted and filled in pairs."""
+        polygon's last, and Pillow's "connect discontiguous corners" step,
+        found from PIL 12.1's output (a whole-pixel crossing shared with an
+        earlier edge of the same slope sign moves out by one pixel past the
+        next row's (on the last row, the previous row's) crossings, rounded
+        half away from zero, when it lies more than a pixel beyond both);
+        sorted and filled in pairs."""
         f32 = np.float32
         edges = []
         ymin, ymax = self.im.shape[0] - 1, 0
@@ -118,13 +123,32 @@ class Annotator:
                 self._hline(min(x0, x1), y0, max(x0, x1), color)
                 continue
             edges.append((min(y0, y1), max(y0, y1), x0, y0, f32(f32(x1 - x0) / f32(y1 - y0))))
-        for y in range(max(ymin, 0), min(ymax, self.im.shape[0]) + 1):
+
+        def cross(e, y):
+            return f32(f32(y - e[3]) * e[4] + f32(e[2]))
+
+        ymin, ymax = max(ymin, 0), min(ymax, self.im.shape[0])
+        for y in range(ymin, ymax + 1):
             xx = []
-            for e0, e1, x0, y0, dx in edges:
-                if e0 <= y <= e1:
-                    xx.append(f32(f32(y - y0) * dx + f32(x0)))
-                    if y == e1 and y < ymax:
-                        xx.append(xx[-1])
+            for i, e in enumerate(edges):
+                e0, e1, _, _, dx = e
+                if not e0 <= y <= e1:
+                    continue
+                xx.append(cross(e, y))
+                if y == e1 and y < ymax:
+                    xx.append(xx[-1])
+                elif dx != 0 and float(xx[-1]).is_integer():
+                    for o in edges[:i]:
+                        if (dx > 0 and o[4] <= 0) or (dx < 0 and o[4] >= 0) or xx[-1] != cross(o, y):
+                            continue
+                        y2 = y - 1 if y == ymax else y + 1
+                        if o[0] <= y2 <= o[1]:
+                            a, b = cross(e, y2), cross(o, y2)
+                            if xx[-1] > a + 1 and xx[-1] > b + 1:
+                                xx[-1] = f32(_round_up(float(max(a, b))) + 1)
+                            elif xx[-1] < a - 1 and xx[-1] < b - 1:
+                                xx[-1] = f32(_round_up(float(min(a, b))) - 1)
+                            break
             xx.sort()
             for a, b in zip(xx[0::2], xx[1::2]):
                 self._hline(_round_up(float(a)), y, _round_down(float(b)), color)

@@ -1,6 +1,6 @@
 """JAX parameter tree <-> the port's state_dict (the port's own copy of
 ``yolov10_3d_tpu/utils/torch_export.py`` ``flax_to_torch_state_dict``, cut
-to the YOLOv10 and YOLOv10-3D families, its inverse
+to the YOLOv10, YOLOv10-3D and YOLOv8 families, its inverse
 ``torch_to_flax_variables`` for the checkpoints both packages read, and
 ``graft_backbone``, the copy of ``utils/torch_convert.py``'s on the port's
 state_dict).
@@ -11,7 +11,10 @@ numpy arrays (or anything ``np.asarray`` takes). A flax path joined with
 ambiguous only for attribute names that contain underscores, which are
 re-merged against ``_ATOMS`` per path segment.
 
-Layouts: kernel (kH, kW, I/g, O) -> weight (O, I/g, kH, kW); BN and GroupNorm
+Layouts: kernel (kH, kW, I/g, O) -> weight (O, I/g, kH, kW) (the same
+transpose takes ``Proto``'s transposed-conv kernel, flax's (kH, kW, O, I)
+under ``transpose_kernel=True``, to torch's (I, O, kH, kW), with no spatial
+flip: ``tests/test_torch_v8_heads.py`` holds ``Proto`` alone to JAX); BN and GroupNorm
 scale/bias -> weight/bias; batch_stats mean/var -> running_mean/running_var, plus
 ``num_batches_tracked``. The DFL decode has no parameters in the port, so no
 ``dfl.conv.weight`` is emitted. The 3D head's one-to-one branches are the
