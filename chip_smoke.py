@@ -20,6 +20,13 @@ Phases, each fatal on failure:
                 twin on their concatenation; the concatenation is timed too.
                 K2 at both of its sites (SPPF.cv1, PSA ffn.0) at B=1, 8 and
                 32, beside torch._int_mm on the same GEMM (a yardstick).
+                The NMS kernel from the boxes (csrc/nms_sweep.cu) at
+                predict's shapes, K 1024 axis-aligned and K 512 rotated at
+                B=1 and 8, bit for bit its twin run on the card (the matrix
+                and JAX's loop), timed; with --parent-root DIR also DIR's
+                route (the matrix in PyTorch, then DIR's one-CTA sweep);
+                ties at the threshold and every row under conf held
+                untimed. The chain's latency floor beside its bound.
                 Each line prints the share of the bound (bound / kernel ms).
   3b. int8-layers - every distinct gated-conv shape of YOLOv10-S's int8 plan
                 at 640x640 on its three routes (K2, K3, int8_conv_f32), at
@@ -165,15 +172,12 @@ Phases, each fatal on failure:
                 decode's share; K1 and the stem once per frame forwarded.
                 On the host: BoT-SORT's optical flow library
                 (native/optical_flow.cc) bit for bit its numpy rule.
-  4i. tasks  - YOLOv8's tasks as users call them: the NMS sweep kernel at
-                predict's shapes (K 512 rotated at B=1 and 8, ties at the
-                threshold, every candidate under conf; K 1024 at B=1 and 8
-                in phase 3) bit for bit its twin; then YOLOv8-S detect, seg,
+  4i. tasks  - YOLOv8's tasks as users call them: YOLOv8-S detect, seg,
                 pose and OBB (``YOLO("yolov8s-<task>.yaml")``, a copy of the
                 YAML under its scaled name, nc 80 or 1 for pose, calibrated
                 to BatchNorm std 0.25)
                 at 640 on 16 painted 720x1280 frames: captured predicts at
-                B=1 and B=8 (K1 and the sweep once a forward) against a CPU
+                B=1 and B=8 (K1 and the NMS kernel once a forward) against a CPU
                 run of the same weights (rows paired by class and box: score
                 1e-4, box 0.1 px, OBB centre and size 0.1 px as the box;
                 keypoints, visibility and OBB angle by index against 0.1
@@ -187,7 +191,8 @@ Phases, each fatal on failure:
                 distances from a float64 run on 4 frames printed; a frame whose CPU
                 run decides an IoU within 1e-5 of 0.7 held to a float64 CPU
                 run); device ms per captured forward at B=1 and 8 split into
-                the model, K1, the NMS and the masks; then ``val`` of each
+                the model, K1, the NMS and the masks, and the NMS stage's
+                peak memory at each B; then ``val`` of each
                 task on a 32-image 240x320 set of its label format at 320,
                 card vs CPU metrics within 1e-4, img/s.
   4c. val3d  - KITTI AP40 validation, YOLOv10("yolov10s_3D.yaml").val(...), on a
@@ -352,19 +357,20 @@ Imports no JAX.
     python3 chip_smoke.py --sweep NAMES [--package-root DIR]
 
 with NAMES a comma-separated subset of stem, k1, int8, k2tiles, group,
-dwtiles, val2d-std05, learn2d-epoch, serve3d-std05, track and serve, runs the card line, the
+dwtiles, val2d-std05, learn2d-epoch, serve3d-std05, track, tasks, nms and serve, runs the card line, the
 build of the named kernels and their timings only
 (the stem and K1 as in phase 3, the int8 convs as in phase 3b and K2 as in
 phase 3, "k2tiles" every tile K2 compiles, "group" phase 3c, "dwtiles" every
 tile of its kernel, "val2d-std05" [val2d] at
 BatchNorm std 0.5, "learn2d-epoch" [learn2d]'s epoch with and without its
 saves, "serve3d-std05" [serve3d]'s std 0.5 check on frames upsampled by
-cv2's rule and the witnesses of its miss, "track" phase 4h, "serve" the device kernels of one float32 request), with the
+cv2's rule and the witnesses of its miss, "track" phase 4h, "tasks" phase 4i, "nms" phase 3's NMS, "serve" the device kernels of one float32 request), with the
 ``yolov10_3d_torch``
 package found under DIR (default: this checkout), so that two checkouts'
 kernels can be timed in one call on one card. ``--parent-root DIR``, with or
-without --sweep, adds to [int8-group] the grouped route of the checkout
-under DIR, built from its source and timed on the same inputs.
+without --sweep, adds to [int8-group] the grouped route and to [kernels]'
+NMS the matrix-and-sweep route of the checkout under DIR, built from its
+source and timed on the same inputs.
 """
 
 from __future__ import annotations
@@ -429,8 +435,9 @@ KERNELS = {
     "stem_conv": {"route": "cuda", "source": "yolov10_3d_torch/csrc/stem_conv.cu",
                   "replaces": "tools/exp_pallas_stem.py:94; tools/exp_pallas_stem2.py:130"},
     "nms_sweep": {"route": "cuda", "source": "yolov10_3d_torch/csrc/nms_sweep.cu",
-                  "replaces": "yolov10_3d_tpu/ops/nms.py:20 (XLA fori_loop nms_fixed, and the "
-                              "rotated sweep of engine/validator_tasks.py:189-199; no TPU kernel)"},
+                  "replaces": "yolov10_3d_tpu/ops/nms.py:20 (XLA box_iou_pairwise matrix and "
+                              "fori_loop nms_fixed, and the probiou matrix and sweep of "
+                              "engine/validator_tasks.py:189-199; no TPU kernel)"},
 }
 SERVING_KERNELS = ("decode_detect", "int8_mm_fused", "int8_conv3x3_fused", "int8_conv_f32",
                    "stem_conv")
@@ -899,7 +906,7 @@ def check_stem_extremes() -> None:
           f"and bf16): bit-exact vs twin")
 
 
-def phase_kernels():
+def phase_kernels(nms_parent=None):
     stem = (check_stem(1, IMGSZ, IMGSZ), check_stem(32, IMGSZ, IMGSZ))
     check_stem(1, *KITTI_HW)  # YOLOv10-S-3D's stem at the KITTI size
     check_stem(32, IMGSZ, IMGSZ, bf16=True)  # the TPU kernel's dtype contract
@@ -926,7 +933,7 @@ def phase_kernels():
         "int8_act_absmax": (check_absmax(1), check_absmax(32)),
         "hsv_jitter": (check_k4(1), check_k4(16)),
         "stem_conv": stem,
-        "nms_sweep": (check_nms_sweep(1), check_nms_sweep(8)),
+        "nms_sweep": nms_kernels(nms_parent),
     }
 
 
@@ -3208,42 +3215,92 @@ MASK_BAND = 5e-3
 NMS_K = {"iou": 1024, "rotated": 512}  # predict's candidates: 1024 axis-aligned, 512 rotated
 
 
-def sweep_case(B: int, K: int, kind: str, seed: int = 0):
-    """The matrix and conf mask of a sweep at predict's shapes: "iou" the
-    pairwise IoU of K conf-sorted class-offset boxes (as ``non_max_suppression``
-    builds it), "rotated" a probiou matrix masked by label and conf (as
-    ``rotated_nms``), "ties" IoUs on a 1/8 grid (swept at 0.5, a grid
-    value: ties at the threshold), "under" every candidate under conf."""
-    import torch
+NMS_WH = 7680.0  # ops/nms.py's class offset; rows under conf move to -100 * NMS_WH
+# float operations of one pairwise term: box_iou_pairwise's min 2, max 2, sub 2,
+# clamp 2, mul 1, add-sub-add 3, divide 1, compare 1; probiou's (ops/boxes.py)
+# 3 sums, den 3, dx dy 2, den + eps 1, t1 7, t2 5, t3 8 (sqrt, log), bd 4, hd 6
+# (exp, sqrt), compare 1, and the label and ok masks 3
+NMS_OPS = {"iou": 15, "rotated": 43}
+# the chain's latency floor a candidate: its bit test and its OR, two dependent
+# integer ops of about 4 cycles, and a word's shuffle, about 30 cycles, at the
+# H100 SXM's 1.98 GHz boost clock
+CHAIN_CYCLES, WORD_CYCLES, SM_HZ = 8, 30, 1.98e9
 
-    from yolov10_3d_torch.ops.boxes import box_iou_pairwise, probiou
+
+def nms_case(B: int, K: int, kind: str, seed: int = 0) -> tuple:
+    """One NMS input on the card at predict's shapes, as ``ops/nms.py`` hands
+    it to the kernel: "iou" class-offset xyxy boxes of 80 classes with a
+    tenth of the rows under conf (at -100 * NMS_WH) and conf_ok; "ties"
+    integer boxes whose IoUs hit 0.5 exactly; "under" every row under conf;
+    "rotated" xywhr boxes, labels of 15 classes and ok. Returns the entry's
+    arguments but the threshold."""
+    import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     r = lambda *s: torch.rand(s, generator=g, device="cuda")  # noqa: E731
     ok = r(B, K) < (0.0 if kind == "under" else 0.9)
     if kind == "rotated":
         rb = torch.cat([r(B, K, 2) * 640, 8 + r(B, K, 2) * 120, (r(B, K, 1) - 0.25) * math.pi], -1)
-        lab = (r(B, K) * 15).long()
-        m = probiou(rb[:, :, None], rb[:, None])
-        m = torch.where(lab[:, :, None] == lab[:, None], m, 0.0)
-        m = torch.where(ok[:, None] & ok[:, :, None], m, 0.0)
-    elif kind == "ties":
-        m = (r(B, K, K) * 9).floor() / 8
+        return rb.contiguous(), (r(B, K) * 15).long(), ok
+    if kind == "ties":
+        xy, wh = (r(B, K, 2) * 12).floor(), 1 + (r(B, K, 2) * 4).floor()
+        boxes, ok = torch.cat([xy, xy + wh], -1), torch.ones_like(ok)
     else:
         xy, wh = r(B, K, 2) * 600, 8 + r(B, K, 2) * 150
-        boxes = torch.cat([xy, xy + wh], -1) + (r(B, K, 1) * 80).floor() * 7680
-        m = box_iou_pairwise(boxes, boxes)
-    return m.contiguous(), ok
+        boxes = torch.cat([xy, xy + wh], -1) + (r(B, K, 1) * 80).floor() * NMS_WH
+    return torch.where(ok[..., None], boxes, -NMS_WH * 100).contiguous(), ok
 
 
-def check_nms_sweep(B: int, kind: str = "iou", timed: bool = True) -> dict:
-    """The sweep at predict's K (1024 axis-aligned, 512 rotated): bit for bit
-    its twin (JAX's loop in PyTorch, here on the card), device ms of the
-    kernel and of the twin (CUDA graph replay over buffers larger than L2
-    in all), the bound: the function needs the entries above the diagonal
-    (only j > i is compared), K (K - 1) / 2 floats an image read once, and
-    conf_ok and keep, a byte each a candidate; one compare a pair. With
-    ``timed`` False, the comparison alone."""
+class ParentSweep:
+    """The parent checkout's NMS route (``--parent-root DIR``): the (B, K, K)
+    matrix in plain PyTorch (``box_iou_pairwise``, or probiou masked by label
+    and ok), then DIR's one-CTA sweep kernel, built here from DIR's
+    csrc/nms_sweep.cu (C signature nms_sweep_f32)."""
+
+    def __init__(self, root: Path, tmp: Path):
+        import ctypes
+
+        from yolov10_3d_torch.kernels import _build
+
+        src = root / "yolov10_3d_torch" / "csrc" / "nms_sweep.cu"
+        lib = tmp / "libparent_nms_sweep.so"
+        t0 = time.perf_counter()
+        subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(src)], check=True,
+                       capture_output=True, text=True, timeout=600)
+        print(f"[nms] the parent's route: {src} built in {time.perf_counter() - t0:.1f} s")
+        self.fn = ctypes.CDLL(str(lib)).nms_sweep_f32
+        p, i = ctypes.c_void_p, ctypes.c_int
+        self.fn.argtypes = [p, ctypes.c_float, p, p, i, i, p]
+        self.fn.restype = i
+
+    def __call__(self, kind: str, args: tuple, thr: float):
+        import torch
+
+        from yolov10_3d_torch.kernels import nms as KN
+
+        if kind == "rotated":
+            m, ok = KN.rotated_matrix(*args).contiguous(), args[2]
+        else:
+            m, ok = KN.box_iou_pairwise(args[0], args[0]).contiguous(), args[1]
+        B, K = ok.shape
+        keep = torch.empty((B, K), dtype=torch.bool, device=ok.device)
+        err = self.fn(m.data_ptr(), float(thr), ok.data_ptr(), keep.data_ptr(), B, K,
+                      torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"the parent's nms_sweep_f32 failed: cudaError {err}")
+        return keep
+
+
+def check_nms_sweep(B: int, kind: str = "iou", timed: bool = True, parent=None) -> dict:
+    """The NMS kernel at predict's K (1024 axis-aligned, 512 rotated) from
+    the boxes: bit for bit its twin run on the card (the matrix, then JAX's
+    loop); with ``timed``, device ms (CUDA graph replay over as many inputs
+    as put the parent route's matrices above twice the L2 cache) of the
+    entry, of the twin, and with ``parent`` of the parent's route (the matrix in PyTorch, then its
+    one-CTA sweep; bit for bit too). The bound: bytes of the entry's inputs
+    and keep, operations of the pairs i < j whose row i is kept (the only
+    ones the greedy rule reads; rotated: of one label, both ok); beside it
+    the chain's latency floor."""
     import torch
 
     from yolov10_3d_torch.kernels import nms as KN
@@ -3251,34 +3308,77 @@ def check_nms_sweep(B: int, kind: str = "iou", timed: bool = True) -> dict:
     K = NMS_K.get(kind, 1024)
     thr = 0.5 if kind == "ties" else 0.7
     n_buf = -(-L2_COLD_BYTES // (B * K * K * 4)) if timed else 1
-    cases = [sweep_case(B, K, kind, seed) for seed in range(n_buf)]
-    got = KN.nms_sweep_cuda(cases[0][0], thr, cases[0][1])
-    want = KN.nms_sweep_torch(cases[0][0], thr, cases[0][1])
+    cases = [nms_case(B, K, kind, seed) for seed in range(n_buf)]
+    rot = kind == "rotated"
+    entry = (lambda c: KN.nms_rotated_cuda(c[0], c[1], thr, c[2])) if rot \
+        else (lambda c: KN.nms_iou_cuda(c[0], thr, c[1]))  # noqa: E731
+    twin = (lambda c: KN.nms_rotated_torch(c[0], c[1], thr, c[2])) if rot \
+        else (lambda c: KN.nms_iou_torch(c[0], thr, c[1]))  # noqa: E731
+    got, want = entry(cases[0]), twin(cases[0])
+    held = {"twin": want}
+    if parent is not None:
+        held["parent"] = parent(kind, cases[0], thr)
     torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"nms_sweep B={B} {kind}: {int((got != want).sum())} of "
-                             f"{got.numel()} keep flags differ from the twin")
-    if kind == "ties" and not bool((cases[0][0] == thr).any()):
-        raise AssertionError("nms_sweep ties: no entry equals the threshold")
+    for name, ref in held.items():
+        if not torch.equal(got, ref):
+            raise AssertionError(f"nms_sweep B={B} {kind}: {int((got != ref).sum())} of "
+                                 f"{got.numel()} keep flags differ from the {name}")
+    if kind == "ties" and not bool((KN.box_iou_pairwise(cases[0][0], cases[0][0]) == thr).any()):
+        raise AssertionError("nms_sweep ties: no IoU equals the threshold")
     if not timed:
-        print(f"[nms] B={B} K={K} {kind} at {thr}: bit for bit the twin ({int(got.sum())} kept)")
+        print(f"[nms] B={B} K={K} {kind} at {thr}: bit for bit the twin"
+              f"{' and the parent' if parent else ''} ({int(got.sum())} kept)")
         return {}
-    ms = time_device([lambda c=c: KN.nms_sweep_cuda(c[0], thr, c[1]) for c in cases])
-    plain_ms = time_device([lambda: KN.nms_sweep_torch(cases[0][0], thr, cases[0][1])], 3)
-    call_ms = time_cuda(lambda: KN.nms_sweep_cuda(cases[0][0], thr, cases[0][1]), 50)
-    pairs = B * K * (K - 1) // 2
-    nbytes = pairs * 4 + 2 * B * K
+    ms = time_device([lambda c=c: entry(c) for c in cases])
+    parent_ms = (time_device([lambda c=c: parent(kind, c, thr) for c in cases]) if parent
+                 else None)
+    plain_ms = time_device([lambda: twin(cases[0])], 3)
+    call_ms = time_cuda(lambda: entry(cases[0]), 50)
+    # the pairs the greedy rule reads: i < j with i kept (before conf)
+    if rot:
+        m = KN.rotated_matrix(*cases[0])
+        live = (cases[0][1][:, :, None] == cases[0][1][:, None, :]) & (
+            cases[0][2][:, :, None] & cases[0][2][:, None, :])
+        kept = KN.nms_sweep_torch(m, thr, torch.ones_like(cases[0][2]))
+        nbytes = B * K * (20 + 8 + 1 + 1)
+    else:
+        m = KN.box_iou_pairwise(cases[0][0], cases[0][0])
+        live = torch.ones_like(m, dtype=torch.bool)
+        kept = KN.nms_sweep_torch(m, thr, torch.ones_like(cases[0][1]))
+        nbytes = B * K * (16 + 1 + 1)
+    later = torch.ones((K, K), dtype=torch.bool, device="cuda").triu(1)
+    pairs = int((kept[:, :, None] & later & live).sum())
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = pairs / F32_FLOPS_PER_S * 1e3  # one compare a pair
-    r = {"shape": [B, K, K], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+    t_ops = pairs * NMS_OPS["rotated" if rot else "iou"] / F32_FLOPS_PER_S * 1e3
+    chain_ms = (CHAIN_CYCLES * K + WORD_CYCLES * -(-K // 32)) / SM_HZ * 1e3
+    r = {"shape": [B, K, 8 if rot else 4], "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
          "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-         "library_ms": None, "eager_call_ms": call_ms, "kept": int(got.sum())}
-    print(f"[nms] B={B} K={K} {kind} at {thr}: bit for bit the twin ({r['kept']} kept) | kernel "
-          f"{ms:.4f} ms (device, graph replay, {n_buf} buffers) | bound {r['bound_ms']:.4f} ms "
-          f"({r['bound_by']}, {nbytes / 1e6:.2f} MB above the diagonal), share {r['bound_ms'] / ms:.3f} | twin "
-          f"{plain_ms:.3f} ms ({K} steps) | eager call {call_ms:.4f} ms | library_ms: null (no "
-          f"single PyTorch call computes a greedy sweep)")
+         "library_ms": None, "eager_call_ms": call_ms, "kept": int(got.sum()),
+         "chain_floor_ms": chain_ms, "parent_ms": parent_ms}
+    print(f"[nms] B={B} K={K} {kind} at {thr}: bit for bit the twin"
+          f"{' and the parent' if parent else ''} ({r['kept']} kept) | kernel {ms:.4f} ms "
+          f"(device, graph replay, {n_buf} inputs) | parent route (matrix + one-CTA sweep) "
+          + (f"{parent_ms:.4f} ms, {parent_ms / ms:.2f}x" if parent
+             else "not measured (no --parent-root)")
+          + f" | bound {r['bound_ms']:.5f} ms ({r['bound_by']}: {nbytes / 1e3:.1f} kB, {pairs} "
+          f"pairs with a kept row), share {r['bound_ms'] / ms:.3f}; chain floor {chain_ms:.4f} ms "
+          f"({K} dependent bit steps), share {chain_ms / ms:.3f} | twin {plain_ms:.3f} ms ({K} "
+          f"steps) | eager call {call_ms:.4f} ms | library_ms: null (no single PyTorch call "
+          f"computes a greedy NMS)")
     return r
+
+
+def nms_kernels(parent=None) -> tuple:
+    """[kernels]' NMS: both entries timed at predict's shapes, K 1024
+    axis-aligned and K 512 rotated at B=1 and 8 (beside ``parent``'s route
+    when given), then ties at the threshold and every row under conf held
+    untimed. Returns the axis-aligned B=1 and B=8 figures."""
+    out = tuple(check_nms_sweep(B, "iou", parent=parent) for B in (1, 8))
+    for B in (1, 8):
+        check_nms_sweep(B, "rotated", parent=parent)
+    for kind in ("ties", "under"):
+        check_nms_sweep(2, kind, timed=False, parent=parent)
+    return out
 
 
 def task_rows(task: str, r):
@@ -3516,17 +3616,23 @@ def scaled_yaml(tmp: Path, name: str) -> Path:
 
 def task_split(pred, x, max_det: int) -> dict:
     """Device ms of one forward's stages on ``x``, the Predictor's own: the
-    model, ``decode`` (K1), ``nms`` (matrix and sweep; OBB: the rotated one)
-    and ``rows`` (segment: the masks), each a graph replay on the previous
-    stage's outputs."""
+    model, ``decode`` (K1), ``nms`` (pre-top-k, the NMS kernel, the
+    compaction; OBB: the rotated one) and ``rows`` (segment: the masks),
+    each a graph replay on the previous stage's outputs; and the NMS
+    stage's peak device memory above what was allocated before it (MiB)."""
     import torch
 
     hw = tuple(x.shape[-2:])
     with torch.inference_mode():
         out = pred.model(x)
         preds = pred.decode(out)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         res = pred.nms(out, preds, max_det)
-        return {"model": time_device([lambda: pred.model(x)], 10),
+        torch.cuda.synchronize()
+        nms_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+        return {"nms_mib": nms_mib, "model": time_device([lambda: pred.model(x)], 10),
                 "k1": time_device([lambda: pred.decode(out)], 10),
                 "nms": time_device([lambda: pred.nms(out, preds, max_det)], 10),
                 "rows": time_device([lambda: pred.rows(out, res, hw)], 10)}
@@ -3705,6 +3811,8 @@ def tasks_hold(ctx: dict, frames, card: str) -> list:
         "[tasks] " + task + " device ms per forward (" + card + "): " + "; ".join(
             f"B={b} captured {s['captured']:.3f} = model {s['model']:.3f} + K1 {s['k1']:.4f} + "
             f"NMS {s['nms']:.4f} + rows {s['rows']:.4f}" + (" (the masks)" if seg else "")
+            + f", the NMS stage's peak memory +{s['nms_mib']:.2f} MiB (one (B, K, K) float32 "
+            f"matrix: {b * NMS_K['rotated' if task == 'obb' else 'iou'] ** 2 * 4 / 2**20:.0f} MiB)"
             for b, s in split.items())]
 
 
@@ -3776,8 +3884,6 @@ def phase_tasks(card: str) -> dict:
         with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
             ctxs = [tasks_card(task, name, Path(tmp), frames, kw, pool, counts)
                     for task, name in TASKS_MODELS.items()]
-            for B, kind in ((1, "rotated"), (8, "rotated"), (2, "ties"), (2, "under")):
-                check_nms_sweep(B, kind, timed=kind == "rotated")  # K 1024 iou: [kernels]
             t_card = time.perf_counter() - t_phase
             held = [tasks_hold(ctx, frames, card) for ctx in ctxs]
             for ctx, (rows, ms) in zip(ctxs, held):  # the CPU is idle from here on
@@ -3790,7 +3896,7 @@ def phase_tasks(card: str) -> dict:
         print(ln)
     forwards = len(TASKS_MODELS) * (7 + TASKS_VAL // 16)
     print(f"[tasks] launches {counts} for {forwards} forwards; the card's side of every model "
-          f"and the sweep's cases done at {t_card:.1f} s; phase "
+          f"done at {t_card:.1f} s; phase "
           f"{time.perf_counter() - t_phase:.1f} s")
     return {k: counts.get(k, 0) for k in KERNELS}
 
@@ -6630,12 +6736,13 @@ SWEEPS = {"int8": "int8_conv", "k2tiles": "int8_conv", "group": "int8_group_conv
           "dwtiles": "int8_group_conv",
           "stem": "stem_conv",
           "k1": "decode_detect", "val2d-std05": "decode_detect", "learn2d-epoch": "decode_detect",
-          "serve3d-std05": "stem_conv", "track": "decode_detect", "tasks": "nms_sweep"}
+          "serve3d-std05": "stem_conv", "track": "decode_detect", "tasks": "nms_sweep",
+          "nms": "nms_sweep"}
 
 
 def parent_root(argv):
     """``--parent-root DIR``: a checkout whose grouped route [int8-group]
-    times beside this one's, or None."""
+    and whose NMS route [kernels] time beside this one's, or None."""
     return Path(argv[argv.index("--parent-root") + 1]).resolve() if "--parent-root" in argv \
         else None
 
@@ -6652,7 +6759,8 @@ def sweep_only(argv) -> int:
     640x640, B=1 and 32, beside cuDNN), k1 (B=1 and
     32), val2d-std05 (``val2d_std05_witness``), learn2d-epoch
     (``learn2d_epoch_sweep``), serve3d-std05 (``serve3d_std05_witness``),
-    track (phase 4h alone) and tasks (phase 4i alone),
+    track (phase 4h alone), tasks (phase 4i alone) and nms ([kernels]'
+    NMS alone; with ``--parent-root DIR`` beside DIR's matrix and sweep),
     so that two checkouts' kernels are timed in one call on one card;
     "serve" adds the device kernels of one float32 request (which builds
     every source)."""
@@ -6692,6 +6800,10 @@ def sweep_only(argv) -> int:
     if "track" in names:
         phase_build(["stem_conv"])
         phase_track(card)
+    if "nms" in names:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = parent_root(argv)
+            nms_kernels(ParentSweep(root, Path(tmp)) if root else None)
     if "tasks" in names:
         phase_build(["decode_detect"])
         phase_tasks(card)
@@ -6731,7 +6843,9 @@ def main() -> int:
         print(f"[time] {phase} done at {time.perf_counter() - t0:.1f} s")
 
     phase_build()
-    kern = phase_kernels()
+    with tempfile.TemporaryDirectory() as tmp:
+        root = parent_root(sys.argv)
+        kern = phase_kernels(ParentSweep(root, Path(tmp)) if root else None)
     done("build, kernels")
     sweep = phase_int8_layers(card)
     phase_group_kernel(card, parent_root(sys.argv))

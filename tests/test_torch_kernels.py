@@ -687,36 +687,90 @@ def test_stem_conv_checks_inputs(cuda_device):
         KS.stem_conv_cuda(x, w.cpu(), b)
 
 
-def _sweep_case(seed: int, B: int, K: int, device, kind: str):
-    """A pairwise matrix of K sorted candidates and its conf mask: "iou" a
-    real IoU matrix of random boxes (ties: duplicated boxes), "rotated" a
-    masked probiou-like matrix with exact zeros, "grid" values on a 1/8 grid
-    (ties at the threshold), "under" every candidate under conf."""
+MAX_WH = 7680.0  # ops/nms.py's class offset; rows under conf move to -100 * MAX_WH
+
+
+def _iou_case(seed: int, B: int, K: int, kind: str):
+    """Class-offset xyxy boxes (B, K, 4) and conf_ok as ``non_max_suppression``
+    hands them to the kernel, on the CPU: "rand" 80 classes, a tenth of the
+    rows under conf (at -100 * MAX_WH, zero area) and exact duplicates;
+    "grid" integer boxes, IoUs on a grid (ties at 0.5); "under" every row
+    under conf; "heavy" one box jittered by a pixel (the longest chains);
+    "stairs" boxes a pixel apart, each kept one removing the next; "apart"
+    no two overlap; "nan" random boxes with NaN coordinates."""
     g = torch.Generator().manual_seed(seed)
-    if kind == "iou":
-        from yolov10_3d_torch.ops.boxes import box_iou_pairwise
-        xy = torch.rand((B, K, 2), generator=g) * 200
-        wh = 5 + torch.rand((B, K, 2), generator=g) * 60
-        boxes = torch.cat([xy, xy + wh], -1)
-        boxes[:, 1::7] = boxes[:, 0::7][:, : boxes[:, 1::7].shape[1]]  # exact duplicates
-        m = box_iou_pairwise(boxes, boxes)
-    elif kind == "grid":
-        m = torch.randint(0, 9, (B, K, K), generator=g).float() / 8
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    ok = u(B, K) < 0.9
+    if kind == "grid":
+        xy, wh = (u(B, K, 2) * 12).floor(), 1 + (u(B, K, 2) * 4).floor()
+    elif kind == "heavy":
+        xy, wh = 100 + (u(B, K, 2) * 2).floor(), 40 + (u(B, K, 2) * 2).floor()
+    elif kind == "stairs":
+        xy = torch.stack([torch.arange(K).float().expand(B, K), torch.zeros(B, K)], -1)
+        wh = torch.full((B, K, 2), 10.0)
+    elif kind == "apart":
+        xy = torch.stack([torch.arange(K).float() * 20, torch.zeros(K)], -1).expand(B, K, 2)
+        wh = 5 + u(B, K, 2) * 10
     else:
-        m = torch.rand((B, K, K), generator=g)
-        m = m * (torch.rand((B, K, K), generator=g) < 0.3)
-    ok = torch.rand((B, K), generator=g) < (0.0 if kind == "under" else 0.9)
-    return m.contiguous().to(device), ok.to(device)
+        xy, wh = u(B, K, 2) * 600, 8 + u(B, K, 2) * 150
+    boxes = torch.cat([xy, xy + wh], -1)
+    if kind == "rand":
+        boxes[:, 1::7] = boxes[:, 0::7][:, : boxes[:, 1::7].shape[1]]  # exact duplicates
+        boxes = boxes + (u(B, K, 1) * 80).floor() * MAX_WH
+    if kind == "nan":
+        boxes[:, 3::11, 1] = float("nan")
+        boxes[:, 5::13, 2] = float("nan")
+    if kind in ("grid", "heavy", "stairs", "apart", "nan"):
+        ok = torch.ones((B, K), dtype=torch.bool)
+    if kind == "under":
+        ok = torch.zeros((B, K), dtype=torch.bool)
+    boxes = torch.where(ok[..., None], boxes, -MAX_WH * 100)
+    return boxes.contiguous(), ok
+
+
+def _rot_case(seed: int, B: int, K: int, kind: str):
+    """xywhr boxes (B, K, 5), labels and ok as ``rotated_nms`` hands them to
+    the kernel: "rand" 15 labels, a tenth of the rows failing ok; "labels"
+    every row its own label (every term 0, swept at a negative threshold);
+    "heavy" one label, one box jittered (long chains); "nan" NaN angles."""
+    g = torch.Generator().manual_seed(seed)
+    u = lambda *s: torch.rand(s, generator=g)  # noqa: E731
+    if kind == "heavy":
+        rb = torch.cat([200 + u(B, K, 2) * 3, 60 + u(B, K, 2) * 4, 0.3 + u(B, K, 1) * 0.1], -1)
+    else:
+        rb = torch.cat([u(B, K, 2) * 640, 8 + u(B, K, 2) * 120, (u(B, K, 1) - 0.25) * math.pi],
+                       -1)
+    labels = (u(B, K) * 15).long()
+    if kind == "labels":
+        labels = torch.arange(K).expand(B, K).contiguous()
+    if kind == "heavy":
+        labels = torch.zeros((B, K), dtype=torch.long)
+    if kind == "nan":
+        rb[:, 2::9, 4] = float("nan")
+    ok = u(B, K) < 0.9
+    return rb.contiguous(), labels, ok
 
 
 def test_nms_sweep_refuses_cpu_tensors():
-    """The sweep's wrapper takes CUDA tensors only; the dispatcher runs the
-    twin for CPU tensors, launching nothing."""
-    m, ok = _sweep_case(0, 2, 40, "cpu", "iou")
+    """The axis-aligned entry's wrapper takes CUDA tensors only; the
+    dispatcher runs the twin for CPU tensors, launching nothing."""
+    boxes, ok = _iou_case(0, 2, 40, "rand")
     with pytest.raises(ValueError, match="CUDA"):
-        KN.nms_sweep_cuda(m, 0.7, ok)
+        KN.nms_iou_cuda(boxes, 0.7, ok)
     before = launch_counts["nms_sweep"]
-    keep = KN.nms_sweep(m, 0.7, ok)
+    keep = KN.nms_iou(boxes, 0.7, ok)
+    assert keep.dtype == torch.bool and keep.shape == (2, 40)
+    assert launch_counts["nms_sweep"] == before
+    assert not (keep & ~ok).any()
+
+
+def test_nms_rotated_refuses_cpu_tensors():
+    """The same for the rotated entry."""
+    rb, labels, ok = _rot_case(0, 2, 40, "rand")
+    with pytest.raises(ValueError, match="CUDA"):
+        KN.nms_rotated_cuda(rb, labels, 0.7, ok)
+    before = launch_counts["nms_sweep"]
+    keep = KN.nms_rotated(rb, labels, 0.7, ok)
     assert keep.dtype == torch.bool and keep.shape == (2, 40)
     assert launch_counts["nms_sweep"] == before
     assert not (keep & ~ok).any()
@@ -724,31 +778,63 @@ def test_nms_sweep_refuses_cpu_tensors():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,K,kind,thr", [
-    (1, 1024, "iou", 0.7), (8, 1024, "iou", 0.7), (1, 512, "rotated", 0.7),
-    (8, 512, "rotated", 0.7), (3, 77, "grid", 0.5), (2, 1024, "grid", 0.375),
-    (2, 1000, "under", 0.7), (1, 1, "iou", 0.7), (4, 33, "rotated", -1.0)])
+    (1, 1024, "rand", 0.7), (8, 1024, "rand", 0.7), (1, 1, "rand", 0.7), (2, 31, "rand", 0.7),
+    (2, 32, "rand", 0.7), (2, 33, "rand", 0.7), (3, 1000, "rand", 0.45), (2, 300, "grid", 0.5),
+    (2, 1024, "under", 0.7), (2, 1024, "heavy", 0.7), (2, 1024, "stairs", 0.7),
+    (2, 1024, "apart", 0.7), (2, 200, "nan", 0.3), (2, 100, "rand", -1.0)])
 def test_nms_sweep_matches_twin(cuda_device, B, K, kind, thr):
-    """Bit for bit the twin (the JAX loop): the predict shapes (1024
-    axis-aligned, 512 rotated) at B=1 and 8, ties at the threshold, every
-    candidate under conf, a single candidate, and odd K."""
-    m, ok = _sweep_case(K + B, B, K, cuda_device, kind)
+    """Bit for bit the twin run on the card (box_iou_pairwise, then JAX's
+    loop): predict's K 1024 at B=1 and 8, K around a word, ties at the
+    threshold, every row under conf (zero-area rows at a negative threshold
+    too), the longest chains, no overlap and NaN boxes."""
+    boxes, ok = _iou_case(K + B, B, K, kind)
+    boxes, ok = boxes.to(cuda_device), ok.to(cuda_device)
+    if kind == "grid":
+        assert bool((KN.box_iou_pairwise(boxes, boxes) == thr).any())  # ties
     before = launch_counts["nms_sweep"]
-    got = KN.nms_sweep_cuda(m, thr, ok)
+    got = KN.nms_iou_cuda(boxes, thr, ok)
     torch.cuda.synchronize()
     assert launch_counts["nms_sweep"] == before + 1
-    want = KN.nms_sweep_torch(m.cpu(), thr, ok.cpu())
-    assert torch.equal(got.cpu(), want), int((got.cpu() != want).sum())
+    want = KN.nms_iou_torch(boxes, thr, ok)
+    assert torch.equal(got, want), int((got != want).sum())
+    if kind == "stairs":
+        assert int(got.sum()) == B * ((K + 1) // 2)  # every other box
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,K,kind,thr", [
+    (1, 512, "rand", 0.7), (8, 512, "rand", 0.7), (2, 1, "rand", 0.7), (2, 33, "rand", 0.7),
+    (2, 1000, "rand", 0.3), (2, 64, "labels", -1.0), (2, 512, "heavy", 0.7),
+    (2, 100, "nan", 0.5), (4, 33, "rand", -1.0)])
+def test_nms_rotated_matches_twin(cuda_device, B, K, kind, thr):
+    """Bit for bit the twin run on the card (masked probiou, then JAX's
+    loop; the CPU's log and exp differ from the card's): predict's K 512 at
+    B=1 and 8, odd K, terms of 0 where labels differ, long chains, NaN."""
+    rb, labels, ok = (t.to(cuda_device) for t in _rot_case(K + B, B, K, kind))
+    before = launch_counts["nms_sweep"]
+    got = KN.nms_rotated_cuda(rb, labels, thr, ok)
+    torch.cuda.synchronize()
+    assert launch_counts["nms_sweep"] == before + 1
+    want = KN.nms_rotated_torch(rb, labels, thr, ok)
+    assert torch.equal(got, want), int((got != want).sum())
 
 
 @pytest.mark.cuda
 def test_nms_sweep_checks_inputs(cuda_device):
-    m, ok = _sweep_case(1, 2, 16, cuda_device, "iou")
+    boxes, ok = (t.to(cuda_device) for t in _iou_case(1, 2, 16, "rand"))
     with pytest.raises(TypeError):
-        KN.nms_sweep_cuda(m.double(), 0.7, ok)
+        KN.nms_iou_cuda(boxes.double(), 0.7, ok)
     with pytest.raises(ValueError, match="contiguous"):
-        KN.nms_sweep_cuda(m.transpose(1, 2), 0.7, ok)
+        KN.nms_iou_cuda(boxes.transpose(0, 1).contiguous().transpose(0, 1), 0.7, ok)
     with pytest.raises(ValueError, match="K="):
-        big = torch.zeros((1, 1025, 1025), device=cuda_device)
-        KN.nms_sweep_cuda(big, 0.7, torch.ones((1, 1025), dtype=torch.bool, device=cuda_device))
-    with pytest.raises(ValueError, match="conf_ok"):
-        KN.nms_sweep_cuda(m, 0.7, ok[:, :8].contiguous())
+        KN.nms_iou_cuda(torch.zeros((1, 1025, 4), device=cuda_device), 0.7,
+                        torch.ones((1, 1025), dtype=torch.bool, device=cuda_device))
+    with pytest.raises(ValueError, match="mask"):
+        KN.nms_iou_cuda(boxes, 0.7, ok[:, :8].contiguous())
+    with pytest.raises(ValueError, match="aligned"):
+        KN.nms_iou_cuda(torch.zeros(2 * 16 * 4 + 1, device=cuda_device)[1:].view(2, 16, 4), 0.7, ok)
+    rb, labels, ok = (t.to(cuda_device) for t in _rot_case(1, 2, 16, "rand"))
+    with pytest.raises(ValueError, match=r"\(B, K, 5\)"):
+        KN.nms_rotated_cuda(rb[..., :4].contiguous(), labels, 0.7, ok)
+    with pytest.raises(ValueError, match="labels"):
+        KN.nms_rotated_cuda(rb, labels[:, :8], 0.7, ok)

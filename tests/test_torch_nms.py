@@ -17,6 +17,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from _torch_threads import torch_threads  # noqa: F401  (autouse)
@@ -25,6 +26,7 @@ from yolov10_3d_tpu.ops import boxes as JB
 from yolov10_3d_tpu.ops import nms as JN
 from yolov10_3d_tpu.ops import postprocess as JP
 from yolov10_3d_torch.engine.validator_tasks import OBBValidator
+from yolov10_3d_torch.kernels import nms as KN
 from yolov10_3d_torch.ops import boxes as B
 from yolov10_3d_torch.ops import nms as N
 from yolov10_3d_torch.ops import postprocess as P
@@ -113,6 +115,50 @@ def test_rotated_nms_matches_jax_obb_validator():
         _eq(want[2], got[2])
         np.testing.assert_allclose(np.asarray(want[0]), got[0].numpy(), atol=1e-4, rtol=0)
         np.testing.assert_allclose(np.asarray(want[1]), got[1].numpy(), atol=1e-6, rtol=0)
+
+
+def _jax_rot_sweep(rb, lb, ok, iou):
+    """The OBB validator's rotated sweep of one image (``rot_nms`` in
+    ``engine/validator_tasks.py``, local to its forward), written out."""
+    k = rb.shape[0]
+    pair = JB.probiou(rb[:, None, :], rb[None, :, :])
+    pair = jnp.where(lb[:, None] == lb[None, :], pair, 0.0)
+    pair = jnp.where(ok[None, :] & ok[:, None], pair, 0.0)
+
+    def body(i, keepm):
+        row = (pair[i] > iou) & (jnp.arange(k) > i) & keepm[i]
+        return keepm & ~row
+
+    return jax.lax.fori_loop(0, k, body, jnp.ones(k, bool)) & ok
+
+
+@pytest.mark.parametrize("entry", ["iou", "rotated"])
+def test_nms_twin_entries_match_jax(entry):
+    """The NMS kernel's twins from the boxes (``kernels/nms.py``), image by
+    image, against JAX's sweeps on the same numpy inputs: ``nms_fixed``
+    (pixel-grid boxes: IoU ties at 0.5, duplicates) and the OBB validator's
+    rotated sweep (3 labels, a fifth of the rows failing ok)."""
+    rng = np.random.default_rng(9)
+    if entry == "iou":
+        xy = np.round(rng.uniform(0, 60, (2, 150, 2)))
+        boxes = np.concatenate([xy, xy + np.round(rng.uniform(2, 20, (2, 150, 2)))],
+                               -1).astype(np.float32)
+        boxes[:, 1::6] = boxes[:, ::6][:, : boxes[:, 1::6].shape[1]]
+        got = KN.nms_iou(torch.from_numpy(boxes), 0.5, torch.ones((2, 150), dtype=torch.bool))
+        fn = jax.jit(lambda b: JN.nms_fixed(b, jnp.zeros(b.shape[0]), 0.5))
+        want = np.stack([np.asarray(fn(jnp.asarray(b))) for b in boxes])
+    else:
+        rb = np.concatenate([rng.uniform(0, 100, (2, 150, 2)), rng.uniform(4, 40, (2, 150, 2)),
+                             rng.uniform(-1.5, 1.5, (2, 150, 1))], -1).astype(np.float32)
+        lb = rng.integers(0, 3, (2, 150))
+        ok = rng.uniform(size=(2, 150)) < 0.8
+        got = KN.nms_rotated(torch.from_numpy(rb), torch.from_numpy(lb), 0.3,
+                             torch.from_numpy(ok))
+        fn = jax.jit(functools.partial(_jax_rot_sweep, iou=0.3))
+        want = np.stack([np.asarray(fn(jnp.asarray(r), jnp.asarray(b), jnp.asarray(o)))
+                         for r, b, o in zip(rb, lb, ok)])
+    assert 10 < int(want.sum()) < want.size  # some kept, some removed
+    _eq(want, got)
 
 
 def test_nms_numpy_matches_jax():

@@ -27,7 +27,7 @@ launch_counts: Dict[str, int] = {
     "int8_act_absmax": 0,  # the dynamic scale's reduction before int8_dw_conv_f32
     "hsv_jitter": 0,  # K4, kernels/hsv.py
     "stem_conv": 0,  # the fused serving stem, kernels/stem.py
-    "nms_sweep": 0,  # the v8-family heads' greedy NMS sweep, kernels/nms.py
+    "nms_sweep": 0,  # the v8-family heads' NMS from the boxes, kernels/nms.py (one a call)
 }
 
 

@@ -3,11 +3,12 @@ and of the rotated NMS of ``engine/validator_tasks.py`` ``OBBValidator``).
 
 Every shape is fixed by K (the candidates kept by the pre-top-k) and
 ``max_det``, so the whole epilogue runs inside a captured forward: the
-pre-top-k with JAX's tie order (``ops/topk.py``), the (B, K, K) pairwise
-matrix in plain PyTorch exactly as JAX builds it, the greedy sweep over it
-(the hand kernel ``kernels/nms.py`` on the card, one launch), then a stable
-argsort that moves the kept rows to the front, zero padding to ``max_det``
-and the gathered ``extra`` payload (mask coefficients, keypoints).
+pre-top-k with JAX's tie order (``ops/topk.py``), the keep mask of JAX's
+greedy sweep over the pairwise IoU or probiou (``kernels/nms.py``: on the
+card one hand kernel that computes each pair itself, no (B, K, K) matrix),
+then a stable argsort that moves the kept rows to the front, zero padding to
+``max_det`` and the gathered ``extra`` payload (mask coefficients,
+keypoints).
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from ..kernels.nms import nms_sweep
-from .boxes import box_iou_pairwise, probiou, xywh2xyxy
+from ..kernels.nms import nms_iou, nms_rotated
+from .boxes import xywh2xyxy
 from .topk import topk_lowest_index
 
 
@@ -70,7 +71,7 @@ def non_max_suppression(
     conf_ok = top_scores > conf_thres
     shifted = boxes if agnostic else boxes + top_labels.to(boxes.dtype)[..., None] * max_wh
     shifted = torch.where(conf_ok[..., None], shifted, -max_wh * 100)
-    keep = nms_sweep(box_iou_pairwise(shifted, shifted).contiguous(), iou_thres, conf_ok)
+    keep = nms_iou(shifted, iou_thres, conf_ok)
 
     order = compact(keep, max_det)
     valid = _take(keep, order)
@@ -103,10 +104,7 @@ def rotated_nms(
     rb = _take(rbox, idx)
     top_labels = _take(labels, idx)
     ok = top_scores > conf_thres
-    pair = probiou(rb[:, :, None, :], rb[:, None, :, :])
-    pair = torch.where(top_labels[:, :, None] == top_labels[:, None, :], pair, 0.0)
-    pair = torch.where(ok[:, None, :] & ok[:, :, None], pair, 0.0)
-    keep = nms_sweep(pair.contiguous(), iou_thres, ok)
+    keep = nms_rotated(rb, top_labels, iou_thres, ok)
     order = compact(keep, max_det)
     valid = _take(keep, order)
     return (_take(rb, order) * valid[..., None], _take(top_scores, order) * valid,

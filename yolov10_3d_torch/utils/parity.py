@@ -252,33 +252,44 @@ def task_tree(root: Path, task: str, n: int = 8, hw: Tuple[int, int] = (96, 128)
 
 @contextlib.contextmanager
 def nms_margins():
-    """Inside: every NMS sweep (``ops/nms.py``) that the entering thread
-    runs also records, per image, its IoU decision margin: the least
-    |m[i, j] - thr| over the pairs whose comparison decides, a kept
-    candidate i before a candidate j that passes conf. Yields the list the
-    margins are appended to, in call order. A margin under a comparison's
-    bar means float rounding may flip a keep decision there."""
+    """Inside: every NMS (``ops/nms.py``, axis-aligned or rotated) that the
+    entering thread runs also records, per image, its IoU decision margin:
+    the least |m[i, j] - thr| over the pairs whose comparison decides, a
+    kept candidate i before a candidate j that passes conf, with m the
+    twin's pairwise matrix. Yields the list the margins are appended to, in
+    call order. A margin under a comparison's bar means float rounding may
+    flip a keep decision there."""
+    from ..kernels import nms as KN
+    from ..ops import boxes as B
     from ..ops import nms as N
 
     record: List[float] = []
-    sweep, owner = N.nms_sweep, threading.get_ident()
+    entries, owner = (N.nms_iou, N.nms_rotated), threading.get_ident()
 
-    def recording(m, thr, conf_ok):
-        keep = sweep(m, thr, conf_ok)
-        if threading.get_ident() != owner:
-            return keep
+    def margins(m, thr, keep, conf_ok):
         K = m.shape[1]
         later = torch.ones((K, K), dtype=torch.bool, device=m.device).triu(1)
         decides = keep[:, :, None] & conf_ok[:, None, :] & later
         gap = (m.double() - thr).abs().masked_fill(~decides, float("inf"))
         record.extend(gap.flatten(1).amin(1).tolist())
+
+    def iou(boxes, thr, conf_ok):
+        keep = entries[0](boxes, thr, conf_ok)
+        if threading.get_ident() == owner:
+            margins(B.box_iou_pairwise(boxes, boxes), thr, keep, conf_ok)
         return keep
 
-    N.nms_sweep = recording
+    def rotated(rb, labels, thr, ok):
+        keep = entries[1](rb, labels, thr, ok)
+        if threading.get_ident() == owner:
+            margins(KN.rotated_matrix(rb, labels, ok), thr, keep, ok)
+        return keep
+
+    N.nms_iou, N.nms_rotated = iou, rotated
     try:
         yield record
     finally:
-        N.nms_sweep = sweep
+        N.nms_iou, N.nms_rotated = entries
 
 
 def task_labels(task: str, results, labels: Path, top: int = 3) -> None:
